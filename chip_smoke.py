@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""End-to-end smoke of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA GPU.  Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (the exit code is not 0 and the last line is
+not printed):
+
+1. The card's name and power limit, then the build of the four kernels from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
+2. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
+   M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
+   its plain PyTorch version on the same inputs: ADT and lookup at rtol/atol
+   1e-4, rerank at 1e-4/1e-3, the sort exactly.  Each is timed with CUDA
+   events, one launch at a time, the 50 MB L2 cache flushed before each and
+   the launch queued behind a spin so that only device time is measured;
+   beside it the plain version's time and, where one PyTorch call computes
+   the same function, that call's time.
+3. Main path: a sift-like corpus (ann-benchmarks sift-128-euclidean scale:
+   1M base, 10k queries, 128-d, L2) built into a Proxima index on the card
+   (PQ M=32 x C=256, graph R=64 / build list 128, hot_node_fraction=0, no
+   gap encoding), then all queries submitted to ``ServingEngine(index,
+   batch_size=256)`` and drained.  Launch counts are zeroed just before and
+   read just after; every kernel must have launched.  Fails if recall@10
+   against the exact ground truth is below 0.5, or if the engine's ids differ
+   from ``Searcher.search`` of the same queries.
+4. Cross-device check: 64 queries through the same search on the CPU (plain
+   versions); at least 95% of top-10 rows must equal the card's.
+5. The loop-control cost: one batch through ``graph_search`` (host check of
+   "any lane active" every DONE_CHECK_EVERY rounds) and through
+   ``graph_search_stepped`` (a check every round), in turns.
+
+The line before last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Details (the full record, ptxas
+reports, profiler tables) go to ``--out-dir``, ``results/chip_smoke/`` by
+default.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class _Flush:
+    """Writes 64 MiB between timed launches so each finds L2 cold."""
+
+    def __init__(self, torch, dev):
+        self.buf = torch.empty(1 << 24, dtype=torch.float32, device=dev)
+
+    def __call__(self):
+        self.buf.fill_(1.0)
+
+
+SPIN_CYCLES = 2_000_000          # ~1 ms of device time at 1.98 GHz
+
+
+def _time_ms(torch, fn, flush, reps=30, warmup=3) -> float:
+    """Median device milliseconds of one call of ``fn``, from CUDA events
+    around the call.  Before each call the L2 is flushed and the device is
+    kept busy by a ~1 ms spin, so the events time the device work of ``fn``
+    and not the host's time to enqueue it."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _bound(nbytes: float, flops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
+    """Each kernel vs its plain version at the main path's shapes; raises
+    on a disagreement.  Returns one record per kernel (launches filled in
+    later from the main path)."""
+    from repro_torch.kernels import ops
+
+    q, d, m, c, r, l = 256, 128, 32, 256, 64, 128
+    g = torch.Generator(device=dev).manual_seed(seed)
+    queries = torch.randn(q, d, generator=g, device=dev)
+    cents = torch.randn(m, c, d // m, generator=g, device=dev)
+    codes = torch.randint(0, c, (n_base, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    base = torch.randn(n_base, d, generator=g, device=dev)
+    nbr = torch.randint(0, n_base, (q, r), generator=g, device=dev,
+                        dtype=torch.int32)
+    cand = torch.randint(0, n_base, (q, l), generator=g, device=dev,
+                         dtype=torch.int32)
+    # the merge's keys: L sorted list entries, R fresh ones, +inf padding to
+    # 256, with ties from repeated values
+    p = 256
+    keys = torch.randint(0, 512, (q, p), generator=g, device=dev).float()
+    keys[:, l + r:] = float("inf")
+    keys[:, :l] = keys[:, :l].sort(dim=1).values
+    pos = torch.arange(p, dtype=torch.int32, device=dev).expand(q, p).contiguous()
+    flush = _Flush(torch, dev)
+    out = []
+
+    def record(name, source, replaces, got, want, rtol, atol, kernel, plain,
+               library, nbytes, flops):
+        if isinstance(got, tuple):
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name}: kernel sort differs from "
+                                     "torch.sort(stable=True)")
+            err = rel = 0.0
+        else:
+            err = float((got - want).abs().max())
+            rel = float(((got - want).abs()
+                         / want.abs().clamp(min=1e-6)).max())
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                       msg=lambda s: f"{name}: {s}")
+        bound_ms, bound_by = _bound(nbytes, flops)
+        kernel_ms = _time_ms(torch, kernel, flush)
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "max_rel_err": rel, "rtol": rtol, "atol": atol,
+            "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "plain_ms": _time_ms(torch, plain, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": (_time_ms(torch, library, flush)
+                           if library is not None else None),
+        })
+
+    # ---- pq_adt --------------------------------------------------------
+    got = ops.pq_adt(queries, cents, "l2")
+    torch.cuda.synchronize()
+    qs = queries.reshape(q, m, d // m).transpose(0, 1).contiguous()
+    record("pq_adt", "src/repro_torch/kernels/csrc/pq_adt.cu",
+           "src/repro/kernels/pq_adt.py:38", got,
+           ops.pq_adt_plain(queries, cents, "l2"), 1e-4, 1e-4,
+           lambda: ops.pq_adt(queries, cents, "l2"),
+           lambda: ops.pq_adt_plain(queries, cents, "l2"),
+           lambda: torch.cdist(qs, cents),     # (sqrt of) the same table
+           4 * (q * d + m * c * (d // m) + q * m * c),
+           3 * q * m * c * (d // m))
+
+    # ---- pq_lookup (the search's gather entry) ---------------------------
+    adts = ops.pq_adt(queries, cents, "l2")
+    got = ops.pq_lookup_gather(nbr, codes, adts)
+    torch.cuda.synchronize()
+    flat_idx = (codes[nbr.long()].long()
+                + torch.arange(m, device=dev) * c)          # (Q, R, M)
+    adt_flat = adts.reshape(q, 1, m * c).expand(q, r, m * c)
+    touched = int(torch.unique(flat_idx + torch.arange(
+        q, device=dev)[:, None, None] * (m * c)).numel())
+    record("pq_lookup", "src/repro_torch/kernels/csrc/pq_lookup.cu",
+           "src/repro/kernels/pq_lookup.py:42", got,
+           ops.pq_lookup_gather_plain(nbr, codes, adts), 1e-4, 1e-4,
+           lambda: ops.pq_lookup_gather(nbr, codes, adts),
+           lambda: ops.pq_lookup_gather_plain(nbr, codes, adts),
+           lambda: adt_flat.gather(2, flat_idx).sum(-1),  # codes pre-gathered
+           4 * q * r + q * r * m + 4 * touched + 4 * q * r,
+           q * r * m)
+
+    # ---- bitonic_sort_pairs --------------------------------------------
+    got = ops.bitonic_sort_pairs(keys, pos)
+    torch.cuda.synchronize()
+    lg = p.bit_length() - 1
+    record("bitonic_sort_pairs", "src/repro_torch/kernels/csrc/bitonic_topk.cu",
+           "src/repro/kernels/bitonic_topk.py:57", got,
+           ops.bitonic_sort_pairs_plain(keys, pos), 0.0, 0.0,
+           lambda: ops.bitonic_sort_pairs(keys, pos),
+           lambda: ops.bitonic_sort_pairs_plain(keys, pos),
+           lambda: torch.sort(keys, dim=1, stable=True),
+           16 * q * p, q * (p // 2) * lg * (lg + 1) // 2)
+
+    # ---- l2_rerank (the search's gather entry) ---------------------------
+    got = ops.l2_rerank_gather(queries, cand, base, "l2")
+    torch.cuda.synchronize()
+    rows = int(torch.unique(cand).numel())
+    gathered = base[cand.long()]
+    record("l2_rerank", "src/repro_torch/kernels/csrc/l2_rerank.cu",
+           "src/repro/kernels/l2_rerank.py:39", got,
+           ops.l2_rerank_gather_plain(queries, cand, base, "l2"), 1e-4, 1e-3,
+           lambda: ops.l2_rerank_gather(queries, cand, base, "l2"),
+           lambda: ops.l2_rerank_gather_plain(queries, cand, base, "l2"),
+           lambda: torch.cdist(queries[:, None, :], gathered),  # rows gathered
+           4 * (q * d + q * l + rows * d + q * l), 6 * q * l * d)
+    return out
+
+
+def main_path(torch, dev, args, log) -> tuple:
+    """Build the index and serve the queries through the port's entry
+    points; returns (the numbers the smoke prints and checks, the index,
+    the engine's (Q, 10) ids)."""
+    import numpy as np
+
+    from repro_torch.configs.base import (
+        DatasetConfig, GraphConfig, PQConfig, ProximaConfig, SearchConfig,
+    )
+    from repro_torch.core.dataset import make_dataset, recall_at_k
+    from repro_torch.core.index import build_index
+    from repro_torch.kernels import loader
+    from repro_torch.plan import Searcher, SearchRequest
+    from repro_torch.serve import ServingEngine
+
+    cfg = ProximaConfig(
+        dataset=DatasetConfig(name="sift-like", num_base=args.num_base,
+                              num_queries=args.num_queries, dim=128,
+                              metric="l2", num_clusters=args.num_clusters,
+                              cluster_std=args.cluster_std, seed=args.seed),
+        pq=PQConfig(num_subvectors=32, num_centroids=256),
+        graph=GraphConfig(max_degree=64, build_list_size=128),
+        search=SearchConfig(),
+        hot_node_fraction=0.0, gap_encode=False,
+    )
+    res = {"config": {"num_base": args.num_base,
+                      "num_queries": args.num_queries,
+                      "num_clusters": args.num_clusters,
+                      "cluster_std": args.cluster_std}}
+    t0 = time.perf_counter()
+    ds = make_dataset(cfg.dataset, k_gt=10, device=dev)
+    torch.cuda.synchronize()
+    stages = {"dataset_and_ground_truth": time.perf_counter() - t0}
+    idx = build_index(cfg, dataset=ds, device=dev, stage_times=stages)
+    res["build_s"] = stages
+    log(f"build seconds by stage: {json.dumps(stages)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServingEngine(idx, batch_size=256)
+    torch.cuda.synchronize()
+    res["engine_warmup_s"] = time.perf_counter() - t0
+    corpus = engine.searcher.corpus
+    res["corpus_bytes"] = {f: int(getattr(corpus, f).nbytes) for f in
+                           ("base", "adjacency", "codes", "centroids")}
+    log(f"corpus bytes on the card: {json.dumps(res['corpus_bytes'])}")
+
+    queries = ds.queries
+    loader.reset_launch_counts()
+    t0 = time.perf_counter()
+    for v in queries:
+        engine.submit(v)
+    engine.drain()
+    wall = time.perf_counter() - t0
+    res["launches"] = dict(loader.LAUNCHES)
+    res["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    done = [engine.done[i] for i in range(len(queries))]
+    ids = np.stack([r.ids for r in done])
+    lat = np.array([r.latency_ms for r in done])
+    t_done = sorted({r.t_done for r in done})
+    batch_ms = [(b - a) * 1e3 for a, b in zip(t_done, t_done[1:])]
+    res.update(
+        qps=len(queries) / wall, wall_s=wall, batches=engine.stats["batches"],
+        p50_ms=float(np.percentile(lat, 50)),
+        p99_ms=float(np.percentile(lat, 99)),
+        batch_ms_median=sorted(batch_ms)[len(batch_ms) // 2]
+        if batch_ms else None,
+        recall_at_10=recall_at_k(ids, ds.gt, 10),
+    )
+
+    # the same queries through Searcher.search directly, 256 at a time
+    searcher = Searcher.open(idx)
+    direct, hops, rounds = [], [], []
+    for s in range(0, len(queries), 256):
+        out = searcher.search(SearchRequest(queries=queries[s : s + 256]))
+        direct.append(out.ids)
+        hops.append(out.raw.n_hops.double().cpu())
+        rounds.append(out.raw.rounds.double().cpu())
+    direct = np.concatenate(direct)
+    res["engine_equals_searcher"] = bool((direct == ids).all())
+    res["mean_hops"] = float(torch.cat(hops).mean())
+    res["mean_rounds"] = float(torch.cat(rounds).mean())
+    # a batch runs until its slowest lane is done
+    res["mean_batch_max_rounds"] = float(np.mean([float(r.max())
+                                                  for r in rounds]))
+    return res, idx, ids
+
+
+def cross_device(torch, idx, gpu_ids, n: int = 64) -> float:
+    """Share of the first n queries whose top-10 ids on the CPU (plain
+    versions) equal the card's."""
+    import dataclasses
+
+    from repro_torch.plan import Searcher, SearchRequest
+
+    cpu = Searcher.open(dataclasses.replace(idx, device="cpu"))
+    got = cpu.search(SearchRequest(queries=idx.dataset.queries[:n])).ids
+    return float((got == gpu_ids[:n]).all(1).mean())
+
+
+def loop_control(torch, idx, reps: int = 3) -> dict:
+    """Per-batch seconds of graph_search (a host check every
+    DONE_CHECK_EVERY rounds) and graph_search_stepped (every round), in
+    turns on the same 256 queries."""
+    from repro_torch.core import search as S
+
+    corpus = idx.corpus()
+    q = idx.dataset.queries[:256]
+    cfg = idx.config.search
+    times = {"every_4": [], "every_1": []}
+    for _ in range(reps):
+        for name, fn in (("every_1", S.graph_search_stepped),
+                         ("every_4", S.graph_search),
+                         ("every_4", S.graph_search),
+                         ("every_1", S.graph_search_stepped)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(corpus, q, cfg)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def profile_batch(torch, idx, out_dir) -> dict:
+    """One 256-query ``graph_search`` under ``torch.profiler``: the device's
+    busy share (kernel time over wall time, both under the profiler), the
+    rounds the batch ran, and the ops by host and device time (full tables
+    in ``<out-dir>/profile.txt``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.search import graph_search
+
+    corpus = idx.corpus()
+    q = idx.dataset.queries[256:512]
+    cfg = idx.config.search
+    graph_search(corpus, q, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = graph_search(corpus, q, cfg)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graph_search(corpus, q, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    # device time = the kernels' own events (the aten ops that launched
+    # them report the same time again), as the profiler's table sums it
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_us = sum(e.self_device_time_total for e in ev
+                 if e.device_type == cuda and not e.is_user_annotation)
+    (out_dir / "profile.txt").write_text(
+        ev.table(sort_by="self_cpu_time_total", row_limit=40) + "\n"
+        + ev.table(sort_by="self_device_time_total", row_limit=25))
+    top = sorted((e for e in ev if e.device_type != cuda),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    rounds = res.rounds.cpu()
+    return {
+        "batch_wall_s": plain_wall, "profiled_wall_s": wall,
+        "device_s": dev_us / 1e6,
+        "device_busy_share": dev_us / (wall * 1e6),
+        "device_busy_share_unprofiled": dev_us / (plain_wall * 1e6),
+        "launches": sum(e.count for e in ev if e.key == "cudaLaunchKernel"),
+        "rounds_max": int(rounds.max()), "rounds_mean": float(
+            rounds.double().mean()),
+        "top_device_ops_us": {e.key: e.self_device_time_total for e in top},
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--num-base", type=int, default=1_000_000)
+    ap.add_argument("--num-queries", type=int, default=10_000)
+    # more, smaller clusters than DatasetConfig's 64 x 0.15: each cluster
+    # must hold fewer points than the build list (128), or every kNN list
+    # stays inside its cluster and recall collapses (PERF.md)
+    ap.add_argument("--num-clusters", type=int, default=16384)
+    ap.add_argument("--cluster-std", type=float, default=0.5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out-dir", default="results/chip_smoke",
+                    help="where the details go, relative to the repo root")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke runs only on a "
+              "GPU", file=sys.stderr)
+        return 2
+    repo = Path(__file__).resolve().parent
+    if not (repo / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(repo / "src"))
+    out_dir = repo / args.out_dir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    detail = {}
+
+    def log(msg):
+        print(msg, flush=True)
+
+    dev = torch.device("cuda")
+    card = _card_line()
+    log(card)
+    from repro_torch.kernels import loader
+
+    t0 = time.perf_counter()
+    reports = loader.build_all()
+    detail["kernel_build_s"] = time.perf_counter() - t0
+    (out_dir / "ptxas.txt").write_text("\n".join(
+        f"== {k}\n{v}" for k, v in reports.items()))
+    log(f"kernels built in {detail['kernel_build_s']:.1f} s "
+        f"({', '.join(reports) or 'cached'})")
+
+    kernels = kernel_phase(torch, dev, args.num_base, args.seed)
+    for k in kernels:
+        log(f"kernel {k['name']}: max_abs_err={k['max_abs_err']:.3g} "
+            f"ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+            f"library_ms={k['library_ms']} bound_ms={k['bound_ms']:.4f} "
+            f"({k['bound_by']})")
+
+    res, idx, gpu_ids = main_path(torch, dev, args, log)
+    for k in kernels:
+        k["launches"] = res["launches"][k["name"]]
+    log(f"launches on the main path: {json.dumps(res['launches'])}")
+    log(f"served {args.num_queries} queries in {res['wall_s']:.3f} s: "
+        f"QPS={res['qps']:.1f} p50_ms={res['p50_ms']:.2f} "
+        f"p99_ms={res['p99_ms']:.2f} batch_ms_median={res['batch_ms_median']}"
+        f" mean_rounds={res['mean_rounds']:.2f} "
+        f"mean_batch_max_rounds={res['mean_batch_max_rounds']:.2f} "
+        f"mean_hops={res['mean_hops']:.2f} "
+        f"recall@10={res['recall_at_10']:.4f}")
+    log(f"engine ids equal Searcher.search: {res['engine_equals_searcher']}")
+
+    share = cross_device(torch, idx, gpu_ids)
+    res["cross_device_identical_rows"] = share
+    log(f"cross-device: {share:.4f} of 64 top-10 rows identical CPU vs GPU")
+    res["loop_control_s"] = loop_control(torch, idx)
+    log(f"loop control, seconds per 256-query batch: "
+        f"{json.dumps(res['loop_control_s'])}")
+    res["profile"] = profile_batch(torch, idx, out_dir)
+    log(f"profiled batch: {json.dumps(res['profile'])}")
+
+    detail.update(card=card, kernels=kernels, main=res)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
+
+    failures = []
+    if min(res["launches"].values()) <= 0:
+        failures.append(f"a kernel never launched: {res['launches']}")
+    if res["recall_at_10"] < 0.5:
+        failures.append(f"recall@10 {res['recall_at_10']:.4f} < 0.5")
+    if not res["engine_equals_searcher"]:
+        failures.append("engine ids differ from Searcher.search")
+    if share < 0.95:
+        failures.append(f"cross-device identical rows {share:.4f} < 0.95")
+    if failures:
+        print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,240 @@
+"""Proxima configuration dataclasses — the port's copy of the Proxima half of
+``src/repro/configs/base.py`` (lines 185-402): ``PQConfig`` through
+``ProximaConfig`` and ``upgrade_config``.  Field names and defaults are
+identical to the reference's, so a reference config converts field for field.
+
+``SearchConfig.use_pallas`` is kept for parity only.  The port routes by the
+device of its tensors instead: tensors on a CUDA device launch the
+hand-written kernels of ``repro_torch.kernels``, tensors on the CPU take
+their plain PyTorch versions (the reference's ``use_pallas=False`` path).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+# ---------------------------------------------------------------------------
+# Proxima (paper) configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PQConfig:
+    """Product quantization geometry (paper: M=32 subvectors, C=256)."""
+    num_subvectors: int = 32          # M
+    num_centroids: int = 256          # C
+    kmeans_iters: int = 10
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class GraphConfig:
+    """Vamana/DiskANN-style proximity-graph build (paper §V-A: R=64)."""
+    max_degree: int = 64              # R
+    build_list_size: int = 128        # L during build
+    alpha: float = 1.2                # RRND pruning slack
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class SearchConfig:
+    """Algorithm 1 parameters."""
+    k: int = 10
+    list_size: int = 128              # L (outer list)
+    t_init: int = 16                  # initial T
+    t_step: int = 4                   # T_step
+    repetition_rate: int = 2          # r — stable rounds before termination
+    beta: float = 1.06                # PQ error ratio for reranking
+    max_rounds: int = 256             # hard cap on traversal rounds
+    beam_width: int = 1               # E — candidates expanded per round; the
+                                      # E adjacency fetches of one round are
+                                      # plane-parallel NAND page reads
+    use_pq: bool = True               # False -> HNSW-style accurate traversal
+    early_termination: bool = True
+    rerank: bool = True
+    use_pallas: bool = False          # parity only: the port routes by the
+                                      # tensors' device (CUDA -> kernels)
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    """Synthetic corpus spec (offline stand-ins for SIFT/GLOVE/DEEP)."""
+    name: str = "sift-like"
+    num_base: int = 10000
+    num_queries: int = 256
+    dim: int = 128
+    metric: str = "l2"                # l2 | angular | ip
+    num_clusters: int = 64
+    cluster_std: float = 0.15
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class StreamConfig:
+    """Mutable-index (streaming) subsystem parameters.
+
+    The delta segment is an in-memory append-only Vamana graph over freshly
+    inserted vectors; once it exceeds ``consolidate_fraction`` of the base
+    corpus, ``MutableIndex.consolidate()`` merges it into a rebuilt base
+    index (re-running reorder / hot-node / gap-encode).
+    """
+    delta_capacity: int = 4096        # hard cap on delta-segment size
+    consolidate_fraction: float = 0.25  # consolidate when delta/base exceeds
+    delta_list_size: int = 32         # greedy-search list size inside delta
+    brute_force_below: int = 64       # exact scan while the delta is tiny
+    base_overfetch: int = 16          # extra base candidates (tombstone slack)
+
+
+@dataclass(frozen=True)
+class BuildConfig:
+    """Segmented out-of-core index build (``repro.core.segmented``).
+
+    ``segment_size == 0`` (default) builds the whole corpus as ONE segment —
+    the legacy monolithic pipeline, bit-identical to ``core.build_index``.
+    With ``segment_size > 0`` the corpus is consumed as a stream of
+    fixed-size segments: the PQ codebook is trained once on a bounded
+    reservoir sample, each segment gets its own proximity graph /
+    visit-frequency reordering / gap encoding (working set bounded by the
+    segment, not the corpus), and segments are cross-stitched through the
+    streaming insert machinery (``repro.stream.stitch``).
+    """
+    segment_size: int = 0             # 0 -> single segment (monolithic)
+    codebook_sample: int = 1 << 16    # reservoir cap for shared PQ training
+    stitch_sample: int = 32           # boundary anchors patched per segment
+    stitch_list_size: int = 0         # greedy-search list during stitching;
+                                      # 0 -> density-compensated
+                                      # build_list_size (x num_segments)
+
+
+@dataclass(frozen=True)
+class ShardConfig:
+    """Multi-channel corpus partitioning (the shard layer, ``repro.shard``).
+
+    ``num_tiles`` search tiles model independent NAND channel groups: cold
+    vertices are partitioned by ``policy`` (contiguous | hash | cluster),
+    hot nodes and PQ centroids are replicated on every tile
+    (``replicate_hot``), and a query fans out to all tiles before a
+    cross-tile top-k merge.
+    """
+    num_tiles: int = 1                # 1 -> single-tile (paper baseline)
+    policy: str = "contiguous"        # contiguous | hash | cluster
+    replicate_hot: bool = True        # paper's hot-node repetition per channel
+    probe_tiles: int = 0              # 0 -> full fan-out; >0 -> route each
+                                      # query to its nearest tiles (cluster
+                                      # policy's IVF-style nprobe)
+
+
+@dataclass(frozen=True)
+class FilterConfig:
+    """Filtered-search subsystem parameters (``repro.filter``).
+
+    A ``FilterSpec`` compiles to a per-node boolean mask; the selectivity
+    estimator routes each filtered query to one of two regimes:
+
+      * moderate selectivity — masked graph traversal with an inflated
+        effective ``list_size`` (non-passing nodes still route but cannot
+        enter the result set, so the frontier must be wider to accumulate
+        ``k`` passing candidates) and a relaxed early-termination threshold;
+      * high selectivity (``<= brute_force_selectivity``) — a bitmap-driven
+        brute-force PQ scan over the passing subset, exact-reranked.
+
+    ``attr_bits`` is the per-node attribute word the NAND model bills as a
+    spare-area read co-located with the adjacency page (predicate pushdown,
+    see ``nand.simulator``).
+    """
+    attr_bits: int = 32               # spare-area attribute word per node
+    brute_force_selectivity: float = 0.02  # <= this -> bitmap PQ scan
+    inflate_cap: int = 8              # max list_size inflation (pow2-quantized)
+    relax_repetition: int = 1         # extra stable rounds under a filter
+    scan_rerank: int = 4              # scan mode reranks top scan_rerank*k
+    pushdown: bool = True             # evaluate predicates inside the tile
+
+
+@dataclass(frozen=True)
+class ObsConfig:
+    """Observability switches (``repro.obs``) — all OFF by default, so the
+    serving hot path pays only a no-op branch per instrumented call site.
+    ``Observability.resolve`` turns this into a live registry/tracer bundle
+    (``ServingEngine(obs=ObsConfig(metrics=True, ...))``)."""
+    metrics: bool = False             # counters / gauges / histograms
+    tracing: bool = False             # per-request Chrome trace-event spans
+    nand_billing: bool = False        # per-batch simulated NAND cost export
+    # quality layer (repro.obs.quality / repro.obs.convergence)
+    quality: bool = False             # shadow-recall sampling vs the exact
+                                      # oracle, Wilson CIs (implies metrics)
+    quality_sample_rate: float = 0.05  # fraction of live requests replayed
+    quality_seed: int = 0             # sampling-stream seed (deterministic)
+    convergence: bool = False         # per-round telemetry ring buffer
+    convergence_capacity: int = 1 << 16  # ring size in records (oldest
+                                         # dropped on overflow)
+
+
+@dataclass(frozen=True)
+class PlanConfig:
+    """Query-plan layer parameters (``repro.plan``) — the single config the
+    ``Searcher`` facade consumes, collapsing what used to be per-feature
+    ``ServingEngine.__init__`` kwargs (num_tiles / shard_policy /
+    probe_tiles / beam_width / ...) into one typed object.
+
+    ``None`` fields defer to the index's own ``ProximaConfig`` (its
+    ``search`` / ``shard`` / ``filter`` sections), so an empty ``PlanConfig``
+    reproduces the index's configured serving mode exactly.
+    """
+    search: Optional["SearchConfig"] = None   # None -> index.config.search
+    beam_width: Optional[int] = None          # override search.beam_width (E)
+    num_tiles: Optional[int] = None           # None -> config.shard.num_tiles
+    shard_policy: Optional[str] = None        # None -> config.shard.policy
+    probe_tiles: Optional[int] = None         # None -> config.shard.probe_tiles
+    filter: Optional["FilterConfig"] = None   # None -> config.filter
+    bloom_bits: int = 1 << 17                 # traversal visited-set filter
+    num_hashes: int = 8
+    use_vmap: Optional[bool] = None           # tiled fan-out style (see shard)
+    # distributed (device-mesh) execution ------------------------------------
+    mode: str = "nsp"                         # nsp | fetch collective mode
+    data_axis: str = "data"
+    queue_axis: str = "model"
+
+
+@dataclass(frozen=True)
+class ProximaConfig:
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    pq: PQConfig = field(default_factory=PQConfig)
+    graph: GraphConfig = field(default_factory=GraphConfig)
+    search: SearchConfig = field(default_factory=SearchConfig)
+    stream: StreamConfig = field(default_factory=StreamConfig)
+    build: BuildConfig = field(default_factory=BuildConfig)
+    shard: ShardConfig = field(default_factory=ShardConfig)
+    filter: FilterConfig = field(default_factory=FilterConfig)
+    hot_node_fraction: float = 0.03   # paper default 3%
+    gap_encode: bool = True
+
+
+def upgrade_config(cfg):
+    """Fill in fields added to ``cfg``'s schema after it was pickled
+    (benchmark index caches survive schema growth: a missing field gets its
+    current default), recursing into nested config dataclasses so fields
+    added to e.g. ``SearchConfig`` are filled even when the pickle predates
+    them. Returns ``cfg`` unchanged when already complete — callers can rely
+    on identity for the common no-op case. Non-dataclass values pass through
+    untouched."""
+    if not dataclasses.is_dataclass(cfg) or isinstance(cfg, type):
+        return cfg
+    cls = type(cfg)
+    changed = {}
+    for f in dataclasses.fields(cls):
+        if not hasattr(cfg, f.name):
+            continue  # missing -> cls(**present) fills the default below
+        old = getattr(cfg, f.name)
+        new = upgrade_config(old)
+        if new is not old:
+            changed[f.name] = new
+    complete = all(hasattr(cfg, f.name) for f in dataclasses.fields(cls))
+    if complete and not changed:
+        return cfg
+    kwargs = {
+        f.name: changed.get(f.name, getattr(cfg, f.name))
+        for f in dataclasses.fields(cls)
+        if hasattr(cfg, f.name)
+    }
+    return cls(**kwargs)

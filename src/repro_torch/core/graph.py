@@ -1,0 +1,370 @@
+"""Proximity-graph construction — port of ``build_knn_prune`` of
+``src/repro/core/graph.py`` (lines 47-232), batched on the device.
+
+The rule is the reference's, step for step:
+  1. exact kNN lists (self excluded), ascending by (distance, id);
+  2. the Vamana RRND robust prune of every list (alpha slack, R kept);
+  3. reverse edges: each row gets the nodes that kept it, in ascending id,
+     after its own kept entries; rows longer than R are pruned again over
+     their merged list;
+  4. the medoid of a 4096-point sample as entry point;
+  5. NSG-style connectivity repair: while some node is unreachable from the
+     entry, stitch the orphan closest to the dataset centroid to its nearest
+     reached node with a free or unprotected slot, both ways; stitch edges
+     are protected and never evicted;
+  6. rows deduplicated, self-loops dropped, padded to R with the last entry.
+
+The reference runs steps 2-3 as a Python loop over nodes and step 5 as a
+Python BFS per orphan component, which takes hours at 1M vectors.  Here the
+kNN is a chunked full-float32 ``torch.matmul`` with a stable top-k; the prune
+runs for a chunk of nodes at once — a loop over candidate positions with
+each node's K x K candidate distances in one batched product; re-prunes are
+grouped by merged-list size; reachability is a BFS over the device
+adjacency.  Distances round differently from numpy's, so a near-tie can
+resolve the other way; on the test corpus the rows agree (PERF.md).
+``build_incremental`` is not ported (ROADMAP).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import GraphConfig
+from repro_torch.core.dataset import (
+    full_precision, l2_normalize, pairwise_dist, pairwise_dist_torch,
+    sorted_smallest,
+)
+
+# elements of a chunk's largest temporary: the (rows, N) kNN distance block,
+# or the (nodes, K, K + D) candidate block of the prune — 1 GiB of float32
+_CHUNK_ELEMS = 1 << 28
+
+
+@dataclass
+class Graph:
+    adjacency: np.ndarray   # (N, R) int32, padded
+    degrees: np.ndarray     # (N,) int32 true degrees
+    entry_point: int
+    metric: str
+
+    @property
+    def num_vertices(self) -> int:
+        return self.adjacency.shape[0]
+
+    @property
+    def max_degree(self) -> int:
+        return self.adjacency.shape[1]
+
+
+def medoid(base: np.ndarray, metric: str, sample: int = 4096, seed: int = 0) -> int:
+    """The reference's medoid, in numpy: same sample, same arithmetic."""
+    rng = np.random.default_rng(seed)
+    n = base.shape[0]
+    idx = rng.choice(n, size=min(sample, n), replace=False)
+    centroid = base.mean(0, keepdims=True)
+    d = pairwise_dist(centroid, base[idx], metric)[0]
+    return int(idx[np.argmin(d)])
+
+
+def _compact(rows: torch.Tensor, keep: torch.Tensor, width: int) -> torch.Tensor:
+    """Move each row's kept entries to the front, in order; -1 after them;
+    cut to ``width`` columns."""
+    pos = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
+    pos = pos[:, :width]
+    return torch.where(keep.gather(1, pos), rows.gather(1, pos), -1)
+
+
+def knn_lists(base: torch.Tensor, k: int, metric: str):
+    """(N, k) int64 ids and float32 distances of each point's k nearest
+    other points, ascending by (distance, id)."""
+    n = base.shape[0]
+    x2 = (base * base).sum(-1) if metric == "l2" else None
+    chunk = max(1, _CHUNK_ELEMS // n)
+    ids, dists = [], []
+    for s in range(0, n, chunk):
+        d = pairwise_dist_torch(base[s : s + chunk], base, metric, x2)
+        r = torch.arange(d.shape[0], device=base.device)
+        d[r, s + r] = float("inf")                       # exclude self
+        v, i = sorted_smallest(d, k)
+        ids.append(i)
+        dists.append(v)
+    return torch.cat(ids), torch.cat(dists)
+
+
+def robust_prune_batch(cand: torch.Tensor, cand_d: torch.Tensor,
+                       base: torch.Tensor, metric: str, r: int,
+                       alpha: float) -> torch.Tensor:
+    """The Vamana RRND rule for a batch of nodes at once.
+
+    cand (B, K) int64 candidate ids (-1 padding), cand_d (B, K) their
+    distances to the node (+inf padding) -> (B, r) kept ids in keep order,
+    -1 padded.  Per node, exactly the reference's ``robust_prune``: walk the
+    candidates by (distance, position); keep each survivor p, stop at r kept,
+    else drop every later survivor x with alpha * d(p, x) <= d(node, x)."""
+    order = torch.sort(cand_d, dim=1, stable=True).indices
+    ids = cand.gather(1, order)
+    d = cand_d.gather(1, order)
+    x = base[ids.clamp(min=0)]                                 # (B, K, D)
+    if metric == "l2":
+        x2 = (x * x).sum(-1)
+        pd = x2[:, :, None] + x2[:, None, :] - 2.0 * torch.bmm(
+            x, x.transpose(1, 2))
+    else:
+        if metric == "angular":
+            x = l2_normalize(x)
+        pd = -torch.bmm(x, x.transpose(1, 2))
+    b, k = ids.shape
+    alive = ids >= 0
+    live = torch.ones(b, dtype=torch.bool, device=ids.device)
+    count = torch.zeros(b, dtype=torch.int32, device=ids.device)
+    kept = torch.zeros_like(alive)
+    later = torch.arange(k, device=ids.device)
+    for j in range(k):
+        # every 64 positions: stop once no node can keep anything more
+        if j and j % 64 == 0 and not bool((live[:, None]
+                                           & alive[:, j:]).any()):
+            break
+        keep_j = alive[:, j] & live
+        kept[:, j] = keep_j
+        count += keep_j
+        stop = keep_j & (count >= r)
+        live &= ~stop
+        kill = ((keep_j & ~stop)[:, None] & (alpha * pd[:, j, :] <= d)
+                & (later > j)[None, :])
+        alive &= ~kill
+    return _compact(ids, kept, r)
+
+
+def _prune_chunks(nodes: torch.Tensor, cand: torch.Tensor, cand_d, base,
+                  metric, r, alpha) -> torch.Tensor:
+    width = cand.shape[1]
+    step = max(1, _CHUNK_ELEMS // (width * (width + base.shape[1])))
+    return torch.cat([
+        robust_prune_batch(cand[s : s + step], cand_d[s : s + step], base,
+                           metric, r, alpha)
+        for s in range(0, nodes.shape[0], step)
+    ]) if nodes.numel() else cand.new_empty((0, r))
+
+
+def _dist_to_rows(base: torch.Tensor, nodes: torch.Tensor,
+                  cand: torch.Tensor, metric: str) -> torch.Tensor:
+    """(B,) nodes, (B, W) candidate ids (-1 padding) -> (B, W) distances
+    node -> candidate (+inf on padding), the reference's pairwise_dist."""
+    q = base[nodes][:, None, :]                                # (B, 1, D)
+    x = base[cand.clamp(min=0)]                                # (B, W, D)
+    if metric == "l2":
+        d = ((q * q).sum(-1) + (x * x).sum(-1)
+             - 2.0 * torch.bmm(x, q.transpose(1, 2))[..., 0])
+    else:
+        if metric == "angular":
+            q, x = l2_normalize(q), l2_normalize(x)
+        d = -torch.bmm(x, q.transpose(1, 2))[..., 0]
+    return torch.where(cand >= 0, d, float("inf"))
+
+
+def _add_reverse_edges(rows: torch.Tensor, base, metric, r, alpha):
+    """rows (N, r) kept lists -> (N, r): each row followed by the nodes that
+    kept it (ascending, skipping ones already in the row), re-pruned over
+    that merged list when it is longer than r."""
+    n = rows.shape[0]
+    dev = rows.device
+    src = torch.arange(n, device=dev)[:, None].expand_as(rows)
+    has = rows >= 0
+    e_src, e_dst = src[has], rows[has]
+    fwd = torch.sort(e_src * n + e_dst).values
+    # reverse entry (dst <- src) is dropped when dst already lists src
+    back = e_dst * n + e_src
+    pos = torch.searchsorted(fwd, back).clamp(max=fwd.numel() - 1)
+    mutual = fwd[pos] == back
+    back = torch.sort(back[~mutual]).values                    # by (dst, src)
+    r_dst, r_src = back // n, back % n
+    cnt = torch.bincount(r_dst, minlength=n)
+    ptr = torch.cumsum(cnt, 0) - cnt
+    deg = has.sum(1)
+    merged_len = deg + cnt
+    out = torch.full_like(rows, -1)
+    big = merged_len > r
+    # groups of similar merged length share one padded width
+    width = torch.where(big, 2 ** torch.ceil(torch.log2(
+        merged_len.clamp(min=1).double())).long(), r)
+    for w in torch.unique(width).tolist():
+        nodes = torch.nonzero(width == w)[:, 0]
+        nodes = nodes[torch.argsort(cnt[nodes])]
+        step = max(1, _CHUNK_ELEMS // (w * (w + base.shape[1])))
+        for s in range(0, nodes.numel(), step):
+            nd = nodes[s : s + step]
+            wrev = int(cnt[nd].max())
+            rev = rows.new_empty((nd.numel(), 0))
+            if wrev:                      # the nodes' reverse lists, padded
+                t = torch.arange(wrev, device=dev)
+                at = (ptr[nd][:, None] + t).clamp(max=r_src.numel() - 1)
+                rev = torch.where(t[None, :] < cnt[nd][:, None], r_src[at], -1)
+            merged = torch.cat([rows[nd], rev], 1)
+            merged = _compact(merged, merged >= 0, max(w, r))
+            if w > r:
+                cd = _dist_to_rows(base, nd, merged, metric)
+                out[nd] = robust_prune_batch(merged, cd, base, metric, r, alpha)
+            else:
+                out[nd] = merged[:, :r]
+    return out
+
+
+def _reachable(rows: torch.Tensor, entry: int) -> torch.Tensor:
+    """(N,) bool: nodes reachable from ``entry`` (BFS on the device)."""
+    reached = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+    reached[entry] = True
+    frontier = torch.tensor([entry], device=rows.device)
+    while frontier.numel():
+        nb = rows[frontier].reshape(-1)
+        nb = nb[nb >= 0]
+        nb = torch.unique(nb[~reached[nb]])
+        reached[nb] = True
+        frontier = nb
+    return reached
+
+
+def _ensure_connected(rows: torch.Tensor, base: torch.Tensor,
+                      base_np: np.ndarray, metric: str, entry: int,
+                      r: int) -> torch.Tensor:
+    """The reference's connectivity repair (``graph.py:122-189``) on the
+    device rows (N, r), -1 padded; edited in place and returned."""
+    n = rows.shape[0]
+    centroid = base_np.mean(0, keepdims=True)
+    d_centroid = pairwise_dist(centroid, base_np, metric)[0]
+    x2 = (base * base).sum(-1) if metric == "l2" else None
+    protected: set = set()          # stitch edges are preferentially kept
+
+    def row_of(a: int) -> list:
+        return [v for v in rows[a].tolist() if v >= 0]
+
+    for _ in range(4 * n + 16):
+        reached = _reachable(rows, entry)
+        reached_np = reached.cpu().numpy()
+        if reached_np.all():
+            return rows
+        orphans = np.where(~reached_np)[0]
+        u = int(orphans[np.argmin(d_centroid[orphans])])
+        d = pairwise_dist_torch(base[u : u + 1], base, metric, x2)[0]
+        d = torch.where(reached, d, float("inf"))
+        order = torch.sort(d, stable=True).indices[: int(reached.sum())]
+        # the nearest reached node with a free or unprotected slot —
+        # protected (stitch) edges are never evicted, so a reached node
+        # never becomes unreachable again
+        w = None
+        for s in range(0, order.numel(), 256):
+            for cand in order[s : s + 256].tolist():
+                row = row_of(cand)
+                if len(row) < r or any((cand, e) not in protected for e in row):
+                    w = cand
+                    break
+            if w is not None:
+                break
+        if w is None:
+            raise RuntimeError("connectivity repair exhausted slots")
+        for a, b in ((w, u), (u, w)):
+            row = row_of(a)
+            if b in row:
+                continue
+            if len(row) < r:
+                row.append(b)
+            else:
+                da = pairwise_dist(base_np[a : a + 1], base_np[row], metric)[0]
+                evictable = [j for j in range(len(row))
+                             if (a, row[j]) not in protected]
+                if not evictable:
+                    # the reference front-inserts here; the choice of w
+                    # above makes it unreachable
+                    raise RuntimeError("connectivity repair: row fully "
+                                       "protected")
+                j = max(evictable, key=lambda j: da[j])
+                row[j] = b
+            rows[a] = torch.tensor(row + [-1] * (r - len(row)),
+                                   dtype=rows.dtype)
+            protected.add((a, b))
+    raise RuntimeError("connectivity repair did not converge")
+
+
+def pad_rows(rows: torch.Tensor, r: int):
+    """The reference's ``_pad_rows`` on (N, W) -1-padded rows: drop
+    self-loops and repeats (first occurrence wins), cut to r, an empty row
+    gets (i + 1) % n, pad with the last entry.  -> (adjacency, degrees)."""
+    n, w = rows.shape
+    dev = rows.device
+    ar = torch.arange(n, device=dev)[:, None]
+    keep = (rows >= 0) & (rows != ar)
+    col = torch.arange(w, device=dev)[None, :]
+    vals = torch.where(keep, rows, n + col)          # unique filler per slot
+    sv, order = torch.sort(vals, dim=1, stable=True)
+    dup_sorted = torch.zeros_like(keep)
+    dup_sorted[:, 1:] = sv[:, 1:] == sv[:, :-1]
+    keep &= ~torch.zeros_like(keep).scatter(1, order, dup_sorted)
+    out = _compact(rows, keep, r)
+    if out.shape[1] < r:
+        out = torch.nn.functional.pad(out, (0, r - out.shape[1]), value=-1)
+    deg = (out >= 0).sum(1)
+    empty = deg == 0
+    out[empty, 0] = (ar[empty, 0] + 1) % n
+    deg = torch.clamp(deg, min=1)
+    last = out.gather(1, (deg - 1)[:, None])
+    out = torch.where(torch.arange(r, device=dev)[None, :] < deg[:, None],
+                      out, last)
+    return out.to(torch.int32).cpu().numpy(), deg.to(torch.int32).cpu().numpy()
+
+
+def build_knn_prune(base: np.ndarray, cfg: GraphConfig, metric: str,
+                    device="cuda", stage_times: dict | None = None) -> Graph:
+    """kNN lists -> robust prune -> reverse edges -> medoid -> connectivity
+    repair -> padding, on ``device``.  ``stage_times``, if given, receives
+    the seconds each stage took (synchronised)."""
+    n = base.shape[0]
+    r = cfg.max_degree
+    k = min(cfg.build_list_size, n - 1)
+    timer = StageTimer(stage_times, device)
+    with full_precision():
+        xb = torch.as_tensor(np.ascontiguousarray(base, np.float32),
+                             device=device)
+        knn, knn_d = knn_lists(xb, k, metric)
+        timer.mark("knn")
+        nodes = torch.arange(n, device=device)
+        rows = _prune_chunks(nodes, knn, knn_d, xb, metric, r, cfg.alpha)
+        del knn, knn_d
+        timer.mark("prune")
+        rows = _add_reverse_edges(rows, xb, metric, r, cfg.alpha)
+        timer.mark("reverse_edges")
+        entry = medoid(base, metric, seed=cfg.seed)
+        rows = _ensure_connected(rows, xb, base, metric, entry, r)
+        timer.mark("connect")
+        adj, deg = pad_rows(rows, r)
+        timer.mark("pad")
+    return Graph(adjacency=adj, degrees=deg, entry_point=entry, metric=metric)
+
+
+class StageTimer:
+    """Records synchronised seconds per build stage into a dict (or not)."""
+
+    def __init__(self, out: dict | None, device):
+        self.out, self.device = out, torch.device(device)
+        self.t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[name] = now - self.t
+        self.t = now
+
+
+def build_graph(base: np.ndarray, cfg: GraphConfig, metric: str,
+                method: str = "knn_prune", device="cuda",
+                stage_times: dict | None = None) -> Graph:
+    if method == "knn_prune":
+        return build_knn_prune(base, cfg, metric, device, stage_times)
+    if method == "incremental":
+        raise NotImplementedError("build_incremental is not ported yet "
+                                  "(ROADMAP Queue 1 item 8)")
+    raise ValueError(f"unknown graph build method {method!r}")

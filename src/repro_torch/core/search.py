@@ -1,0 +1,415 @@
+"""Proxima graph search — Algorithm 1 of the paper, ported from
+``src/repro/core/search.py`` (``Corpus`` … ``_finalize_batch``, lines 50-437,
+and the round-stepped API, lines 458-570).
+
+Per traversal round, for every lane (query) of the batch at once:
+  1. pop the E best unevaluated candidates (E = ``SearchConfig.beam_width``);
+  2. fetch their E*R neighbours, dedup, Bloom-filter visited ones;
+  3. PQ-distance the fresh ones through the lane's ADT;
+  4. one (L + E*R) merge + stable sort, keep the top L;
+  5. if the top-T entries are all evaluated: exact distances for them,
+     early-termination check (r stable rounds), grow T by T_step.
+Post-loop: beta-margin rerank, top-k by exact distance (Alg.1 l.19-22).
+
+The lane axis is an explicit batch dimension (the reference vmaps) and the
+loop is a Python loop over rounds (the reference's ``lax.while_loop``).  One
+round is ``graph_search_step``: lanes that are done or at ``max_rounds`` pass
+through unchanged, so extra rounds are no-ops and ``graph_search`` equals
+stepping to quiescence.  ``graph_search`` asks the device whether any lane is
+still active only every ``DONE_CHECK_EVERY`` rounds on CUDA — each check is
+a host sync that drains the launch queue — and every round on the CPU,
+where nothing runs ahead (PERF.md records the choice and its cost).
+
+Routing by device mirrors the reference's ``use_pallas`` switch.  On CUDA the
+ADTs, lookups, merge sort and final rerank launch the four kernels (the
+reference's Pallas path, with a stable sort).  On the CPU the ADT is the
+expanded form of ``core.pq.compute_adt`` and the final rerank the direct
+form of ``_exact_dist`` (the reference's jnp path, which rounds differently
+from the kernels), while lookup and sort take the kernels' plain versions,
+which compute exactly what the jnp path computes.
+
+Only unfiltered traversal is ported: ``node_mask`` must be None.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import SearchConfig, upgrade_config
+from repro_torch.core import bloom
+from repro_torch.core.dataset import l2_normalize
+from repro_torch.core.pq import compute_adt
+from repro_torch.kernels import ops
+
+INF = float("inf")
+DONE_CHECK_EVERY = 4     # rounds between host checks of "any lane active"
+
+
+class Corpus(NamedTuple):
+    """Device-resident search structures (one NAND tile's worth)."""
+    adjacency: torch.Tensor     # (N, R) int32 padded
+    codes: torch.Tensor         # (N, M) uint8 PQ codes
+    base: torch.Tensor          # (N, D) f32 raw vectors (rerank path)
+    centroids: torch.Tensor     # (M, C, dsub) f32 PQ codebook
+    entry_point: int
+    hot_count: int              # ids < hot_count are "hot nodes"
+
+
+class SearchResult(NamedTuple):
+    ids: torch.Tensor           # (Q, k) int32
+    dists: torch.Tensor         # (Q, k) f32 accurate distances
+    n_hops: torch.Tensor        # (Q,) expansions (index fetches)
+    n_pq: torch.Tensor          # (Q,) PQ distance computations
+    n_acc: torch.Tensor         # (Q,) accurate distance computations
+    n_hot_hops: torch.Tensor    # (Q,) expansions that hit a hot node
+    n_free_pq: torch.Tensor     # (Q,) PQ fetches covered by hot-node pages
+    rounds: torch.Tensor        # (Q,) traversal rounds
+
+
+class _State(NamedTuple):
+    """Per-lane traversal state, lane axis first."""
+    ids: torch.Tensor           # (Q, L) int32, -1 padding, sorted by dist
+    dists: torch.Tensor         # (Q, L) f32 traversal (PQ) distances
+    acc: torch.Tensor           # (Q, L) f32 accurate distances, +inf unknown
+    evaluated: torch.Tensor     # (Q, L) bool
+    bits: torch.Tensor          # (Q, W + 1) bool Bloom filter (core.bloom)
+    t: torch.Tensor             # (Q,) int32 dynamic list size
+    prev_topk: torch.Tensor     # (Q, k) int32 last reranked top-k (sorted)
+    stable: torch.Tensor        # (Q,) int32 consecutive stable rounds
+    done: torch.Tensor          # (Q,) bool
+    n_hops: torch.Tensor
+    n_pq: torch.Tensor
+    n_acc: torch.Tensor
+    n_hot: torch.Tensor
+    n_free: torch.Tensor
+    rounds: torch.Tensor
+
+
+class SearchState(NamedTuple):
+    """Mid-traversal snapshot of a batch of lanes: metric-normalized
+    queries, their ADTs ((Q, 1, 1) when ``use_pq`` is off) and the lanes."""
+    queries: torch.Tensor
+    adts: torch.Tensor
+    lanes: _State
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def empty_search_result(nq: int, k: int, device="cpu") -> SearchResult:
+    """A no-work result batch: -1 ids, +inf distances, zeroed counters."""
+    z = torch.zeros((nq,), dtype=torch.int32, device=device)
+    return SearchResult(
+        ids=torch.full((nq, k), -1, dtype=torch.int32, device=device),
+        dists=torch.full((nq, k), INF, device=device),
+        n_hops=z, n_pq=z, n_acc=z, n_hot_hops=z, n_free_pq=z, rounds=z,
+    )
+
+
+def _exact_dist(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
+    """q (Q, D), x (Q, K, D) -> (Q, K), direct form (the reference's
+    ``_exact_dist``).  Angular assumes pre-normalized inputs."""
+    if metric == "l2":
+        diff = x - q[:, None, :]
+        return (diff * diff).sum(-1)
+    return -torch.bmm(x, q[:, :, None])[..., 0]
+
+
+def _dedup_round(neighbors: torch.Tensor) -> torch.Tensor:
+    """(Q, n) -> (Q, n) bool: False on a repeat of an earlier entry."""
+    n = neighbors.shape[1]
+    eq = neighbors[:, None, :] == neighbors[:, :, None]
+    lower = torch.tril(torch.ones((n, n), dtype=torch.bool,
+                                  device=neighbors.device), diagonal=-1)
+    return ~(eq & lower).any(dim=2)
+
+
+def _stable_order(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Column indices of each row's k smallest keys, ties lower column
+    first — what the reference gets from ``lax.top_k(-key)``."""
+    return torch.sort(key, dim=1, stable=True).indices[:, :k]
+
+
+def _merge_sort_topl(ids, dists, acc, evaluated, n_ids, n_dists):
+    """Merge L existing + n new candidates, stable-sort by dist, keep top L.
+    The sort is ``ops.bitonic_sort_pairs`` over the merged keys padded to a
+    power of two, carrying each entry's position: stable on both devices,
+    so the kernel's merge is the plain path's."""
+    q, l = ids.shape
+    all_ids = torch.cat([ids, n_ids], 1)
+    all_d = torch.cat([dists, n_dists], 1)
+    all_acc = torch.cat([acc, torch.full_like(n_dists, INF)], 1)
+    all_ev = torch.cat([evaluated, torch.zeros_like(n_ids, dtype=torch.bool)], 1)
+    total = all_d.shape[1]
+    pot = next_pow2(total)
+    keys = torch.nn.functional.pad(all_d, (0, pot - total), value=INF)
+    pos = torch.arange(pot, dtype=torch.int32, device=ids.device)
+    _, perm = ops.bitonic_sort_pairs(keys, pos.expand(q, pot).contiguous())
+    perm = perm[:, :l].long()
+    return (all_ids.gather(1, perm), all_d.gather(1, perm),
+            all_acc.gather(1, perm), all_ev.gather(1, perm))
+
+
+def _topk_ids_by(ids, key, k):
+    """ids of the k smallest keys, returned sorted by id for set comparison."""
+    return torch.sort(ids.gather(1, _stable_order(key, k)), dim=1).values
+
+
+def _check_mask(node_mask) -> None:
+    if node_mask is not None:
+        raise NotImplementedError(
+            "filtered traversal (node_mask) is not ported yet: ROADMAP "
+            "Queue 1 item 9 (filter/)")
+
+
+def _build_adts(corpus: Corpus, queries: torch.Tensor, cfg: SearchConfig,
+                metric: str) -> torch.Tensor:
+    """(Q, M, C) ADTs: the pq_adt kernel on CUDA, the expanded jnp-path form
+    on the CPU."""
+    if not cfg.use_pq:
+        return torch.zeros((queries.shape[0], 1, 1), device=queries.device)
+    if queries.is_cuda:
+        return ops.pq_adt(queries, corpus.centroids, metric)
+    return compute_adt(queries, corpus.centroids, metric)
+
+
+def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
+               bloom_bits: int, num_hashes: int):
+    """THE traversal round: returns ``(init, active, step)`` over a batch of
+    lanes.  ``graph_search`` and ``graph_search_step`` both apply ``step``,
+    which is what makes them agree exactly."""
+    cfg = upgrade_config(cfg)
+    L, k = cfg.list_size, cfg.k
+    R = corpus.adjacency.shape[1]
+    # beam wider than the candidate list can never pop more than L entries
+    E = min(max(int(cfg.beam_width), 1), L)
+    use_pq, do_et = cfg.use_pq, cfg.early_termination
+    t_init = cfg.t_init if do_et else L
+    t_step = cfg.t_step if do_et else L
+    dev = corpus.base.device
+    i32 = torch.int32
+
+    def tdist(q, adts, ids):
+        if use_pq:
+            return ops.pq_lookup_gather(ids, corpus.codes, adts)
+        return _exact_dist(q, corpus.base[ids.long()], metric)
+
+    def init(q, adts) -> _State:
+        nq = q.shape[0]
+        ep = torch.full((nq, 1), corpus.entry_point, dtype=i32, device=dev)
+        d0 = tdist(q, adts, ep)[:, 0]
+        ids0 = torch.full((nq, L), -1, dtype=i32, device=dev)
+        ids0[:, 0] = corpus.entry_point
+        dists0 = torch.full((nq, L), INF, device=dev)
+        dists0[:, 0] = d0
+        acc0 = torch.full((nq, L), INF, device=dev)
+        if not use_pq:
+            acc0[:, 0] = d0
+        bits0 = bloom.bloom_init(bloom_bits, nq, dev)
+        bloom.insert(bits0, ep, torch.ones_like(ep, dtype=torch.bool),
+                     num_hashes)
+        zero = torch.zeros((nq,), dtype=i32, device=dev)
+        return _State(
+            ids=ids0, dists=dists0, acc=acc0,
+            evaluated=torch.zeros((nq, L), dtype=torch.bool, device=dev),
+            bits=bits0, t=torch.full_like(zero, min(t_init, L)),
+            prev_topk=torch.full((nq, k), -2, dtype=i32, device=dev),
+            stable=zero, done=torch.zeros_like(zero, dtype=torch.bool),
+            n_hops=zero, n_pq=torch.full_like(zero, 1 if use_pq else 0),
+            n_acc=torch.full_like(zero, 0 if use_pq else 1),
+            n_hot=zero, n_free=zero, rounds=zero,
+        )
+
+    def active(s: _State) -> torch.Tensor:
+        return ~s.done & (s.rounds < cfg.max_rounds)
+
+    ar_e = torch.arange(E, device=dev)
+    ar_l = torch.arange(L, device=dev)
+
+    def step(q, adts, s: _State) -> _State:
+        """One guarded round.  ``s.bits`` is updated in place (only for
+        active lanes): the old state must not be stepped again."""
+        live = active(s)
+        nq = s.ids.shape[0]
+        valid = s.ids >= 0
+        unev = valid & ~s.evaluated
+        n_unev = unev.sum(1, dtype=i32)
+        has_unev = n_unev > 0
+        # the E best unevaluated entries in list (distance) order: a stable
+        # sort of ~unev floats them to the front; E == 1 is the first max
+        if E == 1:
+            sel = unev.to(i32).argmax(1, keepdim=True)
+        else:
+            sel = torch.sort((~unev).to(i32), dim=1, stable=True).indices[:, :E]
+        sel_valid = ar_e[None, :] < n_unev[:, None]                 # (Q, E)
+        vs = torch.where(sel_valid, s.ids.gather(1, sel), 0)        # (Q, E)
+
+        # ---- expand the beam: one E-row adjacency gather ---------------
+        neigh = corpus.adjacency[vs.long()].reshape(nq, E * R)
+        fresh = (_dedup_round(neigh)
+                 & ~bloom.contains(s.bits, neigh, num_hashes)
+                 & sel_valid.repeat_interleave(R, dim=1))
+        nd = torch.where(fresh, tdist(q, adts, neigh), INF)
+        bloom.insert(s.bits, neigh, fresh & live[:, None], num_hashes)
+        evaluated = s.evaluated.scatter(1, sel,
+                                        s.evaluated.gather(1, sel) | sel_valid)
+        n_new = fresh.sum(1, dtype=i32)
+        is_hot = (vs < corpus.hot_count) & sel_valid                 # (Q, E)
+        ids, dists, acc, evaluated = _merge_sort_topl(
+            s.ids, s.dists, s.acc, evaluated,
+            torch.where(fresh, neigh, -1), nd)
+
+        # ---- top-T evaluated? -> rerank + early-termination ------------
+        valid = ids >= 0
+        in_t = (ar_l[None, :] < s.t[:, None]) & valid
+        all_eval = in_t.any(1) & (~in_t | evaluated).all(1)
+        need = in_t & torch.isinf(acc)
+        acc_new = _exact_dist(q, corpus.base[ids.clamp(min=0).long()], metric)
+        acc2 = torch.where(need & all_eval[:, None], acc_new, acc)
+        n_acc_new = torch.where(all_eval, need.sum(1, dtype=i32), 0)
+        if not use_pq:
+            acc2 = torch.where(valid, dists, INF)
+        rerank_key = torch.where(in_t, acc2, INF)
+        new_topk = _topk_ids_by(ids, rerank_key, k)
+        same = (new_topk == s.prev_topk).all(1)
+        stable = torch.where(all_eval, torch.where(same, s.stable + 1, 1),
+                             s.stable)
+        prev_topk = torch.where(all_eval[:, None], new_topk, s.prev_topk)
+        t = torch.where(all_eval, s.t + t_step, s.t)
+
+        terminated = all_eval & (stable >= cfg.repetition_rate) & do_et
+        done = terminated | ~has_unev | (t > L)
+
+        hot_new = (fresh.reshape(nq, E, R) & is_hot[:, :, None]).sum(
+            (1, 2), dtype=i32)
+        new = _State(
+            ids=ids, dists=dists, acc=acc2, evaluated=evaluated, bits=s.bits,
+            t=torch.clamp(t, max=L), prev_topk=prev_topk, stable=stable,
+            done=done,
+            n_hops=s.n_hops + torch.clamp(n_unev, max=E),
+            n_pq=s.n_pq + (n_new if use_pq else 0),
+            n_acc=s.n_acc + n_acc_new + (0 if use_pq else n_new),
+            n_hot=s.n_hot + is_hot.sum(1, dtype=i32),
+            n_free=s.n_free + hot_new,
+            rounds=s.rounds + 1,
+        )
+        # inactive lanes keep their state
+        return _State(*(
+            b if b is a else torch.where(
+                live.reshape((nq,) + (1,) * (b.dim() - 1)), b, a)
+            for a, b in zip(s, new)
+        ))
+
+    return init, active, step
+
+
+def _finalize_batch(corpus: Corpus, cfg: SearchConfig, metric: str,
+                    queries: torch.Tensor, s: _State) -> SearchResult:
+    """Post-loop beta-margin rerank + top-k (Alg.1 l.19-22).  On CUDA the
+    margin's exact distances come from the l2_rerank kernel, gathering the
+    rows itself; on the CPU from the direct form, like the jnp path."""
+    L, k = cfg.list_size, cfg.k
+    valid = s.ids >= 0
+    t_idx = (torch.clamp(s.t, 1, L) - 1).long()
+    d_t = s.dists.gather(1, t_idx[:, None])[:, 0]
+    thr = d_t + (cfg.beta - 1.0) * torch.abs(d_t)            # sign-safe margin
+    if cfg.use_pq and cfg.rerank:
+        need = valid & (s.dists <= thr[:, None]) & torch.isinf(s.acc)
+        safe = s.ids.clamp(min=0)
+        if queries.is_cuda:
+            acc_new = ops.l2_rerank_gather(queries, safe, corpus.base, metric)
+        else:
+            acc_new = _exact_dist(queries, corpus.base[safe.long()], metric)
+        acc = torch.where(need, acc_new, s.acc)
+        n_acc = s.n_acc + need.sum(1, dtype=torch.int32)
+    else:
+        # no rerank (rank by PQ) / accurate traversal (dists are accurate)
+        acc = torch.where(valid, s.dists, INF)
+        n_acc = s.n_acc
+    key = torch.where(valid, acc, INF)
+    idx = _stable_order(key, k)
+    return SearchResult(
+        ids=s.ids.gather(1, idx), dists=key.gather(1, idx), n_hops=s.n_hops,
+        n_pq=s.n_pq, n_acc=n_acc, n_hot_hops=s.n_hot, n_free_pq=s.n_free,
+        rounds=s.rounds,
+    )
+
+
+def _queries_on(corpus: Corpus, queries) -> torch.Tensor:
+    return torch.as_tensor(queries, dtype=torch.float32,
+                           device=corpus.base.device).reshape(
+        -1, corpus.base.shape[1]).contiguous()
+
+
+def init_search_state(corpus: Corpus, queries, cfg: SearchConfig,
+                      metric: str = "l2", bloom_bits: int = 1 << 17,
+                      num_hashes: int = 8, node_mask=None) -> SearchState:
+    """Round 0 for a (Q, D) query batch: normalize, build ADTs, seed every
+    lane at the entry point."""
+    _check_mask(node_mask)
+    q = _queries_on(corpus, queries)
+    if metric == "angular":
+        q = l2_normalize(q)
+    adts = _build_adts(corpus, q, cfg, metric)
+    init, _, _ = _round_fns(corpus, cfg, metric, bloom_bits, num_hashes)
+    return SearchState(queries=q, adts=adts, lanes=init(q, adts))
+
+
+def graph_search_step(corpus: Corpus, state: SearchState, cfg: SearchConfig,
+                      metric: str = "l2", bloom_bits: int = 1 << 17,
+                      num_hashes: int = 8, node_mask=None) -> SearchState:
+    """ONE traversal round over every lane.  Inactive lanes — done, or at
+    ``max_rounds`` — pass through unchanged.  The Bloom bits of ``state``
+    are updated in place, so ``state`` itself must not be stepped again."""
+    _check_mask(node_mask)
+    _, _, step = _round_fns(corpus, cfg, metric, bloom_bits, num_hashes)
+    return state._replace(lanes=step(state.queries, state.adts, state.lanes))
+
+
+def search_state_active(state: SearchState, cfg: SearchConfig) -> torch.Tensor:
+    """(Q,) bool — lanes that still have rounds to run."""
+    return ~state.lanes.done & (state.lanes.rounds < cfg.max_rounds)
+
+
+def finalize_search(corpus: Corpus, state: SearchState, cfg: SearchConfig,
+                    metric: str = "l2", node_mask=None) -> SearchResult:
+    """Post-traversal beta-margin rerank + top-k over quiesced lanes."""
+    _check_mask(node_mask)
+    return _finalize_batch(corpus, upgrade_config(cfg), metric,
+                           state.queries, state.lanes)
+
+
+def graph_search_stepped(corpus: Corpus, queries, cfg: SearchConfig,
+                         metric: str = "l2", bloom_bits: int = 1 << 17,
+                         num_hashes: int = 8, node_mask=None) -> SearchResult:
+    """Host-side driver: one ``graph_search_step`` at a time, asking after
+    each whether any lane is active, then finalize.  Equal to
+    ``graph_search``."""
+    state = init_search_state(corpus, queries, cfg, metric, bloom_bits,
+                              num_hashes, node_mask)
+    while bool(search_state_active(state, cfg).any()):
+        state = graph_search_step(corpus, state, cfg, metric, bloom_bits,
+                                  num_hashes, node_mask)
+    return finalize_search(corpus, state, cfg, metric, node_mask)
+
+
+def graph_search(corpus: Corpus, queries, cfg: SearchConfig,
+                 metric: str = "l2", bloom_bits: int = 1 << 17,
+                 num_hashes: int = 8, node_mask=None) -> SearchResult:
+    """Batched Proxima traversal. queries: (Q, D) array or tensor; the search
+    runs on the corpus's device.  Steps every lane to quiescence, checking
+    for it every ``DONE_CHECK_EVERY`` rounds on CUDA (extra rounds are
+    no-ops), then runs the beta-margin rerank."""
+    state = init_search_state(corpus, queries, cfg, metric, bloom_bits,
+                              num_hashes, node_mask)
+    _, active, step = _round_fns(corpus, cfg, metric, bloom_bits, num_hashes)
+    every = DONE_CHECK_EVERY if state.queries.is_cuda else 1
+    lanes = state.lanes
+    while bool(active(lanes).any()):
+        for _ in range(every):
+            lanes = step(state.queries, state.adts, lanes)
+    return _finalize_batch(corpus, upgrade_config(cfg), metric,
+                           state.queries, lanes)

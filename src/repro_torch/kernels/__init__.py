@@ -1,0 +1,2 @@
+"""Port of ``repro.kernels``: the four Pallas TPU kernels as hand-written CUDA
+kernels for Hopper (``csrc/``), each with its plain PyTorch version."""

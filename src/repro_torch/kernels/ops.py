@@ -1,0 +1,72 @@
+"""Dispatch layer for the hand-written kernels — port of
+``src/repro/kernels/ops.py:72-105``.
+
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
+PyTorch version.  Nothing catches a failed build or launch and carries on.
+The build-and-load step and the launch counters live in
+``repro_torch.kernels.loader`` and are re-exported here.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.bitonic_topk import (
+    bitonic_sort_pairs_cuda, bitonic_sort_pairs_plain,
+)
+from repro_torch.kernels.l2_rerank import (
+    l2_rerank_cuda, l2_rerank_gather_cuda, l2_rerank_gather_plain,
+    l2_rerank_plain,
+)
+from repro_torch.kernels.loader import (  # noqa: F401  (re-exports)
+    LAUNCHES, build_all, reset_launch_counts,
+)
+from repro_torch.kernels.pq_adt import pq_adt_cuda, pq_adt_plain
+from repro_torch.kernels.pq_lookup import (
+    pq_lookup_cuda, pq_lookup_gather_cuda, pq_lookup_gather_plain,
+    pq_lookup_plain,
+)
+
+
+def _check_ids(ids) -> None:
+    """CPU path: the kernels trap on a negative id, so the plain versions
+    refuse one too instead of wrapping it."""
+    if ids.numel() and int(ids.min()) < 0:
+        raise ValueError("negative id passed to a gather: clamp -1 padding "
+                         "first")
+
+
+def pq_adt(queries, centroids, metric="l2"):
+    if queries.is_cuda:
+        return pq_adt_cuda(queries, centroids, metric)
+    return pq_adt_plain(queries, centroids, metric)
+
+
+def pq_lookup(codes, adt):
+    if codes.is_cuda:
+        return pq_lookup_cuda(codes, adt)
+    return pq_lookup_plain(codes, adt)
+
+
+def pq_lookup_gather(ids, codes, adts):
+    if ids.is_cuda:
+        return pq_lookup_gather_cuda(ids, codes, adts)
+    _check_ids(ids)
+    return pq_lookup_gather_plain(ids, codes, adts)
+
+
+def bitonic_sort_pairs(keys, vals):
+    if keys.is_cuda:
+        return bitonic_sort_pairs_cuda(keys, vals)
+    return bitonic_sort_pairs_plain(keys, vals)
+
+
+def l2_rerank(queries, candidates, metric="l2"):
+    if queries.is_cuda:
+        return l2_rerank_cuda(queries, candidates, metric)
+    return l2_rerank_plain(queries, candidates, metric)
+
+
+def l2_rerank_gather(queries, ids, base, metric="l2"):
+    if queries.is_cuda:
+        return l2_rerank_gather_cuda(queries, ids, base, metric)
+    _check_ids(ids)
+    return l2_rerank_gather_plain(queries, ids, base, metric)
+

@@ -1,0 +1,83 @@
+"""PQ distance evaluation, Eq. (3) of the paper.
+
+Replaces the TPU kernel ``src/repro/kernels/pq_lookup.py::pq_lookup``
+(``pl.pallas_call`` at ``pq_lookup.py:55``) with the CUDA kernels of
+``csrc/pq_lookup.cu``.  The TPU kernel is a one-hot MXU product because a
+TPU has no fast gather; on Hopper it is a gather from the ADT staged in
+shared memory.
+
+Two functions, each with its plain version:
+
+* ``pq_lookup``: (N, M) uint8 codes, one (M, C) ADT -> (N,) — the reference
+  signature, kept for the parity tests;
+* ``pq_lookup_gather``: (Q, n) int32 neighbour ids, the (N, M) uint8 code
+  table and (Q, M, C) ADTs -> (Q, n), one block per query lane gathering its
+  own code rows.  The search calls this one every round.
+
+What bounds it on the card: staging each lane's ADT (Q*M*C*4 bytes per
+launch) against only Q*n*M code bytes of useful lookups.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import loader
+
+
+def pq_lookup_plain(codes: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
+    """(N, M) uint8, (M, C) -> (N,).  Codes are widened before indexing:
+    torch reads a uint8 index tensor as a boolean mask."""
+    m = adt.shape[0]
+    return adt[torch.arange(m, device=adt.device)[None, :], codes.long()].sum(-1)
+
+
+def pq_lookup_gather_plain(ids: torch.Tensor, codes: torch.Tensor,
+                           adts: torch.Tensor) -> torch.Tensor:
+    """(Q, n) ids, (N, M) uint8 table, (Q, M, C) -> (Q, n)."""
+    q, n = ids.shape
+    m, c = adts.shape[1:]
+    rows = codes[ids.long()].long()                            # (Q, n, M)
+    flat = adts.reshape(q, 1, m * c).expand(q, n, m * c)
+    return flat.gather(2, rows + torch.arange(m, device=ids.device) * c).sum(-1)
+
+
+def pq_lookup_cuda(codes: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel: (N, M) u8, (M, C) f32 -> (N,) f32."""
+    loader.check(codes, "pq_lookup codes", torch.uint8, 2)
+    loader.check(adt, "pq_lookup adt", torch.float32, 2)
+    n, m = codes.shape
+    if adt.shape[0] != m or adt.device != codes.device:
+        raise ValueError(f"pq_lookup: codes {tuple(codes.shape)} do not fit "
+                         f"ADT {tuple(adt.shape)}")
+    out = torch.empty((n,), dtype=torch.float32, device=codes.device)
+    loader.launch(
+        "pq_lookup", "pq_lookup_launch", "pq_lookup", codes.device,
+        loader.ptr(codes), loader.ptr(adt), loader.ptr(out),
+        loader.c_int(n), loader.c_int(m), loader.c_int(adt.shape[1]),
+        loader.stream(codes),
+    )
+    return out
+
+
+def pq_lookup_gather_cuda(ids: torch.Tensor, codes: torch.Tensor,
+                          adts: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel: (Q, n) i32 ids, (N, M) u8, (Q, M, C) f32 ->
+    (Q, n) f32.  An id outside [0, N) traps in the kernel (a raw pointer
+    does not wrap -1 padding): callers clamp first, like the reference."""
+    loader.check(ids, "pq_lookup_gather ids", torch.int32, 2)
+    loader.check(codes, "pq_lookup_gather codes", torch.uint8, 2)
+    loader.check(adts, "pq_lookup_gather adts", torch.float32, 3)
+    q, n = ids.shape
+    big_n, m = codes.shape
+    if adts.shape[:2] != (q, m) or not (ids.device == codes.device
+                                        == adts.device):
+        raise ValueError(f"pq_lookup_gather: ids {tuple(ids.shape)}, codes "
+                         f"{tuple(codes.shape)}, ADTs {tuple(adts.shape)}")
+    out = torch.empty((q, n), dtype=torch.float32, device=ids.device)
+    loader.launch(
+        "pq_lookup", "pq_lookup_gather_launch", "pq_lookup", ids.device,
+        loader.ptr(ids), loader.ptr(codes), loader.ptr(adts), loader.ptr(out),
+        loader.c_int(q), loader.c_int(n), loader.c_int(big_n), loader.c_int(m),
+        loader.c_int(adts.shape[2]), loader.stream(ids),
+    )
+    return out

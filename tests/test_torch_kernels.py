@@ -1,0 +1,162 @@
+"""The port's kernel modules on the CPU: each plain version against the
+reference's oracle (``repro.kernels.ref``) and the reference's Pallas kernel
+run in interpret mode (``repro.kernels.ops``), over the shape sweeps of
+tests/test_kernels.py.  Tolerances as there: rtol/atol 1e-4 for ADT and
+lookup, 1e-4/1e-3 for rerank, exact for the sort, ties included.
+
+Also: the CUDA entries refuse CPU tensors (they never hand back the plain
+result), the CPU path refuses negative ids, and no module of the port — nor
+chip_smoke.py — imports jax or repro.
+"""
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import bitonic_topk, l2_rerank, ops, pq_adt, pq_lookup
+from repro_torch.kernels import ref as port_ref
+
+RNG = np.random.default_rng(0)
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("q,m,c,dsub", [(1, 8, 64, 2), (8, 16, 256, 4),
+                                        (4, 32, 256, 3), (2, 25, 128, 4)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_pq_adt_plain_matches_reference(q, m, c, dsub, metric):
+    qs = RNG.standard_normal((q, m * dsub)).astype(np.float32)
+    cents = RNG.standard_normal((m, c, dsub)).astype(np.float32)
+    got = ops.pq_adt(torch.as_tensor(qs), torch.as_tensor(cents), metric)
+    for want in (ref_ops.pq_adt_ref(jnp.asarray(qs), jnp.asarray(cents), metric),
+                 ref_ops.pq_adt(jnp.asarray(qs), jnp.asarray(cents), metric)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,m,c", [(1, 8, 16), (37, 16, 64), (300, 32, 256)])
+def test_pq_lookup_plain_matches_reference(n, m, c):
+    codes = RNG.integers(0, c, (n, m)).astype(np.uint8)
+    adt = RNG.standard_normal((m, c)).astype(np.float32)
+    got = ops.pq_lookup(torch.as_tensor(codes), torch.as_tensor(adt))
+    for want in (ref_ops.pq_lookup_ref(jnp.asarray(codes), jnp.asarray(adt)),
+                 ref_ops.pq_lookup(jnp.asarray(codes), jnp.asarray(adt))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+    # the gather entry over a lane's rows is the same function
+    ids = RNG.integers(0, n, (3, 11)).astype(np.int32)
+    adts = np.stack([adt] * 3)
+    g = ops.pq_lookup_gather(torch.as_tensor(ids), torch.as_tensor(codes),
+                             torch.as_tensor(adts))
+    np.testing.assert_allclose(g.numpy(), got.numpy()[ids], rtol=1e-6)
+
+
+@pytest.mark.parametrize("q,l", [(1, 32), (5, 64), (16, 256)])
+def test_bitonic_plain_matches_reference(q, l):
+    keys = RNG.standard_normal((q, l)).astype(np.float32)
+    vals = RNG.integers(0, 1 << 20, (q, l)).astype(np.int32)
+    gk, gv = ops.bitonic_sort_pairs(torch.as_tensor(keys), torch.as_tensor(vals))
+    for wk, wv in (ref_ops.bitonic_sort_pairs_ref(jnp.asarray(keys),
+                                                  jnp.asarray(vals)),
+                   ref_ops.bitonic_sort_pairs(jnp.asarray(keys),
+                                              jnp.asarray(vals))):
+        np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+def test_bitonic_plain_ties_match_stable_reference():
+    """Ties (and +inf padding) keep input order, like the reference's
+    stable argsort — the order the port's CUDA network reproduces."""
+    keys = RNG.integers(0, 4, (6, 128)).astype(np.float32)
+    keys[:, 100:] = np.inf
+    vals = np.tile(np.arange(128, dtype=np.int32), (6, 1))
+    gk, gv = ops.bitonic_sort_pairs(torch.as_tensor(keys), torch.as_tensor(vals))
+    wk, wv = ref_ops.bitonic_sort_pairs_ref(jnp.asarray(keys), jnp.asarray(vals))
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+@pytest.mark.parametrize("q,k,d", [(1, 16, 32), (6, 64, 128), (3, 128, 96)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_l2_rerank_plain_matches_reference(q, k, d, metric):
+    qs = RNG.standard_normal((q, d)).astype(np.float32)
+    cands = RNG.standard_normal((q, k, d)).astype(np.float32)
+    got = ops.l2_rerank(torch.as_tensor(qs), torch.as_tensor(cands), metric)
+    for want in (ref_ops.l2_rerank_ref(jnp.asarray(qs), jnp.asarray(cands), metric),
+                 ref_ops.l2_rerank(jnp.asarray(qs), jnp.asarray(cands), metric)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-3)
+    # the gather entry reads the same rows out of a base table
+    base = cands.reshape(q * k, d)
+    ids = np.arange(q * k, dtype=np.int32).reshape(q, k)
+    g = ops.l2_rerank_gather(torch.as_tensor(qs), torch.as_tensor(ids),
+                             torch.as_tensor(base), metric)
+    np.testing.assert_allclose(g.numpy(), got.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_ref_module_names_the_plain_versions():
+    assert port_ref.pq_adt_ref is pq_adt.pq_adt_plain
+    assert port_ref.pq_lookup_ref is pq_lookup.pq_lookup_plain
+    assert port_ref.bitonic_sort_pairs_ref is bitonic_topk.bitonic_sort_pairs_plain
+    assert port_ref.l2_rerank_ref is l2_rerank.l2_rerank_plain
+
+
+def _cuda_entries():
+    f32 = torch.zeros((4, 8))
+    i32 = torch.zeros((4, 8), dtype=torch.int32)
+    u8 = torch.zeros((4, 8), dtype=torch.uint8)
+    return [
+        ("pq_adt", lambda: pq_adt.pq_adt_cuda(f32, torch.zeros((2, 4, 4)))),
+        ("pq_lookup", lambda: pq_lookup.pq_lookup_cuda(u8, f32)),
+        ("pq_lookup_gather", lambda: pq_lookup.pq_lookup_gather_cuda(
+            i32, u8, torch.zeros((4, 8, 4)))),
+        ("bitonic", lambda: bitonic_topk.bitonic_sort_pairs_cuda(f32, i32)),
+        ("l2_rerank", lambda: l2_rerank.l2_rerank_cuda(
+            torch.zeros((4, 8)), torch.zeros((4, 3, 8)))),
+        ("l2_rerank_gather", lambda: l2_rerank.l2_rerank_gather_cuda(
+            torch.zeros((4, 8)), i32[:, :3].contiguous(), f32)),
+    ]
+
+
+@pytest.mark.parametrize("name,call", _cuda_entries(),
+                         ids=[n for n, _ in _cuda_entries()])
+def test_cuda_entries_refuse_cpu_tensors(name, call):
+    """A CUDA entry given CPU tensors raises; it never falls back to the
+    plain version."""
+    from repro_torch.kernels import loader
+
+    before = dict(loader.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    assert loader.LAUNCHES == before
+
+
+def test_plain_gathers_refuse_negative_ids():
+    ids = torch.tensor([[0, -1]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="negative"):
+        ops.pq_lookup_gather(ids, torch.zeros((4, 2), dtype=torch.uint8),
+                             torch.zeros((1, 2, 4)))
+    with pytest.raises(ValueError, match="negative"):
+        ops.l2_rerank_gather(torch.zeros((1, 8)), ids, torch.zeros((4, 8)))
+
+
+def _imported_roots(path: pathlib.Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "rel", sorted(str(p.relative_to(REPO)) for p in
+                  (REPO / "src" / "repro_torch").rglob("*.py"))
+    + ["chip_smoke.py"])
+def test_port_imports_neither_jax_nor_repro(rel):
+    roots = _imported_roots(REPO / rel)
+    assert not roots & {"jax", "jaxlib", "repro"}, (rel, roots)
