@@ -12,11 +12,14 @@ not printed):
 2. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
    M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
    its plain PyTorch version on the same inputs: ADT and lookup at rtol/atol
-   1e-4, rerank at 1e-4/1e-3, the sort exactly.  Each is timed with CUDA
-   events, one launch at a time, the 50 MB L2 cache flushed before each and
-   the launch queued behind a spin so that only device time is measured;
-   beside it the plain version's time and, where one PyTorch call computes
-   the same function, that call's time.
+   1e-4, rerank at 1e-4/1e-3, the sort and the merge exactly (ties, +inf
+   padding, -0.0 beside +0.0).  The lookup is checked and timed with and
+   without the round's "fresh" mask; ``bitonic_sort_pairs`` as the merge the
+   round runs, (L=128, n=64) and (L=128, n=256), and as a plain sort at
+   P=256.  Each entry is timed with CUDA events, one launch at a time, the
+   50 MB L2 cache flushed before each and the launch queued behind a spin so
+   that only device time is measured; beside it the plain version's time
+   and, where PyTorch calls compute the same function, their times.
 3. Main path: a sift-like corpus (ann-benchmarks sift-128-euclidean scale:
    1M base, 10k queries, 128-d, L2) built into a Proxima index on the card
    (PQ M=32 x C=256, graph R=64 / build list 128, hot_node_fraction=0, no
@@ -100,111 +103,191 @@ def _bound(nbytes: float, flops: float) -> tuple:
 def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
     """Each kernel vs its plain version at the main path's shapes; raises
     on a disagreement.  Returns one record per kernel (launches filled in
-    later from the main path)."""
+    later from the main path): the top-level numbers are those of the entry
+    the search's round runs, and ``entries`` holds every entry timed."""
     from repro_torch.kernels import ops
 
     q, d, m, c, r, l = 256, 128, 32, 256, 64, 128
+    inf = float("inf")
     g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def signed(x):
+        """Flip about half the signs: negative keys, -0.0 beside +0.0."""
+        return torch.where(rand(*x.shape) < 0.5, -x, x)
+
+    def ints(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
     queries = torch.randn(q, d, generator=g, device=dev)
     cents = torch.randn(m, c, d // m, generator=g, device=dev)
-    codes = torch.randint(0, c, (n_base, m), generator=g, device=dev,
-                          dtype=torch.uint8)
+    codes = ints(0, c, (n_base, m), torch.uint8)
     base = torch.randn(n_base, d, generator=g, device=dev)
-    nbr = torch.randint(0, n_base, (q, r), generator=g, device=dev,
-                        dtype=torch.int32)
-    cand = torch.randint(0, n_base, (q, l), generator=g, device=dev,
-                         dtype=torch.int32)
-    # the merge's keys: L sorted list entries, R fresh ones, +inf padding to
-    # 256, with ties from repeated values
+    nbr = ints(0, n_base, (q, r), torch.int32)
+    fresh = rand(q, r) < 0.5
+    cand = ints(0, n_base, (q, l), torch.int32)
+    # the sort's keys: L sorted list entries, R fresh ones, +inf padding to
+    # 256, with ties from repeated values and -0.0 beside +0.0
     p = 256
-    keys = torch.randint(0, 512, (q, p), generator=g, device=dev).float()
-    keys[:, l + r:] = float("inf")
+    keys = signed(ints(0, 512, (q, p)).float())
+    keys[:, l + r:] = inf
     keys[:, :l] = keys[:, :l].sort(dim=1).values
     pos = torch.arange(p, dtype=torch.int32, device=dev).expand(q, p).contiguous()
     flush = _Flush(torch, dev)
     out = []
 
-    def record(name, source, replaces, got, want, rtol, atol, kernel, plain,
-               library, nbytes, flops):
+    def entry(label, got, want, rtol, atol, kernel, plain, libraries, nbytes,
+              flops):
+        """Hold ``got`` against ``want`` (a tuple: exactly), then time the
+        kernel, its plain version and each library yardstick."""
+        torch.cuda.synchronize()
         if isinstance(got, tuple):
-            if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"{name}: kernel sort differs from "
-                                     "torch.sort(stable=True)")
+            if not all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"{label}: kernel differs from its "
+                                     "plain version (stable sort)")
             err = rel = 0.0
         else:
-            err = float((got - want).abs().max())
-            rel = float(((got - want).abs()
-                         / want.abs().clamp(min=1e-6)).max())
             torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
-                                       msg=lambda s: f"{name}: {s}")
+                                       msg=lambda s: f"{label}: {s}")
+            fin = torch.isfinite(want)          # masked entries are +inf
+            diff = (got - want)[fin].abs()
+            err = float(diff.max())
+            rel = float((diff / want[fin].abs().clamp(min=1e-6)).max())
         bound_ms, bound_by = _bound(nbytes, flops)
-        kernel_ms = _time_ms(torch, kernel, flush)
-        out.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "max_rel_err": rel, "rtol": rtol, "atol": atol,
-            "ms": kernel_ms, "kernel_ms": kernel_ms,
+        lib = {k: _time_ms(torch, f, flush) for k, f in libraries.items()}
+        return {
+            "entry": label, "max_abs_err": err, "max_rel_err": rel,
+            "rtol": rtol, "atol": atol,
+            "ms": _time_ms(torch, kernel, flush),
             "plain_ms": _time_ms(torch, plain, flush),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": (_time_ms(torch, library, flush)
-                           if library is not None else None),
-        })
+            "library_ms": next(iter(lib.values()), None), "library": lib,
+        }
+
+    def record(name, source, replaces, main, *others):
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": 0}
+        rec.update({k: v for k, v in main.items() if k != "entry"})
+        rec.update(kernel_ms=main["ms"], main_entry=main["entry"],
+                   entries=[main, *others])
+        out.append(rec)
 
     # ---- pq_adt --------------------------------------------------------
-    got = ops.pq_adt(queries, cents, "l2")
-    torch.cuda.synchronize()
     qs = queries.reshape(q, m, d // m).transpose(0, 1).contiguous()
     record("pq_adt", "src/repro_torch/kernels/csrc/pq_adt.cu",
-           "src/repro/kernels/pq_adt.py:38", got,
-           ops.pq_adt_plain(queries, cents, "l2"), 1e-4, 1e-4,
-           lambda: ops.pq_adt(queries, cents, "l2"),
-           lambda: ops.pq_adt_plain(queries, cents, "l2"),
-           lambda: torch.cdist(qs, cents),     # (sqrt of) the same table
-           4 * (q * d + m * c * (d // m) + q * m * c),
-           3 * q * m * c * (d // m))
+           "src/repro/kernels/pq_adt.py:38", entry(
+               "pq_adt", ops.pq_adt(queries, cents, "l2"),
+               ops.pq_adt_plain(queries, cents, "l2"), 1e-4, 1e-4,
+               lambda: ops.pq_adt(queries, cents, "l2"),
+               lambda: ops.pq_adt_plain(queries, cents, "l2"),
+               {"cdist": lambda: torch.cdist(qs, cents)},  # sqrt of the table
+               4 * (q * d + m * c * (d // m) + q * m * c),
+               3 * q * m * c * (d // m)))
 
-    # ---- pq_lookup (the search's gather entry) ---------------------------
+    # ---- pq_lookup (the search's gather entry, masked and not) -----------
     adts = ops.pq_adt(queries, cents, "l2")
-    got = ops.pq_lookup_gather(nbr, codes, adts)
-    torch.cuda.synchronize()
-    flat_idx = (codes[nbr.long()].long()
-                + torch.arange(m, device=dev) * c)          # (Q, R, M)
+    offs = torch.arange(m, device=dev) * c
+    flat_idx = codes[nbr.long()].long() + offs                # (Q, R, M)
     adt_flat = adts.reshape(q, 1, m * c).expand(q, r, m * c)
-    touched = int(torch.unique(flat_idx + torch.arange(
-        q, device=dev)[:, None, None] * (m * c)).numel())
-    record("pq_lookup", "src/repro_torch/kernels/csrc/pq_lookup.cu",
-           "src/repro/kernels/pq_lookup.py:42", got,
-           ops.pq_lookup_gather_plain(nbr, codes, adts), 1e-4, 1e-4,
-           lambda: ops.pq_lookup_gather(nbr, codes, adts),
-           lambda: ops.pq_lookup_gather_plain(nbr, codes, adts),
-           lambda: adt_flat.gather(2, flat_idx).sum(-1),  # codes pre-gathered
-           4 * q * r + q * r * m + 4 * touched + 4 * q * r,
-           q * r * m)
+    lane_idx = flat_idx + torch.arange(q, device=dev)[:, None, None] * (m * c)
 
-    # ---- bitonic_sort_pairs --------------------------------------------
-    got = ops.bitonic_sort_pairs(keys, pos)
-    torch.cuda.synchronize()
-    lg = p.bit_length() - 1
+    def lookup_bytes(rows):
+        """ids + mask + per scored row M code bytes + the ADT entries the
+        scored rows touch + the output, each once."""
+        touched = int(torch.unique(lane_idx[rows]).numel())
+        return 4 * q * r + q * r + int(rows.sum()) * m + 4 * touched + 4 * q * r
+
+    libraries = {
+        # code rows gathered beforehand, outside the timed call
+        "gather_sum_pregathered": lambda: adt_flat.gather(2, flat_idx).sum(-1),
+        # the whole function: code-row gather, ADT gather, sum
+        "codes_gather_sum": lambda: adt_flat.gather(
+            2, codes[nbr.long()].long() + offs).sum(-1),
+    }
+    masked = entry(
+        "gather_masked", ops.pq_lookup_gather(nbr, codes, adts, fresh),
+        ops.pq_lookup_gather_plain(nbr, codes, adts, fresh), 1e-4, 1e-4,
+        lambda: ops.pq_lookup_gather(nbr, codes, adts, fresh),
+        lambda: ops.pq_lookup_gather_plain(nbr, codes, adts, fresh),
+        {k: (lambda f=f: torch.where(fresh, f(), inf))
+         for k, f in libraries.items()},
+        lookup_bytes(fresh), int(fresh.sum()) * m)
+    masked["fresh_share"] = float(fresh.float().mean())
+    everything = torch.ones_like(fresh)
+    record("pq_lookup", "src/repro_torch/kernels/csrc/pq_lookup.cu",
+           "src/repro/kernels/pq_lookup.py:42", masked, entry(
+               "gather", ops.pq_lookup_gather(nbr, codes, adts),
+               ops.pq_lookup_gather_plain(nbr, codes, adts), 1e-4, 1e-4,
+               lambda: ops.pq_lookup_gather(nbr, codes, adts),
+               lambda: ops.pq_lookup_gather_plain(nbr, codes, adts),
+               libraries, lookup_bytes(everything) - q * r, q * r * m))
+
+    # ---- bitonic_sort_pairs: the merge entry the round runs, the sort ----
+    def merge_inputs(n):
+        """A lane's list (sorted prefix, +inf tail with -1 ids) and n fresh
+        candidates (30% stale: +inf, -1), with ties and signed zeros."""
+        dl = signed(ints(0, 64, (q, l)).float()).sort(dim=1).values
+        tail = torch.arange(l, device=dev) >= ints(l // 2, l + 1, (q, 1))
+        dl[tail] = inf
+        ids = torch.where(tail, -1, ints(0, n_base, (q, l), torch.int32))
+        acc = torch.where(rand(q, l) < 0.3, rand(q, l), inf)
+        ev = rand(q, l) < 0.5
+        nd = signed(ints(0, 64, (q, n)).float())
+        stale = rand(q, n) < 0.3
+        nd[stale] = inf
+        n_ids = torch.where(stale, -1, ints(0, n_base, (q, n), torch.int32))
+        return ids, dl, acc, ev, n_ids, nd
+
+    def network_ops(width):
+        lg = (width - 1).bit_length()
+        return q * (1 << lg) // 2 * lg * (lg + 1) // 2
+
+    def merge_entry(n):
+        cols = merge_inputs(n)
+        cat = [torch.cat([cols[0], cols[4]], 1), torch.cat([cols[1], cols[5]], 1),
+               torch.cat([cols[2], torch.full_like(cols[5], inf)], 1),
+               torch.cat([cols[3], torch.zeros_like(cols[3][:, :1]).expand(
+                   q, n)], 1)]
+
+        def sort_and_gathers():
+            order = torch.sort(cat[1], dim=1, stable=True).indices[:, :l]
+            return [t.gather(1, order) for t in cat]
+
+        return entry(
+            f"merge_L{l}_n{n}", ops.bitonic_merge_topl(*cols),
+            ops.bitonic_merge_topl_plain(*cols), 0.0, 0.0,
+            lambda: ops.bitonic_merge_topl(*cols),
+            lambda: ops.bitonic_merge_topl_plain(*cols),
+            {"sort_and_4_gathers": sort_and_gathers},
+            26 * q * l + 8 * q * n, network_ops(l + n))
+
     record("bitonic_sort_pairs", "src/repro_torch/kernels/csrc/bitonic_topk.cu",
-           "src/repro/kernels/bitonic_topk.py:57", got,
-           ops.bitonic_sort_pairs_plain(keys, pos), 0.0, 0.0,
-           lambda: ops.bitonic_sort_pairs(keys, pos),
-           lambda: ops.bitonic_sort_pairs_plain(keys, pos),
-           lambda: torch.sort(keys, dim=1, stable=True),
-           16 * q * p, q * (p // 2) * lg * (lg + 1) // 2)
+           "src/repro/kernels/bitonic_topk.py:57", merge_entry(r),
+           merge_entry(4 * r), entry(
+               f"sort_P{p}", ops.bitonic_sort_pairs(keys, pos),
+               ops.bitonic_sort_pairs_plain(keys, pos), 0.0, 0.0,
+               lambda: ops.bitonic_sort_pairs(keys, pos),
+               lambda: ops.bitonic_sort_pairs_plain(keys, pos),
+               {"torch.sort": lambda: torch.sort(keys, dim=1, stable=True)},
+               16 * q * p, network_ops(p)))
 
     # ---- l2_rerank (the search's gather entry) ---------------------------
-    got = ops.l2_rerank_gather(queries, cand, base, "l2")
-    torch.cuda.synchronize()
     rows = int(torch.unique(cand).numel())
     gathered = base[cand.long()]
     record("l2_rerank", "src/repro_torch/kernels/csrc/l2_rerank.cu",
-           "src/repro/kernels/l2_rerank.py:39", got,
-           ops.l2_rerank_gather_plain(queries, cand, base, "l2"), 1e-4, 1e-3,
-           lambda: ops.l2_rerank_gather(queries, cand, base, "l2"),
-           lambda: ops.l2_rerank_gather_plain(queries, cand, base, "l2"),
-           lambda: torch.cdist(queries[:, None, :], gathered),  # rows gathered
-           4 * (q * d + q * l + rows * d + q * l), 6 * q * l * d)
+           "src/repro/kernels/l2_rerank.py:39", entry(
+               "gather", ops.l2_rerank_gather(queries, cand, base, "l2"),
+               ops.l2_rerank_gather_plain(queries, cand, base, "l2"),
+               1e-4, 1e-3,
+               lambda: ops.l2_rerank_gather(queries, cand, base, "l2"),
+               lambda: ops.l2_rerank_gather_plain(queries, cand, base, "l2"),
+               # rows pre-gathered
+               {"cdist": lambda: torch.cdist(queries[:, None, :], gathered)},
+               4 * (q * d + q * l + rows * d + q * l), 6 * q * l * d))
     return out
 
 
@@ -427,10 +510,17 @@ def main(argv=None) -> int:
 
     kernels = kernel_phase(torch, dev, args.num_base, args.seed)
     for k in kernels:
-        log(f"kernel {k['name']}: max_abs_err={k['max_abs_err']:.3g} "
-            f"ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
-            f"library_ms={k['library_ms']} bound_ms={k['bound_ms']:.4f} "
-            f"({k['bound_by']})")
+        for e in k["entries"]:
+            log(f"kernel {k['name']} [{e['entry']}]: "
+                f"max_abs_err={e['max_abs_err']:.3g} ms={e['ms']:.4f} "
+                f"plain_ms={e['plain_ms']:.4f} library_ms={e['library']} "
+                f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
+
+    # what the same timing reads for a kernel that does (almost) nothing
+    detail["timing_floor_ms"] = _time_ms(
+        torch, lambda: torch.cuda._sleep(1), _Flush(torch, dev))
+    log(f"timing floor (one near-empty kernel, timed as above): "
+        f"{detail['timing_floor_ms']:.4f} ms")
 
     res, idx, gpu_ids = main_path(torch, dev, args, log)
     for k in kernels:

@@ -99,7 +99,7 @@ def next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def empty_search_result(nq: int, k: int, device="cpu") -> SearchResult:
+def empty_search_result(nq: int, k: int, device="cuda") -> SearchResult:
     """A no-work result batch: -1 ids, +inf distances, zeroed counters."""
     z = torch.zeros((nq,), dtype=torch.int32, device=device)
     return SearchResult(
@@ -131,26 +131,6 @@ def _stable_order(key: torch.Tensor, k: int) -> torch.Tensor:
     """Column indices of each row's k smallest keys, ties lower column
     first — what the reference gets from ``lax.top_k(-key)``."""
     return torch.sort(key, dim=1, stable=True).indices[:, :k]
-
-
-def _merge_sort_topl(ids, dists, acc, evaluated, n_ids, n_dists):
-    """Merge L existing + n new candidates, stable-sort by dist, keep top L.
-    The sort is ``ops.bitonic_sort_pairs`` over the merged keys padded to a
-    power of two, carrying each entry's position: stable on both devices,
-    so the kernel's merge is the plain path's."""
-    q, l = ids.shape
-    all_ids = torch.cat([ids, n_ids], 1)
-    all_d = torch.cat([dists, n_dists], 1)
-    all_acc = torch.cat([acc, torch.full_like(n_dists, INF)], 1)
-    all_ev = torch.cat([evaluated, torch.zeros_like(n_ids, dtype=torch.bool)], 1)
-    total = all_d.shape[1]
-    pot = next_pow2(total)
-    keys = torch.nn.functional.pad(all_d, (0, pot - total), value=INF)
-    pos = torch.arange(pot, dtype=torch.int32, device=ids.device)
-    _, perm = ops.bitonic_sort_pairs(keys, pos.expand(q, pot).contiguous())
-    perm = perm[:, :l].long()
-    return (all_ids.gather(1, perm), all_d.gather(1, perm),
-            all_acc.gather(1, perm), all_ev.gather(1, perm))
 
 
 def _topk_ids_by(ids, key, k):
@@ -192,10 +172,13 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
     dev = corpus.base.device
     i32 = torch.int32
 
-    def tdist(q, adts, ids):
+    def tdist(q, adts, ids, mask=None):
+        """Traversal distances of (Q, n) ids; +inf where ``mask`` is False
+        (the lookup kernel then reads nothing for them)."""
         if use_pq:
-            return ops.pq_lookup_gather(ids, corpus.codes, adts)
-        return _exact_dist(q, corpus.base[ids.long()], metric)
+            return ops.pq_lookup_gather(ids, corpus.codes, adts, mask)
+        d = _exact_dist(q, corpus.base[ids.long()], metric)
+        return d if mask is None else torch.where(mask, d, INF)
 
     def init(q, adts) -> _State:
         nq = q.shape[0]
@@ -252,13 +235,14 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
         fresh = (_dedup_round(neigh)
                  & ~bloom.contains(s.bits, neigh, num_hashes)
                  & sel_valid.repeat_interleave(R, dim=1))
-        nd = torch.where(fresh, tdist(q, adts, neigh), INF)
+        nd = tdist(q, adts, neigh, fresh)
         bloom.insert(s.bits, neigh, fresh & live[:, None], num_hashes)
         evaluated = s.evaluated.scatter(1, sel,
                                         s.evaluated.gather(1, sel) | sel_valid)
         n_new = fresh.sum(1, dtype=i32)
         is_hot = (vs < corpus.hot_count) & sel_valid                 # (Q, E)
-        ids, dists, acc, evaluated = _merge_sort_topl(
+        # L existing + E*R new candidates, stable-sorted by dist, top L
+        ids, dists, acc, evaluated = ops.bitonic_merge_topl(
             s.ids, s.dists, s.acc, evaluated,
             torch.where(fresh, neigh, -1), nd)
 

@@ -3,14 +3,26 @@
 
 Replaces the TPU kernel ``src/repro/kernels/bitonic_topk.py::
 bitonic_sort_pairs`` (``pl.pallas_call`` at ``bitonic_topk.py:71``) with the
-CUDA kernel ``csrc/bitonic_topk.cu``: one block per row, the network in
-shared memory.  The port's network compares (key, original position), so it
-is stable — ties keep their input order, exactly like the plain version's
+CUDA kernels of ``csrc/bitonic_topk.cu``.  Each element is one 64-bit word,
+(order-preserving key, original position), so the network is stable — ties
+keep their input order, exactly like the plain versions'
 ``torch.sort(stable=True)``.  (The Pallas network is not stable,
-``search.py:171-172``.)  What bounds it on the card: the latency of its
-log2(P)(log2(P)+1)/2 synchronised stages, not bytes.
+``search.py:171-172``.)  A row of up to 1024 elements sorts in one warp's
+registers, exchanging by shuffles; a longer one in one block's shared memory.
+What bounds it on the card: the latency of its log2(P)(log2(P)+1)/2
+dependent stages, not bytes; the merge cuts them by sorting only the fresh
+keys and merging them into the already sorted list in log2(P) stages.
 
-Ascending order; rows must be a power of two long (pad with +inf keys).
+Two functions, each with its plain version:
+
+* ``bitonic_sort_pairs``: (Q, P) keys and payload, ascending; rows must be a
+  power of two long (pad with +inf keys);
+* ``bitonic_merge_topl``: the search's merge of a lane's candidate list with
+  its fresh candidates, keeping the top L — the reference's
+  ``_merge_sort_topl`` (``src/repro/core/search.py:130-143``) in one launch,
+  with the concatenation, padding and gathers inside the kernel.  The
+  kernel needs the list's distances sorted ascending, as every round leaves
+  them, and traps otherwise; the plain version sorts the whole row.
 """
 from __future__ import annotations
 
@@ -18,7 +30,8 @@ import torch
 
 from repro_torch.kernels import loader
 
-MAX_ROW = 1 << 14        # keys + positions of one row in shared memory
+MAX_ROW = 1 << 14        # one row's 64-bit words in shared memory
+INF = float("inf")
 
 
 def bitonic_sort_pairs_plain(keys: torch.Tensor, vals: torch.Tensor):
@@ -46,3 +59,56 @@ def bitonic_sort_pairs_cuda(keys: torch.Tensor, vals: torch.Tensor):
         loader.stream(keys),
     )
     return out_k, out_v
+
+
+def bitonic_merge_topl_plain(ids, dists, acc, evaluated, n_ids, n_dists):
+    """A lane's list (Q, L) ids / dists / acc / evaluated and its (Q, n)
+    fresh ids / dists -> the top L of the L + n entries by a stable sort on
+    the distance, all four columns.  Fresh entries come after the list and
+    get acc = +inf, evaluated = False."""
+    l = ids.shape[1]
+    all_d = torch.cat([dists, n_dists], 1)
+    order = torch.sort(all_d, dim=1, stable=True).indices[:, :l]
+    return (torch.cat([ids, n_ids], 1).gather(1, order),
+            all_d.gather(1, order),
+            torch.cat([acc, torch.full_like(n_dists, INF)], 1).gather(1, order),
+            torch.cat([evaluated, torch.zeros_like(n_ids, dtype=torch.bool)],
+                      1).gather(1, order))
+
+
+def bitonic_merge_topl_cuda(ids, dists, acc, evaluated, n_ids, n_dists):
+    """Launch the CUDA merge: (Q, L) i32 / f32 / f32 / bool list columns,
+    (Q, n) i32 / f32 fresh columns -> the four (Q, L) columns of the new
+    list.  Counts as a ``bitonic_sort_pairs`` launch.  A list whose
+    distances do not ascend traps in the kernel (up to L + n = 1024; longer
+    rows take the block network, which sorts the whole row)."""
+    loader.check(ids, "bitonic_merge_topl ids", torch.int32, 2)
+    loader.check(dists, "bitonic_merge_topl dists", torch.float32, 2)
+    loader.check(acc, "bitonic_merge_topl acc", torch.float32, 2)
+    loader.check(evaluated, "bitonic_merge_topl evaluated", torch.bool, 2)
+    loader.check(n_ids, "bitonic_merge_topl n_ids", torch.int32, 2)
+    loader.check(n_dists, "bitonic_merge_topl n_dists", torch.float32, 2)
+    q, l = ids.shape
+    n = n_ids.shape[1]
+    cols = (ids, dists, acc, evaluated, n_ids, n_dists)
+    if (any(t.shape != (q, l) for t in cols[:4])
+            or n_dists.shape != (q, n)
+            or any(t.device != ids.device for t in cols)):
+        raise ValueError("bitonic_merge_topl: list columns must be (Q, L) "
+                         "and fresh columns (Q, n), on one device; got "
+                         f"{[tuple(t.shape) for t in cols]}")
+    if l + n > MAX_ROW:                  # MAX_ROW is a power of two
+        raise ValueError(f"bitonic_merge_topl: L + n = {l + n} exceeds "
+                         f"{MAX_ROW}")
+    out_ids = torch.empty_like(ids)
+    out_d = torch.empty_like(dists)
+    out_acc = torch.empty_like(acc)
+    out_ev = torch.empty_like(evaluated)
+    loader.launch(
+        "bitonic_topk", "bitonic_merge_launch", "bitonic_sort_pairs",
+        ids.device, *(loader.ptr(t) for t in cols),
+        loader.ptr(out_ids), loader.ptr(out_d), loader.ptr(out_acc),
+        loader.ptr(out_ev), loader.c_int(q), loader.c_int(l), loader.c_int(n),
+        loader.stream(ids),
+    )
+    return out_ids, out_d, out_acc, out_ev

@@ -132,7 +132,8 @@ def c_int(x: int) -> ctypes.c_int:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """The tensor's device address; null for an absent optional input."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(t) -> ctypes.c_void_p:

@@ -9,7 +9,8 @@ The build-and-load step and the launch counters live in
 from __future__ import annotations
 
 from repro_torch.kernels.bitonic_topk import (
-    bitonic_sort_pairs_cuda, bitonic_sort_pairs_plain,
+    bitonic_merge_topl_cuda, bitonic_merge_topl_plain, bitonic_sort_pairs_cuda,
+    bitonic_sort_pairs_plain,
 )
 from repro_torch.kernels.l2_rerank import (
     l2_rerank_cuda, l2_rerank_gather_cuda, l2_rerank_gather_plain,
@@ -45,17 +46,24 @@ def pq_lookup(codes, adt):
     return pq_lookup_plain(codes, adt)
 
 
-def pq_lookup_gather(ids, codes, adts):
+def pq_lookup_gather(ids, codes, adts, mask=None):
     if ids.is_cuda:
-        return pq_lookup_gather_cuda(ids, codes, adts)
+        return pq_lookup_gather_cuda(ids, codes, adts, mask)
     _check_ids(ids)
-    return pq_lookup_gather_plain(ids, codes, adts)
+    return pq_lookup_gather_plain(ids, codes, adts, mask)
 
 
 def bitonic_sort_pairs(keys, vals):
     if keys.is_cuda:
         return bitonic_sort_pairs_cuda(keys, vals)
     return bitonic_sort_pairs_plain(keys, vals)
+
+
+def bitonic_merge_topl(ids, dists, acc, evaluated, n_ids, n_dists):
+    if ids.is_cuda:
+        return bitonic_merge_topl_cuda(ids, dists, acc, evaluated, n_ids,
+                                       n_dists)
+    return bitonic_merge_topl_plain(ids, dists, acc, evaluated, n_ids, n_dists)
 
 
 def l2_rerank(queries, candidates, metric="l2"):

@@ -3,25 +3,31 @@
 Replaces the TPU kernel ``src/repro/kernels/pq_lookup.py::pq_lookup``
 (``pl.pallas_call`` at ``pq_lookup.py:55``) with the CUDA kernels of
 ``csrc/pq_lookup.cu``.  The TPU kernel is a one-hot MXU product because a
-TPU has no fast gather; on Hopper it is a gather from the ADT staged in
-shared memory.
+TPU has no fast gather; on Hopper it is a gather: one warp per scored row,
+lane m reading code byte m and then ADT[m, code] straight from device memory
+(L2), the warp summing by shuffles.  No ADT is staged in shared memory.
 
 Two functions, each with its plain version:
 
 * ``pq_lookup``: (N, M) uint8 codes, one (M, C) ADT -> (N,) — the reference
   signature, kept for the parity tests;
 * ``pq_lookup_gather``: (Q, n) int32 neighbour ids, the (N, M) uint8 code
-  table and (Q, M, C) ADTs -> (Q, n), one block per query lane gathering its
-  own code rows.  The search calls this one every round.
+  table, (Q, M, C) ADTs and an optional (Q, n) bool mask -> (Q, n); the
+  kernel gathers the code rows itself, and a masked-off pair reads nothing
+  and gets +inf.  The search calls this one every round, masked by "fresh".
 
-What bounds it on the card: staging each lane's ADT (Q*M*C*4 bytes per
-launch) against only Q*n*M code bytes of useful lookups.
+What bounds it on the card: the bytes of the rows it scores (id, M code
+bytes, M ADT entries each) and, at a round's size, the latency of the
+dependent id -> code -> ADT loads.  The warp's tree sum adds in another order
+than the plain version, hence the tolerance rtol/atol 1e-4.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import loader
+
+INF = float("inf")
 
 
 def pq_lookup_plain(codes: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
@@ -32,13 +38,16 @@ def pq_lookup_plain(codes: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
 
 
 def pq_lookup_gather_plain(ids: torch.Tensor, codes: torch.Tensor,
-                           adts: torch.Tensor) -> torch.Tensor:
-    """(Q, n) ids, (N, M) uint8 table, (Q, M, C) -> (Q, n)."""
+                           adts: torch.Tensor,
+                           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(Q, n) ids, (N, M) uint8 table, (Q, M, C), optional (Q, n) bool mask
+    -> (Q, n), +inf where the mask is False."""
     q, n = ids.shape
     m, c = adts.shape[1:]
     rows = codes[ids.long()].long()                            # (Q, n, M)
     flat = adts.reshape(q, 1, m * c).expand(q, n, m * c)
-    return flat.gather(2, rows + torch.arange(m, device=ids.device) * c).sum(-1)
+    d = flat.gather(2, rows + torch.arange(m, device=ids.device) * c).sum(-1)
+    return d if mask is None else torch.where(mask, d, INF)
 
 
 def pq_lookup_cuda(codes: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
@@ -60,23 +69,32 @@ def pq_lookup_cuda(codes: torch.Tensor, adt: torch.Tensor) -> torch.Tensor:
 
 
 def pq_lookup_gather_cuda(ids: torch.Tensor, codes: torch.Tensor,
-                          adts: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: (Q, n) i32 ids, (N, M) u8, (Q, M, C) f32 ->
-    (Q, n) f32.  An id outside [0, N) traps in the kernel (a raw pointer
+                          adts: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel: (Q, n) i32 ids, (N, M) u8, (Q, M, C) f32,
+    optional (Q, n) bool mask -> (Q, n) f32, +inf where the mask is False.
+    An id outside [0, N), masked or not, traps in the kernel (a raw pointer
     does not wrap -1 padding): callers clamp first, like the reference."""
     loader.check(ids, "pq_lookup_gather ids", torch.int32, 2)
     loader.check(codes, "pq_lookup_gather codes", torch.uint8, 2)
     loader.check(adts, "pq_lookup_gather adts", torch.float32, 3)
+    if mask is not None:
+        loader.check(mask, "pq_lookup_gather mask", torch.bool, 2)
     q, n = ids.shape
     big_n, m = codes.shape
     if adts.shape[:2] != (q, m) or not (ids.device == codes.device
                                         == adts.device):
         raise ValueError(f"pq_lookup_gather: ids {tuple(ids.shape)}, codes "
                          f"{tuple(codes.shape)}, ADTs {tuple(adts.shape)}")
+    if mask is not None and (mask.shape != ids.shape
+                             or mask.device != ids.device):
+        raise ValueError(f"pq_lookup_gather: mask {tuple(mask.shape)} does "
+                         f"not fit ids {tuple(ids.shape)}")
     out = torch.empty((q, n), dtype=torch.float32, device=ids.device)
     loader.launch(
         "pq_lookup", "pq_lookup_gather_launch", "pq_lookup", ids.device,
-        loader.ptr(ids), loader.ptr(codes), loader.ptr(adts), loader.ptr(out),
+        loader.ptr(ids), loader.ptr(mask), loader.ptr(codes), loader.ptr(adts),
+        loader.ptr(out),
         loader.c_int(q), loader.c_int(n), loader.c_int(big_n), loader.c_int(m),
         loader.c_int(adts.shape[2]), loader.stream(ids),
     )

@@ -95,7 +95,7 @@ def test_empty_search_result_matches_reference():
     from repro.core.search import empty_search_result as ref_empty
     from repro_torch.core.search import empty_search_result
 
-    got, want = empty_search_result(3, 5), ref_empty(3, 5)
+    got, want = empty_search_result(3, 5, device="cpu"), ref_empty(3, 5)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         assert a.numpy().dtype == np.asarray(b).dtype

@@ -5,12 +5,17 @@ fixture decides at run time).  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: ADT and lookup rtol/atol 1e-4 (tests/test_kernels.py), rerank
-1e-4/1e-3, the sort exact, ties included.  The search on CUDA is held
+Tolerances: ADT and lookup rtol/atol 1e-4 (tests/test_kernels.py; the
+lookup's warp sums in a tree, the plain version left to right), rerank
+1e-4/1e-3, the sort and the merge exact, with ties, +inf and -0.0/+0.0.  The search on CUDA is held
 against the CPU search of the same index: identical ids on >= 95% of rows,
 since the kernels' ADT rounds differently from the CPU's expanded form.
 """
 import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -46,7 +51,7 @@ def test_pq_adt_kernel(cuda, q, m, c, dsub, metric):
 
 
 @pytest.mark.parametrize("n,m,c", [(1, 8, 16), (37, 16, 64), (300, 32, 256),
-                                   (5000, 64, 256)])
+                                   (50, 25, 128), (5000, 64, 256)])
 def test_pq_lookup_kernel(cuda, n, m, c):
     codes = _t(RNG.integers(0, c, (n, m)).astype(np.uint8), cuda)
     adt = _t(RNG.standard_normal((m, c)).astype(np.float32), cuda)
@@ -57,24 +62,37 @@ def test_pq_lookup_kernel(cuda, n, m, c):
 
 
 @pytest.mark.parametrize("q,n,big_n,m,c", [(1, 1, 10, 8, 16),
+                                           (5, 40, 700, 25, 64),
                                            (24, 96, 1500, 32, 128),
-                                           (256, 64, 100000, 32, 256)])
-def test_pq_lookup_gather_kernel(cuda, q, n, big_n, m, c):
+                                           (256, 64, 100000, 32, 256),
+                                           (8, 256, 5000, 64, 256)])
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "masked"])
+def test_pq_lookup_gather_kernel(cuda, q, n, big_n, m, c, masked):
     ids = _t(RNG.integers(0, big_n, (q, n)).astype(np.int32), cuda)
     codes = _t(RNG.integers(0, c, (big_n, m)).astype(np.uint8), cuda)
     adts = _t(RNG.standard_normal((q, m, c)).astype(np.float32), cuda)
-    got = ops.pq_lookup_gather(ids, codes, adts)
+    mask = _t(RNG.random((q, n)) < 0.5, cuda) if masked else None
+    got = ops.pq_lookup_gather(ids, codes, adts, mask)
     torch.cuda.synchronize()
     torch.testing.assert_close(
-        got, ops.pq_lookup_gather_plain(ids, codes, adts), rtol=1e-4,
+        got, ops.pq_lookup_gather_plain(ids, codes, adts, mask), rtol=1e-4,
         atol=1e-4)
 
 
-@pytest.mark.parametrize("q,l", [(1, 2), (1, 32), (5, 64), (16, 256),
-                                 (256, 256), (3, 4096), (2, 16384)])
+def _signed(keys):
+    """Flip the sign of about half the keys: negative keys, and -0.0 beside
+    +0.0 (equal keys, so they keep their input order)."""
+    return np.where(RNG.random(keys.shape) < 0.5, -keys, keys).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("q,l", [(1, 2), (3, 8), (1, 32), (5, 64), (16, 256),
+                                 (256, 256), (9, 512), (4, 1024), (3, 4096),
+                                 (2, 16384)])
 def test_bitonic_kernel_exact_with_ties(cuda, q, l):
-    # few distinct keys: many ties, plus +inf padding like the merge's
-    keys = RNG.integers(0, 8, (q, l)).astype(np.float32)
+    # few distinct keys: many ties, -0.0 and +0.0, plus +inf padding like
+    # the merge's; rows up to 1024 take the warp path, longer the block path
+    keys = _signed(RNG.integers(0, 8, (q, l)).astype(np.float32))
     keys[:, l // 2:] = np.where(RNG.random((q, l - l // 2)) < 0.5, np.inf,
                                 keys[:, l // 2:])
     vals = RNG.integers(0, 1 << 20, (q, l)).astype(np.int32)
@@ -103,6 +121,83 @@ def test_l2_rerank_kernels(cuda, q, k, d, metric):
         atol=1e-3)
 
 
+def _merge_inputs(q, l, n):
+    """A lane's list: sorted prefix, +inf tail with -1 ids; fresh
+    candidates, some +inf (not fresh).  Few distinct keys, -0.0 among them,
+    so ties within and across the two parts are common."""
+    d = np.sort(_signed(RNG.integers(0, 6, (q, l)).astype(np.float32)), 1)
+    tail = np.arange(l)[None, :] >= RNG.integers(1, l + 1, q)[:, None]
+    d[tail] = np.inf
+    ids = np.where(tail, -1, RNG.integers(0, 10**6, (q, l))).astype(np.int32)
+    acc = np.where(RNG.random((q, l)) < 0.3, RNG.random((q, l)),
+                   np.inf).astype(np.float32)
+    ev = RNG.random((q, l)) < 0.5
+    nd = _signed(RNG.integers(0, 6, (q, n)).astype(np.float32))
+    stale = RNG.random((q, n)) < 0.3
+    nd[stale] = np.inf
+    n_ids = np.where(stale, -1, RNG.integers(0, 10**6, (q, n))).astype(
+        np.int32)
+    return ids, d, acc, ev, n_ids, nd
+
+
+@pytest.mark.parametrize("q,l,n", [(3, 16, 8), (7, 64, 24), (9, 100, 60),
+                                   (256, 128, 64), (256, 128, 256),
+                                   (3, 600, 64), (5, 600, 300),
+                                   (5, 512, 1000)])
+def test_bitonic_merge_kernel_exact(cuda, q, l, n):
+    """The merge entry against its plain version, all four columns bit for
+    bit.  Up to 1024 the warp merges fresh keys into the sorted list;
+    (600, 300) and (512, 1000) exceed it and take the block path."""
+    cols = [_t(a, cuda) for a in _merge_inputs(q, l, n)]
+    got = ops.bitonic_merge_topl(*cols)
+    torch.cuda.synchronize()
+    want = ops.bitonic_merge_topl_plain(*cols)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        if g.is_floating_point():   # -0.0 is copied through, not rebuilt
+            assert torch.equal(torch.signbit(g), torch.signbit(w))
+
+
+_TRAP_CHILD = """
+import sys, torch
+from repro_torch.kernels import bitonic_topk
+q, l, n = 4, 64, 24
+d = torch.arange(l, dtype=torch.float32, device="cuda").repeat(q, 1)
+if sys.argv[1] == "unsorted":
+    d[2, 10], d[2, 11] = 50.0, 3.0
+bitonic_topk.bitonic_merge_topl_cuda(
+    torch.zeros((q, l), dtype=torch.int32, device="cuda"), d,
+    torch.full((q, l), float("inf"), device="cuda"),
+    torch.zeros((q, l), dtype=torch.bool, device="cuda"),
+    torch.zeros((q, n), dtype=torch.int32, device="cuda"),
+    torch.ones((q, n), device="cuda"))
+torch.cuda.synchronize()
+print("merged")
+"""
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted"])
+def test_bitonic_merge_kernel_traps_on_unsorted_list(cuda, case):
+    """The warp merge sorts only the fresh keys and merges them into the
+    list, so it checks that the list is sorted (a warp vote) and traps if
+    not.  A trap ends the process's CUDA context: the call runs in a child
+    process, once on a sorted list and once on an unsorted one."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    r = subprocess.run([sys.executable, "-c", _TRAP_CHILD, case],
+                       capture_output=True, text=True, env=env, timeout=300)
+    merged = r.returncode == 0 and "merged" in r.stdout
+    assert merged == (case == "sorted"), r.stderr[-2000:]
+
+
+def test_empty_search_result_defaults_to_cuda(cuda):
+    from repro_torch.core.search import empty_search_result
+
+    res = empty_search_result(3, 5)
+    assert all(t.is_cuda for t in res)
+    assert res.ids.shape == (3, 5) and bool((res.ids == -1).all())
+
+
 def test_kernel_wrappers_count_and_check(cuda):
     from repro_torch.kernels import loader
 
@@ -116,6 +211,9 @@ def test_kernel_wrappers_count_and_check(cuda):
     with pytest.raises(TypeError):                  # int64 payload
         ops.bitonic_sort_pairs(x, _t(np.zeros((4, 8), np.int64), cuda))
     assert loader.LAUNCHES["bitonic_sort_pairs"] == 1
+    cols = [_t(a, cuda) for a in _merge_inputs(4, 8, 8)]
+    ops.bitonic_merge_topl(*cols)                   # counts as the sort
+    assert loader.LAUNCHES["bitonic_sort_pairs"] == 2
 
 
 def test_cuda_search_matches_cpu_search(cuda):

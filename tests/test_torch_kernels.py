@@ -4,23 +4,32 @@ run in interpret mode (``repro.kernels.ops``), over the shape sweeps of
 tests/test_kernels.py.  Tolerances as there: rtol/atol 1e-4 for ADT and
 lookup, 1e-4/1e-3 for rerank, exact for the sort, ties included.
 
+The search's merge (``bitonic_merge_topl``) is held against the reference's
+``_merge_sort_topl`` and the masked lookup against the reference's
+``jnp.where(fresh, pq_distance(...), inf)``.
+
 Also: the CUDA entries refuse CPU tensors (they never hand back the plain
 result), the CPU path refuses negative ids, and no module of the port — nor
 chip_smoke.py — imports jax or repro.
 """
 import ast
+import importlib
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import pq as ref_pq
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import bitonic_topk, l2_rerank, ops, pq_adt, pq_lookup
 from repro_torch.kernels import ref as port_ref
 
 RNG = np.random.default_rng(0)
+# the module, not the ``search`` function that ``repro.core`` re-exports
+ref_search = importlib.import_module("repro.core.search")
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -52,6 +61,65 @@ def test_pq_lookup_plain_matches_reference(n, m, c):
     g = ops.pq_lookup_gather(torch.as_tensor(ids), torch.as_tensor(codes),
                              torch.as_tensor(adts))
     np.testing.assert_allclose(g.numpy(), got.numpy()[ids], rtol=1e-6)
+
+
+@pytest.mark.parametrize("q,n,m,c", [(3, 11, 8, 16), (4, 64, 25, 64),
+                                     (2, 96, 32, 256)])
+def test_pq_lookup_gather_masked_plain_matches_reference(q, n, m, c):
+    """The masked lookup is the reference round's
+    ``jnp.where(fresh, pq_distance(codes[ids], adt), inf)``, lane by lane."""
+    big_n = 200
+    codes = RNG.integers(0, c, (big_n, m)).astype(np.uint8)
+    # an L2 table holds squared distances: non-negative, so no sum cancels
+    # and the two summation orders agree to rtol 1e-5
+    adts = RNG.random((q, m, c)).astype(np.float32)
+    ids = RNG.integers(0, big_n, (q, n)).astype(np.int32)
+    fresh = RNG.random((q, n)) < 0.6
+    got = ops.pq_lookup_gather(torch.as_tensor(ids), torch.as_tensor(codes),
+                               torch.as_tensor(adts), torch.as_tensor(fresh))
+    want = jax.vmap(lambda i, a, f: jnp.where(
+        f, ref_pq.pq_distance(jnp.asarray(codes)[i], a), jnp.inf))(
+        jnp.asarray(ids), jnp.asarray(adts), jnp.asarray(fresh))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    assert np.isinf(got.numpy()[~fresh]).all()
+
+
+def _merge_inputs(q, l, n, zeros=False):
+    """A lane's list with a sorted prefix and +inf tail (-1 ids), and fresh
+    candidates: few distinct keys, so ties between list and fresh entries
+    and inside each are common; some fresh keys are +inf (not fresh)."""
+    d = np.sort(RNG.integers(0, 6, (q, l)).astype(np.float32), axis=1)
+    n_valid = RNG.integers(1, l + 1, q)
+    tail = np.arange(l)[None, :] >= n_valid[:, None]
+    d[tail] = np.inf
+    ids = np.where(tail, -1, RNG.integers(0, 1000, (q, l))).astype(np.int32)
+    acc = np.where(RNG.random((q, l)) < 0.3,
+                   RNG.standard_normal((q, l)), np.inf).astype(np.float32)
+    ev = RNG.random((q, l)) < 0.5
+    nd = RNG.integers(0, 6, (q, n)).astype(np.float32)
+    stale = RNG.random((q, n)) < 0.3
+    nd[stale] = np.inf
+    n_ids = np.where(stale, -1, RNG.integers(0, 1000, (q, n))).astype(np.int32)
+    if zeros:                       # -0.0 and +0.0 tie like any equal keys
+        d = np.where(d == 0, np.float32(-0.0), d)
+        nd = np.where((nd == 0) & (RNG.random((q, n)) < 0.5),
+                      np.float32(-0.0), nd)
+    return ids, d, acc, ev, n_ids, nd
+
+
+@pytest.mark.parametrize("l,n", [(16, 8), (128, 64)])
+@pytest.mark.parametrize("zeros", [False, True], ids=["ties", "signed_zeros"])
+def test_bitonic_merge_plain_matches_reference(l, n, zeros):
+    """The search's merge equals the reference's ``_merge_sort_topl`` (jnp
+    path, stable argsort) lane by lane, ties and +inf included: all four
+    columns, bit for bit."""
+    cols = _merge_inputs(5, l, n, zeros)
+    got = ops.bitonic_merge_topl(*(torch.as_tensor(a) for a in cols))
+    want = jax.vmap(ref_search._merge_sort_topl)(*(jnp.asarray(a)
+                                                   for a in cols))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert g.numpy().dtype == np.asarray(w).dtype
 
 
 @pytest.mark.parametrize("q,l", [(1, 32), (5, 64), (16, 256)])
@@ -113,7 +181,11 @@ def _cuda_entries():
         ("pq_lookup", lambda: pq_lookup.pq_lookup_cuda(u8, f32)),
         ("pq_lookup_gather", lambda: pq_lookup.pq_lookup_gather_cuda(
             i32, u8, torch.zeros((4, 8, 4)))),
+        ("pq_lookup_gather_masked", lambda: pq_lookup.pq_lookup_gather_cuda(
+            i32, u8, torch.zeros((4, 8, 4)), torch.ones((4, 8), dtype=bool))),
         ("bitonic", lambda: bitonic_topk.bitonic_sort_pairs_cuda(f32, i32)),
+        ("bitonic_merge_topl", lambda: bitonic_topk.bitonic_merge_topl_cuda(
+            i32, f32, f32, torch.zeros((4, 8), dtype=bool), i32, f32)),
         ("l2_rerank", lambda: l2_rerank.l2_rerank_cuda(
             torch.zeros((4, 8)), torch.zeros((4, 3, 8)))),
         ("l2_rerank_gather", lambda: l2_rerank.l2_rerank_gather_cuda(
