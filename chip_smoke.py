@@ -9,30 +9,39 @@ not printed):
 
 1. The card's name and power limit, then the build of the four kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
-2. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
+2. Main path: a sift-like corpus (ann-benchmarks sift-128-euclidean scale:
+   1M base, 10k queries, 128-d, L2) built into a Proxima index on the card
+   (PQ M=32 x C=256, graph R=64 / build list 128, hot_node_fraction=0, no
+   gap encoding), then all queries submitted to ``ServingEngine(index,
+   batch_size=256)`` and drained.  Launch counts are zeroed just before and
+   read just after; every kernel must have launched, and ``l2_rerank`` once
+   a round and once a batch.  Fails if recall@10 against the exact ground
+   truth is below 0.5, or if the engine's ids differ from
+   ``Searcher.search`` of the same queries.  Then one more batch, with the
+   exact-distance entry wrapped, measures the share of rows the round's
+   masks ask for (the timed run is never instrumented).
+3. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
    M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
    its plain PyTorch version on the same inputs: ADT and lookup at rtol/atol
    1e-4, rerank at 1e-4/1e-3, the sort and the merge exactly (ties, +inf
    padding, -0.0 beside +0.0).  The lookup is checked and timed with and
    without the round's "fresh" mask; ``bitonic_sort_pairs`` as the merge the
    round runs, (L=128, n=64) and (L=128, n=256), and as a plain sort at
-   P=256.  Each entry is timed with CUDA events, one launch at a time, the
-   50 MB L2 cache flushed before each and the launch queued behind a spin so
-   that only device time is measured; beside it the plain version's time
-   and, where PyTorch calls compute the same function, their times.
-3. Main path: a sift-like corpus (ann-benchmarks sift-128-euclidean scale:
-   1M base, 10k queries, 128-d, L2) built into a Proxima index on the card
-   (PQ M=32 x C=256, graph R=64 / build list 128, hot_node_fraction=0, no
-   gap encoding), then all queries submitted to ``ServingEngine(index,
-   batch_size=256)`` and drained.  Launch counts are zeroed just before and
-   read just after; every kernel must have launched.  Fails if recall@10
-   against the exact ground truth is below 0.5, or if the engine's ids differ
-   from ``Searcher.search`` of the same queries.
+   P=256; ``l2_rerank``'s masked entry at the density phase 2 measured and
+   with every row asked for, and its reference signature on pre-gathered
+   rows.  Each entry is timed over 30 launches, the 50 MB L2 cache flushed
+   before each and the launch queued behind a spin: by CUDA events around
+   each launch (``ms``) and, for the same launches, by the kernel's own
+   device duration from ``torch.profiler`` (``cupti_ms``); beside them the
+   plain version's time and, where PyTorch calls compute the same function,
+   their times.  A near-empty kernel timed the same way gives the floor of
+   both columns.
 4. Cross-device check: 64 queries through the same search on the CPU (plain
    versions); at least 95% of top-10 rows must equal the card's.
 5. The loop-control cost: one batch through ``graph_search`` (host check of
    "any lane active" every DONE_CHECK_EVERY rounds) and through
-   ``graph_search_stepped`` (a check every round), in turns.
+   ``graph_search_stepped`` (a check every round), in turns; then one batch
+   under ``torch.profiler`` (launches per round, device busy share).
 
 The line before last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details (the full record, ptxas
@@ -70,28 +79,61 @@ class _Flush:
 
 
 SPIN_CYCLES = 2_000_000          # ~1 ms of device time at 1.98 GHz
+SPIN_SYMBOL = "spin_kernel"      # torch.cuda._sleep's kernel
 
 
-def _time_ms(torch, fn, flush, reps=30, warmup=3) -> float:
+def _time_ms(torch, fn, flush, symbol=None, reps=30, warmup=3):
     """Median device milliseconds of one call of ``fn``, from CUDA events
     around the call.  Before each call the L2 is flushed and the device is
     kept busy by a ~1 ms spin, so the events time the device work of ``fn``
-    and not the host's time to enqueue it."""
+    and not the host's time to enqueue it.
+
+    With ``symbol`` (a substring of a kernel's name) the same launches run
+    under ``torch.profiler`` and the result is (events ms, CUPTI ms): the
+    second is the median of that kernel's own device duration, which leaves
+    out the launch gap that the events also count."""
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
-        flush()
-        torch.cuda._sleep(SPIN_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+
+    def run():
+        for _ in range(reps):
+            flush()
+            torch.cuda._sleep(SPIN_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+
+    if symbol is None:
+        run()
+        return _median(times)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == cuda and symbol in e.name]
+    if symbol == SPIN_SYMBOL:               # drop the ~1 ms spins
+        kern = [t for t in kern if t < 0.1]
+    # the profiler has been seen to drop one kernel record in a few
+    # thousand: take the median of those it kept, unless most are missing
+    if len(kern) != reps:
+        print(f"profiler kept {len(kern)} of {reps} launches of {symbol!r}",
+              file=sys.stderr)
+    if len(kern) < reps // 2:
+        raise AssertionError(f"profiler saw {len(kern)} launches of "
+                             f"{symbol!r}, expected {reps}")
+    return _median(times), _median(kern)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
 
 
 def _bound(nbytes: float, flops: float) -> tuple:
@@ -100,11 +142,14 @@ def _bound(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
+def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
+                 seed: int = 0) -> list:
     """Each kernel vs its plain version at the main path's shapes; raises
     on a disagreement.  Returns one record per kernel (launches filled in
-    later from the main path): the top-level numbers are those of the entry
-    the search's round runs, and ``entries`` holds every entry timed."""
+    from the main path): the top-level numbers are those of the entry the
+    search's round runs, and ``entries`` holds every entry timed.  The
+    rerank's masked entry runs at the shares of rows that the round's and
+    the margin's masks ask for on the main path (``rerank_density``)."""
     from repro_torch.kernels import ops
 
     q, d, m, c, r, l = 256, 128, 32, 256, 64, 128
@@ -139,10 +184,11 @@ def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
     flush = _Flush(torch, dev)
     out = []
 
-    def entry(label, got, want, rtol, atol, kernel, plain, libraries, nbytes,
-              flops):
+    def entry(label, symbol, got, want, rtol, atol, kernel, plain, libraries,
+              nbytes, flops):
         """Hold ``got`` against ``want`` (a tuple: exactly), then time the
-        kernel, its plain version and each library yardstick."""
+        kernel (events and CUPTI, ``symbol`` names its kernel), its plain
+        version and each library yardstick."""
         torch.cuda.synchronize()
         if isinstance(got, tuple):
             if not all(a.dtype == b.dtype and torch.equal(a, b)
@@ -159,10 +205,10 @@ def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
             rel = float((diff / want[fin].abs().clamp(min=1e-6)).max())
         bound_ms, bound_by = _bound(nbytes, flops)
         lib = {k: _time_ms(torch, f, flush) for k, f in libraries.items()}
+        ms, cupti_ms = _time_ms(torch, kernel, flush, symbol)
         return {
             "entry": label, "max_abs_err": err, "max_rel_err": rel,
-            "rtol": rtol, "atol": atol,
-            "ms": _time_ms(torch, kernel, flush),
+            "rtol": rtol, "atol": atol, "ms": ms, "cupti_ms": cupti_ms,
             "plain_ms": _time_ms(torch, plain, flush),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": next(iter(lib.values()), None), "library": lib,
@@ -180,7 +226,7 @@ def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
     qs = queries.reshape(q, m, d // m).transpose(0, 1).contiguous()
     record("pq_adt", "src/repro_torch/kernels/csrc/pq_adt.cu",
            "src/repro/kernels/pq_adt.py:38", entry(
-               "pq_adt", ops.pq_adt(queries, cents, "l2"),
+               "pq_adt", "pq_adt_kernel", ops.pq_adt(queries, cents, "l2"),
                ops.pq_adt_plain(queries, cents, "l2"), 1e-4, 1e-4,
                lambda: ops.pq_adt(queries, cents, "l2"),
                lambda: ops.pq_adt_plain(queries, cents, "l2"),
@@ -209,7 +255,8 @@ def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
             2, codes[nbr.long()].long() + offs).sum(-1),
     }
     masked = entry(
-        "gather_masked", ops.pq_lookup_gather(nbr, codes, adts, fresh),
+        "gather_masked", "pq_lookup_gather_kernel",
+        ops.pq_lookup_gather(nbr, codes, adts, fresh),
         ops.pq_lookup_gather_plain(nbr, codes, adts, fresh), 1e-4, 1e-4,
         lambda: ops.pq_lookup_gather(nbr, codes, adts, fresh),
         lambda: ops.pq_lookup_gather_plain(nbr, codes, adts, fresh),
@@ -220,7 +267,8 @@ def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
     everything = torch.ones_like(fresh)
     record("pq_lookup", "src/repro_torch/kernels/csrc/pq_lookup.cu",
            "src/repro/kernels/pq_lookup.py:42", masked, entry(
-               "gather", ops.pq_lookup_gather(nbr, codes, adts),
+               "gather", "pq_lookup_gather_kernel",
+               ops.pq_lookup_gather(nbr, codes, adts),
                ops.pq_lookup_gather_plain(nbr, codes, adts), 1e-4, 1e-4,
                lambda: ops.pq_lookup_gather(nbr, codes, adts),
                lambda: ops.pq_lookup_gather_plain(nbr, codes, adts),
@@ -258,7 +306,8 @@ def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
             return [t.gather(1, order) for t in cat]
 
         return entry(
-            f"merge_L{l}_n{n}", ops.bitonic_merge_topl(*cols),
+            f"merge_L{l}_n{n}", "warp_merge_kernel",
+            ops.bitonic_merge_topl(*cols),
             ops.bitonic_merge_topl_plain(*cols), 0.0, 0.0,
             lambda: ops.bitonic_merge_topl(*cols),
             lambda: ops.bitonic_merge_topl_plain(*cols),
@@ -268,26 +317,54 @@ def kernel_phase(torch, dev, n_base: int, seed: int = 0) -> list:
     record("bitonic_sort_pairs", "src/repro_torch/kernels/csrc/bitonic_topk.cu",
            "src/repro/kernels/bitonic_topk.py:57", merge_entry(r),
            merge_entry(4 * r), entry(
-               f"sort_P{p}", ops.bitonic_sort_pairs(keys, pos),
+               f"sort_P{p}", "warp_sort_kernel",
+               ops.bitonic_sort_pairs(keys, pos),
                ops.bitonic_sort_pairs_plain(keys, pos), 0.0, 0.0,
                lambda: ops.bitonic_sort_pairs(keys, pos),
                lambda: ops.bitonic_sort_pairs_plain(keys, pos),
                {"torch.sort": lambda: torch.sort(keys, dim=1, stable=True)},
                16 * q * p, network_ops(p)))
 
-    # ---- l2_rerank (the search's gather entry) ---------------------------
-    rows = int(torch.unique(cand).numel())
+    # ---- l2_rerank: the masked entry at the round's density and asked
+    # for every row, and the reference signature on pre-gathered rows --------
     gathered = base[cand.long()]
+    acc = torch.where(rand(q, l) < 0.5, rand(q, l), inf)
+
+    def masked_entry(label, mask):
+        rows = int(torch.unique(cand[mask]).numel())
+        return entry(
+            label, "l2_rerank_kernel",
+            ops.l2_rerank_masked(queries, cand, base, acc, mask, "l2"),
+            ops.l2_rerank_masked_plain(queries, cand, base, acc, mask, "l2"),
+            1e-4, 1e-3,
+            lambda: ops.l2_rerank_masked(queries, cand, base, acc, mask, "l2"),
+            lambda: ops.l2_rerank_masked_plain(queries, cand, base, acc, mask,
+                                               "l2"),
+            # every row, pre-gathered, in one call
+            {"cdist": lambda: torch.cdist(queries[:, None, :], gathered)},
+            # ids, mask, acc, out; the asked-for rows and their queries
+            13 * q * l + 4 * rows * d
+            + 4 * d * int(mask.any(1).sum()), 3 * int(mask.sum()) * d)
+
+    def at_density(label, share):
+        mask = rand(q, l) < share
+        e = masked_entry(label, mask)
+        e["mask_share"] = float(mask.float().mean())
+        return e
+
     record("l2_rerank", "src/repro_torch/kernels/csrc/l2_rerank.cu",
-           "src/repro/kernels/l2_rerank.py:39", entry(
-               "gather", ops.l2_rerank_gather(queries, cand, base, "l2"),
-               ops.l2_rerank_gather_plain(queries, cand, base, "l2"),
-               1e-4, 1e-3,
-               lambda: ops.l2_rerank_gather(queries, cand, base, "l2"),
-               lambda: ops.l2_rerank_gather_plain(queries, cand, base, "l2"),
-               # rows pre-gathered
+           "src/repro/kernels/l2_rerank.py:39",
+           at_density("masked", rerank_density["round_mean"]),
+           at_density("masked_margin", rerank_density["margin"]),
+           masked_entry("masked_all", torch.ones((q, l), dtype=torch.bool,
+                                                 device=dev)), entry(
+               "pregathered", "l2_rerank_kernel",
+               ops.l2_rerank(queries, gathered, "l2"),
+               ops.l2_rerank_plain(queries, gathered, "l2"), 1e-4, 1e-3,
+               lambda: ops.l2_rerank(queries, gathered, "l2"),
+               lambda: ops.l2_rerank_plain(queries, gathered, "l2"),
                {"cdist": lambda: torch.cdist(queries[:, None, :], gathered)},
-               4 * (q * d + q * l + rows * d + q * l), 6 * q * l * d))
+               4 * (q * d + q * l * d + q * l), 4 * q * l * d))
     return out
 
 
@@ -411,7 +488,37 @@ def loop_control(torch, idx, reps: int = 3) -> dict:
             fn(corpus, q, cfg)
             torch.cuda.synchronize()
             times[name].append(time.perf_counter() - t0)
-    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    return {k: _median(v) for k, v in times.items()}
+
+
+def rerank_density(torch, idx) -> dict:
+    """The share of rows the exact-distance masks ask for, from one
+    256-query ``graph_search`` with ``ops.l2_rerank_masked`` wrapped to
+    record each mask (the timed serving run is never instrumented): the
+    mean over the rounds' calls, the share of rounds asking for no row, and
+    the beta-margin rerank's share (the batch's last call)."""
+    from repro_torch.core.search import graph_search
+    from repro_torch.kernels import ops
+
+    shares = []
+    real = ops.l2_rerank_masked
+
+    def spy(queries, ids, base, acc, mask, metric="l2"):
+        shares.append(float(mask.float().mean()))
+        return real(queries, ids, base, acc, mask, metric)
+
+    ops.l2_rerank_masked = spy
+    try:
+        graph_search(idx.corpus(), idx.dataset.queries[-256:],
+                     idx.config.search)
+        torch.cuda.synchronize()
+    finally:
+        ops.l2_rerank_masked = real
+    rounds = shares[:-1]
+    return {"round_mean": sum(rounds) / len(rounds),
+            "round_max": max(rounds),
+            "rounds_asking_none": sum(x == 0 for x in rounds) / len(rounds),
+            "rounds": len(rounds), "margin": shares[-1]}
 
 
 def profile_batch(torch, idx, out_dir) -> dict:
@@ -423,6 +530,8 @@ def profile_batch(torch, idx, out_dir) -> dict:
 
     from repro_torch.core.search import graph_search
 
+    from repro_torch.kernels import loader
+
     corpus = idx.corpus()
     q = idx.dataset.queries[256:512]
     cfg = idx.config.search
@@ -432,12 +541,14 @@ def profile_batch(torch, idx, out_dir) -> dict:
     res = graph_search(corpus, q, cfg)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
+    merges = loader.LAUNCHES["bitonic_sort_pairs"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         graph_search(corpus, q, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    steps = loader.LAUNCHES["bitonic_sort_pairs"] - merges   # one a round
     ev = prof.key_averages()
     # device time = the kernels' own events (the aten ops that launched
     # them report the same time again), as the profiler's table sums it
@@ -450,12 +561,14 @@ def profile_batch(torch, idx, out_dir) -> dict:
     top = sorted((e for e in ev if e.device_type != cuda),
                  key=lambda e: -e.self_device_time_total)[:6]
     rounds = res.rounds.cpu()
+    launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
     return {
         "batch_wall_s": plain_wall, "profiled_wall_s": wall,
         "device_s": dev_us / 1e6,
         "device_busy_share": dev_us / (wall * 1e6),
         "device_busy_share_unprofiled": dev_us / (plain_wall * 1e6),
-        "launches": sum(e.count for e in ev if e.key == "cudaLaunchKernel"),
+        "launches": launches, "rounds_stepped": steps,
+        "launches_per_round": launches / steps,
         "rounds_max": int(rounds.max()), "rounds_mean": float(
             rounds.double().mean()),
         "top_device_ops_us": {e.key: e.self_device_time_total for e in top},
@@ -508,23 +621,7 @@ def main(argv=None) -> int:
     log(f"kernels built in {detail['kernel_build_s']:.1f} s "
         f"({', '.join(reports) or 'cached'})")
 
-    kernels = kernel_phase(torch, dev, args.num_base, args.seed)
-    for k in kernels:
-        for e in k["entries"]:
-            log(f"kernel {k['name']} [{e['entry']}]: "
-                f"max_abs_err={e['max_abs_err']:.3g} ms={e['ms']:.4f} "
-                f"plain_ms={e['plain_ms']:.4f} library_ms={e['library']} "
-                f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
-
-    # what the same timing reads for a kernel that does (almost) nothing
-    detail["timing_floor_ms"] = _time_ms(
-        torch, lambda: torch.cuda._sleep(1), _Flush(torch, dev))
-    log(f"timing floor (one near-empty kernel, timed as above): "
-        f"{detail['timing_floor_ms']:.4f} ms")
-
     res, idx, gpu_ids = main_path(torch, dev, args, log)
-    for k in kernels:
-        k["launches"] = res["launches"][k["name"]]
     log(f"launches on the main path: {json.dumps(res['launches'])}")
     log(f"served {args.num_queries} queries in {res['wall_s']:.3f} s: "
         f"QPS={res['qps']:.1f} p50_ms={res['p50_ms']:.2f} "
@@ -534,6 +631,27 @@ def main(argv=None) -> int:
         f"mean_hops={res['mean_hops']:.2f} "
         f"recall@10={res['recall_at_10']:.4f}")
     log(f"engine ids equal Searcher.search: {res['engine_equals_searcher']}")
+    res["rerank_density"] = rerank_density(torch, idx)
+    log(f"exact-distance mask density: {json.dumps(res['rerank_density'])}")
+
+    kernels = kernel_phase(torch, dev, args.num_base, res["rerank_density"],
+                           args.seed)
+    for k in kernels:
+        k["launches"] = res["launches"][k["name"]]
+        for e in k["entries"]:
+            log(f"kernel {k['name']} [{e['entry']}]: "
+                f"max_abs_err={e['max_abs_err']:.3g} ms={e['ms']:.4f} "
+                f"cupti_ms={e['cupti_ms']:.4f} "
+                f"plain_ms={e['plain_ms']:.4f} library_ms={e['library']} "
+                f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']})")
+
+    # what the same timing reads for a kernel that does (almost) nothing
+    floor_ms, floor_cupti = _time_ms(
+        torch, lambda: torch.cuda._sleep(1), _Flush(torch, dev), SPIN_SYMBOL)
+    detail["timing_floor_ms"] = floor_ms
+    detail["timing_floor_cupti_ms"] = floor_cupti
+    log(f"timing floor (one near-empty kernel, timed as above): "
+        f"ms={floor_ms:.4f} cupti_ms={floor_cupti:.4f}")
 
     share = cross_device(torch, idx, gpu_ids)
     res["cross_device_identical_rows"] = share
@@ -550,6 +668,14 @@ def main(argv=None) -> int:
     failures = []
     if min(res["launches"].values()) <= 0:
         failures.append(f"a kernel never launched: {res['launches']}")
+    # the exact distances: once a round (one merge a round) and once a
+    # batch (the beta-margin rerank)
+    rounds_and_batches = (res["launches"]["bitonic_sort_pairs"]
+                          + res["batches"])
+    if res["launches"]["l2_rerank"] != rounds_and_batches:
+        failures.append(f"l2_rerank launched {res['launches']['l2_rerank']} "
+                        f"times, not once a round and a batch "
+                        f"({rounds_and_batches})")
     if res["recall_at_10"] < 0.5:
         failures.append(f"recall@10 {res['recall_at_10']:.4f} < 0.5")
     if not res["engine_equals_searcher"]:

@@ -22,6 +22,6 @@ for which in other this this other; do
   (cd "$dir" && python3 chip_smoke.py --out-dir "$out/$n-$which" "$@") \
     > "$out/$n-$which.log" 2>&1
   echo "== run $n ($which, $dir): exit $?"
-  grep -E "^kernel |^timing floor|^served|^cross-device|^profiled batch" \
+  grep -E "^kernel |^timing floor|^served|^exact-distance|^cross-device|^profiled batch" \
     "$out/$n-$which.log"
 done

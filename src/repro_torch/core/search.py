@@ -21,12 +21,15 @@ a host sync that drains the launch queue — and every round on the CPU,
 where nothing runs ahead (PERF.md records the choice and its cost).
 
 Routing by device mirrors the reference's ``use_pallas`` switch.  On CUDA the
-ADTs, lookups, merge sort and final rerank launch the four kernels (the
+ADTs, lookups, merge sort and exact distances launch the four kernels (the
 reference's Pallas path, with a stable sort).  On the CPU the ADT is the
-expanded form of ``core.pq.compute_adt`` and the final rerank the direct
-form of ``_exact_dist`` (the reference's jnp path, which rounds differently
-from the kernels), while lookup and sort take the kernels' plain versions,
-which compute exactly what the jnp path computes.
+expanded form of ``core.pq.compute_adt`` (the reference's jnp path, which
+rounds differently from the kernel), while lookup, sort and exact distances
+take the kernels' plain versions, which compute exactly what the jnp path
+computes.  The exact distances — the round's, for the entries that just
+entered the top-T, and the beta-margin rerank's — come from
+``ops.l2_rerank_masked`` in the direct form of ``exact_dist``, on both
+devices: the kernel reads only the rows the mask asks for.
 
 Only unfiltered traversal is ported: ``node_mask`` must be None.
 """
@@ -41,6 +44,7 @@ from repro_torch.core import bloom
 from repro_torch.core.dataset import l2_normalize
 from repro_torch.core.pq import compute_adt
 from repro_torch.kernels import ops
+from repro_torch.kernels.l2_rerank import exact_dist
 
 INF = float("inf")
 DONE_CHECK_EVERY = 4     # rounds between host checks of "any lane active"
@@ -109,15 +113,6 @@ def empty_search_result(nq: int, k: int, device="cuda") -> SearchResult:
     )
 
 
-def _exact_dist(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
-    """q (Q, D), x (Q, K, D) -> (Q, K), direct form (the reference's
-    ``_exact_dist``).  Angular assumes pre-normalized inputs."""
-    if metric == "l2":
-        diff = x - q[:, None, :]
-        return (diff * diff).sum(-1)
-    return -torch.bmm(x, q[:, :, None])[..., 0]
-
-
 def _dedup_round(neighbors: torch.Tensor) -> torch.Tensor:
     """(Q, n) -> (Q, n) bool: False on a repeat of an earlier entry."""
     n = neighbors.shape[1]
@@ -177,7 +172,7 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
         (the lookup kernel then reads nothing for them)."""
         if use_pq:
             return ops.pq_lookup_gather(ids, corpus.codes, adts, mask)
-        d = _exact_dist(q, corpus.base[ids.long()], metric)
+        d = exact_dist(q, corpus.base[ids.long()], metric)
         return d if mask is None else torch.where(mask, d, INF)
 
     def init(q, adts) -> _State:
@@ -250,11 +245,14 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
         valid = ids >= 0
         in_t = (ar_l[None, :] < s.t[:, None]) & valid
         all_eval = in_t.any(1) & (~in_t | evaluated).all(1)
-        need = in_t & torch.isinf(acc)
-        acc_new = _exact_dist(q, corpus.base[ids.clamp(min=0).long()], metric)
-        acc2 = torch.where(need & all_eval[:, None], acc_new, acc)
-        n_acc_new = torch.where(all_eval, need.sum(1, dtype=i32), 0)
-        if not use_pq:
+        # exact distances for the top-T entries that have none yet, once
+        # the top-T is all evaluated; an inactive lane's result is dropped
+        # below, so none of its rows is read
+        need = in_t & torch.isinf(acc) & (all_eval & live)[:, None]
+        n_acc_new = need.sum(1, dtype=i32)
+        if use_pq:
+            acc2 = ops.l2_rerank_masked(q, ids, corpus.base, acc, need, metric)
+        else:
             acc2 = torch.where(valid, dists, INF)
         rerank_key = torch.where(in_t, acc2, INF)
         new_topk = _topk_ids_by(ids, rerank_key, k)
@@ -292,9 +290,9 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
 
 def _finalize_batch(corpus: Corpus, cfg: SearchConfig, metric: str,
                     queries: torch.Tensor, s: _State) -> SearchResult:
-    """Post-loop beta-margin rerank + top-k (Alg.1 l.19-22).  On CUDA the
-    margin's exact distances come from the l2_rerank kernel, gathering the
-    rows itself; on the CPU from the direct form, like the jnp path."""
+    """Post-loop beta-margin rerank + top-k (Alg.1 l.19-22): the margin's
+    exact distances come from ``ops.l2_rerank_masked``, which reads only the
+    rows the margin asks for."""
     L, k = cfg.list_size, cfg.k
     valid = s.ids >= 0
     t_idx = (torch.clamp(s.t, 1, L) - 1).long()
@@ -302,12 +300,8 @@ def _finalize_batch(corpus: Corpus, cfg: SearchConfig, metric: str,
     thr = d_t + (cfg.beta - 1.0) * torch.abs(d_t)            # sign-safe margin
     if cfg.use_pq and cfg.rerank:
         need = valid & (s.dists <= thr[:, None]) & torch.isinf(s.acc)
-        safe = s.ids.clamp(min=0)
-        if queries.is_cuda:
-            acc_new = ops.l2_rerank_gather(queries, safe, corpus.base, metric)
-        else:
-            acc_new = _exact_dist(queries, corpus.base[safe.long()], metric)
-        acc = torch.where(need, acc_new, s.acc)
+        acc = ops.l2_rerank_masked(queries, s.ids, corpus.base, s.acc, need,
+                                   metric)
         n_acc = s.n_acc + need.sum(1, dtype=torch.int32)
     else:
         # no rerank (rank by PQ) / accurate traversal (dists are accurate)

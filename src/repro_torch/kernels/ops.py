@@ -13,7 +13,7 @@ from repro_torch.kernels.bitonic_topk import (
     bitonic_sort_pairs_plain,
 )
 from repro_torch.kernels.l2_rerank import (
-    l2_rerank_cuda, l2_rerank_gather_cuda, l2_rerank_gather_plain,
+    l2_rerank_cuda, l2_rerank_masked_cuda, l2_rerank_masked_plain,
     l2_rerank_plain,
 )
 from repro_torch.kernels.loader import (  # noqa: F401  (re-exports)
@@ -26,10 +26,12 @@ from repro_torch.kernels.pq_lookup import (
 )
 
 
-def _check_ids(ids) -> None:
-    """CPU path: the kernels trap on a negative id, so the plain versions
-    refuse one too instead of wrapping it."""
-    if ids.numel() and int(ids.min()) < 0:
+def _check_ids(ids, mask=None) -> None:
+    """CPU path: the kernels trap on a negative id they read (with a mask,
+    one the mask asks for), so the plain versions refuse one too instead of
+    wrapping it."""
+    neg = ids < 0 if mask is None else (ids < 0) & mask
+    if bool(neg.any()):
         raise ValueError("negative id passed to a gather: clamp -1 padding "
                          "first")
 
@@ -72,9 +74,9 @@ def l2_rerank(queries, candidates, metric="l2"):
     return l2_rerank_plain(queries, candidates, metric)
 
 
-def l2_rerank_gather(queries, ids, base, metric="l2"):
+def l2_rerank_masked(queries, ids, base, acc, mask, metric="l2"):
     if queries.is_cuda:
-        return l2_rerank_gather_cuda(queries, ids, base, metric)
-    _check_ids(ids)
-    return l2_rerank_gather_plain(queries, ids, base, metric)
+        return l2_rerank_masked_cuda(queries, ids, base, acc, mask, metric)
+    _check_ids(ids, mask)
+    return l2_rerank_masked_plain(queries, ids, base, acc, mask, metric)
 

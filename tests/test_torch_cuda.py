@@ -6,8 +6,10 @@ fixture decides at run time).  On a machine with a card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: ADT and lookup rtol/atol 1e-4 (tests/test_kernels.py; the
-lookup's warp sums in a tree, the plain version left to right), rerank
-1e-4/1e-3, the sort and the merge exact, with ties, +inf and -0.0/+0.0.  The search on CUDA is held
+lookup's warp sums in a tree, the plain version left to right; the ADT's
+kernel fuses multiply and add), rerank 1e-4/1e-3 (a warp's tree sum over D
+against torch's order) with the masked entry's pass-through of acc exact,
+the sort and the merge exact, with ties, +inf and -0.0/+0.0.  The search on CUDA is held
 against the CPU search of the same index: identical ids on >= 95% of rows,
 since the kernels' ADT rounds differently from the CPU's expanded form.
 """
@@ -39,9 +41,16 @@ def _t(a, dev):
 
 @pytest.mark.parametrize("q,m,c,dsub", [(1, 8, 64, 2), (8, 16, 256, 4),
                                         (4, 32, 256, 3), (2, 25, 128, 4),
-                                        (256, 32, 256, 4)])
+                                        (256, 32, 256, 4), (13, 30, 256, 4),
+                                        (257, 25, 100, 2), (19, 7, 100, 3),
+                                        (11, 9, 100, 4), (5, 6, 50, 4),
+                                        (3, 5, 7, 3), (9, 3, 1100, 4)])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_pq_adt_kernel(cuda, q, m, c, dsub, metric):
+    """The tile is 8 queries x (256 / ceil(C/4)) subspaces: Q not a multiple
+    of 8, M not a multiple of the tile, C not a multiple of 4 (50, 7), dsub
+    2 and 3 (scalar codebook loads) and C > 1024 (threads loop over the
+    centroids) are all ragged edges of the one kernel."""
     qs = _t(RNG.standard_normal((q, m * dsub)).astype(np.float32), cuda)
     cents = _t(RNG.standard_normal((m, c, dsub)).astype(np.float32), cuda)
     got = ops.pq_adt(qs, cents, metric)
@@ -112,13 +121,76 @@ def test_l2_rerank_kernels(cuda, q, k, d, metric):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ops.l2_rerank_plain(qs, cands, metric),
                                rtol=1e-4, atol=1e-3)
+    # the masked entry asked for every row
     base = _t(RNG.standard_normal((5000, d)).astype(np.float32), cuda)
     ids = _t(RNG.integers(0, 5000, (q, k)).astype(np.int32), cuda)
-    got = ops.l2_rerank_gather(qs, ids, base, metric)
+    acc = torch.zeros((q, k), device=cuda)
+    mask = torch.ones((q, k), dtype=torch.bool, device=cuda)
+    got = ops.l2_rerank_masked(qs, ids, base, acc, mask, metric)
     torch.cuda.synchronize()
     torch.testing.assert_close(
-        got, ops.l2_rerank_gather_plain(qs, ids, base, metric), rtol=1e-4,
-        atol=1e-3)
+        got, ops.l2_rerank_masked_plain(qs, ids, base, acc, mask, metric),
+        rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("q,k,d", [(256, 128, 128), (7, 128, 96),
+                                   (5, 45, 36), (3, 100, 21), (4, 70, 130),
+                                   (2, 33, 300)])
+@pytest.mark.parametrize("density", [0.0, 0.05, 1.0],
+                         ids=["none", "sparse", "all"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_l2_rerank_masked_kernel(cuda, q, k, d, density, metric):
+    """The masked entry against its plain version: the direct form where
+    the mask holds (rtol 1e-4 / atol 1e-3, the warp sums in a tree), acc
+    bit for bit elsewhere, -1 padding outside the mask never read.  D=128,
+    96 and 36 hold the query in registers as float4; 21 and 130 take scalar
+    loads; 300 loops over 128-wide chunks."""
+    big_n = 20000
+    qs = _t(RNG.standard_normal((q, d)).astype(np.float32), cuda)
+    base_np = RNG.standard_normal((big_n, d)).astype(np.float32)
+    mask_np = RNG.random((q, k)) < density
+    ids_np = RNG.integers(0, big_n, (q, k)).astype(np.int32)
+    ids_np[~mask_np & (RNG.random((q, k)) < 0.5)] = -1
+    acc_np = np.where(RNG.random((q, k)) < 0.5, np.inf,
+                      RNG.standard_normal((q, k))).astype(np.float32)
+    args = [_t(a, cuda) for a in (ids_np, base_np, acc_np, mask_np)]
+    got = ops.l2_rerank_masked(qs, *args, metric)
+    torch.cuda.synchronize()
+    want = ops.l2_rerank_masked_plain(qs, *args, metric)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    keep = ~args[3]
+    assert torch.equal(got[keep], args[2][keep])
+
+
+_RERANK_TRAP_CHILD = """
+import sys, torch
+from repro_torch.kernels import l2_rerank
+q, k, d, n = 4, 64, 128, 1000
+ids = torch.randint(0, n, (q, k), dtype=torch.int32, device="cuda")
+mask = torch.zeros((q, k), dtype=torch.bool, device="cuda")
+mask[1, 5] = True
+ids[2, 7] = n + 3                       # out of range, but not asked for
+if sys.argv[1] == "masked_bad_id":
+    ids[1, 5] = n
+l2_rerank.l2_rerank_masked_cuda(
+    torch.zeros((q, d), device="cuda"), ids, torch.zeros((n, d), device="cuda"),
+    torch.zeros((q, k), device="cuda"), mask)
+torch.cuda.synchronize()
+print("reranked")
+"""
+
+
+@pytest.mark.parametrize("case", ["unmasked_bad_id", "masked_bad_id"])
+def test_l2_rerank_masked_kernel_traps_on_masked_bad_id(cuda, case):
+    """An id outside [0, N) that the mask asks for traps; one the mask does
+    not ask for is never read.  A trap ends the CUDA context, so the call
+    runs in a child process."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    r = subprocess.run([sys.executable, "-c", _RERANK_TRAP_CHILD, case],
+                       capture_output=True, text=True, env=env, timeout=300)
+    ran = r.returncode == 0 and "reranked" in r.stdout
+    assert ran == (case == "unmasked_bad_id"), r.stderr[-2000:]
 
 
 def _merge_inputs(q, l, n):

@@ -5,8 +5,9 @@ tests/test_kernels.py.  Tolerances as there: rtol/atol 1e-4 for ADT and
 lookup, 1e-4/1e-3 for rerank, exact for the sort, ties included.
 
 The search's merge (``bitonic_merge_topl``) is held against the reference's
-``_merge_sort_topl`` and the masked lookup against the reference's
-``jnp.where(fresh, pq_distance(...), inf)``.
+``_merge_sort_topl``, the masked lookup against the reference's
+``jnp.where(fresh, pq_distance(...), inf)`` and the masked rerank against
+the reference's ``jnp.where(need, _exact_dist(...), acc)``.
 
 Also: the CUDA entries refuse CPU tensors (they never hand back the plain
 result), the CPU path refuses negative ids, and no module of the port — nor
@@ -157,12 +158,45 @@ def test_l2_rerank_plain_matches_reference(q, k, d, metric):
                  ref_ops.l2_rerank(jnp.asarray(qs), jnp.asarray(cands), metric)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-4, atol=1e-3)
-    # the gather entry reads the same rows out of a base table
+    # the masked entry, asked for every row, reads the same rows out of a
+    # base table and computes their direct form
     base = cands.reshape(q * k, d)
     ids = np.arange(q * k, dtype=np.int32).reshape(q, k)
-    g = ops.l2_rerank_gather(torch.as_tensor(qs), torch.as_tensor(ids),
-                             torch.as_tensor(base), metric)
-    np.testing.assert_allclose(g.numpy(), got.numpy(), rtol=1e-6, atol=1e-6)
+    g = ops.l2_rerank_masked(torch.as_tensor(qs), torch.as_tensor(ids),
+                             torch.as_tensor(base), torch.zeros((q, k)),
+                             torch.ones((q, k), dtype=torch.bool), metric)
+    direct = l2_rerank.exact_dist(torch.as_tensor(qs), torch.as_tensor(cands),
+                                  metric)
+    np.testing.assert_allclose(g.numpy(), direct.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("q,k,d", [(3, 37, 36), (4, 128, 128), (2, 45, 21)])
+@pytest.mark.parametrize("density", [1.0, 0.05, 0.0],
+                         ids=["all", "sparse", "none"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_l2_rerank_masked_plain_matches_reference(q, k, d, density, metric):
+    """The masked entry is the reference round's
+    ``jnp.where(need, _exact_dist(q, base[max(ids, 0)]), acc)`` (jnp path,
+    direct form), lane by lane; where the mask is False it hands back acc
+    bit for bit, and a -1 id there is never read."""
+    big_n = 300
+    base = RNG.standard_normal((big_n, d)).astype(np.float32)
+    qs = RNG.standard_normal((q, d)).astype(np.float32)
+    mask = RNG.random((q, k)) < density
+    ids = RNG.integers(0, big_n, (q, k)).astype(np.int32)
+    ids[~mask & (RNG.random((q, k)) < 0.5)] = -1          # unread padding
+    acc = np.where(RNG.random((q, k)) < 0.5, np.inf,
+                   RNG.standard_normal((q, k))).astype(np.float32)
+    got = ops.l2_rerank_masked(*(torch.as_tensor(a) for a in
+                                 (qs, ids, base, acc, mask)), metric)
+    want = jax.vmap(lambda qv, i, a, m: jnp.where(
+        m, ref_search._exact_dist(qv, jnp.asarray(base)[jnp.maximum(i, 0)],
+                                  metric), a))(
+        jnp.asarray(qs), jnp.asarray(ids), jnp.asarray(acc), jnp.asarray(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-3)
+    np.testing.assert_array_equal(got.numpy()[~mask], acc[~mask])
 
 
 def test_ref_module_names_the_plain_versions():
@@ -188,8 +222,9 @@ def _cuda_entries():
             i32, f32, f32, torch.zeros((4, 8), dtype=bool), i32, f32)),
         ("l2_rerank", lambda: l2_rerank.l2_rerank_cuda(
             torch.zeros((4, 8)), torch.zeros((4, 3, 8)))),
-        ("l2_rerank_gather", lambda: l2_rerank.l2_rerank_gather_cuda(
-            torch.zeros((4, 8)), i32[:, :3].contiguous(), f32)),
+        ("l2_rerank_masked", lambda: l2_rerank.l2_rerank_masked_cuda(
+            torch.zeros((4, 8)), i32[:, :3].contiguous(), f32,
+            torch.zeros((4, 3)), torch.ones((4, 3), dtype=bool))),
     ]
 
 
@@ -211,8 +246,15 @@ def test_plain_gathers_refuse_negative_ids():
     with pytest.raises(ValueError, match="negative"):
         ops.pq_lookup_gather(ids, torch.zeros((4, 2), dtype=torch.uint8),
                              torch.zeros((1, 2, 4)))
+    # the masked rerank refuses a negative id only where the mask asks for
+    # its row: elsewhere it hands back acc and never reads the id
+    acc = torch.tensor([[1.5, 2.5]])
     with pytest.raises(ValueError, match="negative"):
-        ops.l2_rerank_gather(torch.zeros((1, 8)), ids, torch.zeros((4, 8)))
+        ops.l2_rerank_masked(torch.zeros((1, 8)), ids, torch.zeros((4, 8)),
+                             acc, torch.tensor([[True, True]]))
+    got = ops.l2_rerank_masked(torch.ones((1, 8)), ids, torch.zeros((4, 8)),
+                               acc, torch.tensor([[True, False]]))
+    assert got.tolist() == [[8.0, 2.5]]
 
 
 def _imported_roots(path: pathlib.Path) -> set:
