@@ -20,6 +20,22 @@ not printed):
    ``Searcher.search`` of the same queries.  Then one more batch, with the
    exact-distance entry wrapped, measures the share of rows the round's
    masks ask for (the timed run is never instrumented).
+   Continuous phase: the same queries through ``ServingEngine(index,
+   batch_size=256, continuous=True, slots=256)`` (submit, then ``step``
+   until done): QPS, p50/p99, ticks, mean occupied slots, lane-rounds,
+   host seconds per tick and per read of the active flags, recall@10.
+   Fails unless every request's ids and distances equal, bit for bit, the
+   batch-flush engine's.
+   Filtered phase: ``random_attributes(N, {"category": 8, "price": 1000},
+   seed=5)`` and four specs — ``isin(category, [0, 1, 2])`` (~37.5%,
+   masked, L=512), ``eq(category, 3)`` (~12.5%, masked, L=1024), ``range(price, 0,
+   9)`` (~1%, scan) and one no node passes (empty) — 2048 queries each,
+   interleaved, through the continuous engine and the batch-flush engine; then each spec alone through ``Searcher.search``
+   (strategy, effective L, rounds per lane, launches).  Fails unless the
+   two engines agree bit for bit, every returned id passes its filter, the
+   strategies and L are as listed, the empty spec returns only padding, and
+   filtered recall@10 against an exact filtered kNN on the card is >= 0.5.
+   Every kernel must launch on each path (launches zeroed before each).
 3. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
    M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
    its plain PyTorch version on the same inputs: ADT and lookup at rtol/atol
@@ -29,6 +45,9 @@ not printed):
    round runs, (L=128, n=64) and (L=128, n=256), and as a plain sort at
    P=256; ``l2_rerank``'s masked entry at the density phase 2 measured and
    with every row asked for, and its reference signature on pre-gathered
+   rows.  The filtered paths' shapes too: the merge at (L=512, n=64) and
+   (L=1024, n=64, the block network), the masked entry at K=1024 at the
+   masked search's density, the lookup over the scan's (Q=256, S=16384)
    rows.  Each entry is timed over 30 launches, the 50 MB L2 cache flushed
    before each and the launch queued behind a spin: by CUDA events around
    each launch (``ms``) and, for the same launches, by the kernel's own
@@ -41,7 +60,9 @@ not printed):
 5. The loop-control cost: one batch through ``graph_search`` (host check of
    "any lane active" every DONE_CHECK_EVERY rounds) and through
    ``graph_search_stepped`` (a check every round), in turns; then one batch
-   under ``torch.profiler`` (launches per round, device busy share).
+   under ``torch.profiler`` (launches per round, device busy share); then
+   60 continuous-engine ticks on a full pool with the host time of each
+   part of a tick, and 60 under the profiler (launches, syncs per tick).
 
 The line before last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details (the full record, ptxas
@@ -143,13 +164,18 @@ def _bound(nbytes: float, flops: float) -> tuple:
 
 
 def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
-                 seed: int = 0) -> list:
+                 filter_density: dict, scan_pass: int, seed: int = 0) -> list:
     """Each kernel vs its plain version at the main path's shapes; raises
     on a disagreement.  Returns one record per kernel (launches filled in
     from the main path): the top-level numbers are those of the entry the
     search's round runs, and ``entries`` holds every entry timed.  The
     rerank's masked entry runs at the shares of rows that the round's and
-    the margin's masks ask for on the main path (``rerank_density``)."""
+    the margin's masks ask for on the main path (``rerank_density``), and
+    at K=1024 at the masked search's share (``filter_density``); the
+    filtered paths' merges at L=512 and 1024 and the scan's lookup over
+    the ``scan_pass`` passing rows, padded to a power of two as the scan
+    pads them, are entries too."""
+    from repro_torch.core.search import next_pow2
     from repro_torch.kernels import ops
 
     q, d, m, c, r, l = 256, 128, 32, 256, 64, 128
@@ -265,6 +291,29 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
         lookup_bytes(fresh), int(fresh.sum()) * m)
     masked["fresh_share"] = float(fresh.float().mean())
     everything = torch.ones_like(fresh)
+    # the scan: every query scores the same S rows, n_pass of them real
+    n_pass, scan_rows = scan_pass, next_pow2(scan_pass)
+    sel = torch.randperm(n_base, generator=g, device=dev)[:scan_rows]
+    sel = sel.sort().values.to(torch.int32)
+    sel_ids = sel.expand(q, scan_rows).contiguous()
+    sel_valid = (torch.arange(scan_rows, device=dev) < n_pass).expand(
+        q, scan_rows).contiguous()
+    sel_flat = (codes[sel[:n_pass].long()].long() + offs)          # (S', M)
+    adts_2d = adts.reshape(q, m * c)
+    scan = entry(
+        f"scan_S{scan_rows}", "pq_lookup_gather_kernel",
+        ops.pq_lookup_gather(sel_ids, codes, adts, sel_valid),
+        ops.pq_lookup_gather_plain(sel_ids, codes, adts, sel_valid),
+        1e-4, 1e-4,
+        lambda: ops.pq_lookup_gather(sel_ids, codes, adts, sel_valid),
+        lambda: ops.pq_lookup_gather_plain(sel_ids, codes, adts, sel_valid),
+        # the passing rows' codes gathered beforehand; ADT gather + sum
+        {"index_sum": lambda: adts_2d[:, sel_flat].sum(-1)},
+        # the S ids and mask once (the same for every query), the (Q, S)
+        # output, each passing row's codes once, the whole ADT
+        5 * scan_rows + 4 * q * scan_rows + n_pass * m + 4 * q * m * c,
+        q * n_pass * m)
+    scan["valid_share"] = n_pass / scan_rows
     record("pq_lookup", "src/repro_torch/kernels/csrc/pq_lookup.cu",
            "src/repro/kernels/pq_lookup.py:42", masked, entry(
                "gather", "pq_lookup_gather_kernel",
@@ -272,10 +321,10 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                ops.pq_lookup_gather_plain(nbr, codes, adts), 1e-4, 1e-4,
                lambda: ops.pq_lookup_gather(nbr, codes, adts),
                lambda: ops.pq_lookup_gather_plain(nbr, codes, adts),
-               libraries, lookup_bytes(everything) - q * r, q * r * m))
+               libraries, lookup_bytes(everything) - q * r, q * r * m), scan)
 
     # ---- bitonic_sort_pairs: the merge entry the round runs, the sort ----
-    def merge_inputs(n):
+    def merge_inputs(n, l):
         """A lane's list (sorted prefix, +inf tail with -1 ids) and n fresh
         candidates (30% stale: +inf, -1), with ties and signed zeros."""
         dl = signed(ints(0, 64, (q, l)).float()).sort(dim=1).values
@@ -294,8 +343,8 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
         lg = (width - 1).bit_length()
         return q * (1 << lg) // 2 * lg * (lg + 1) // 2
 
-    def merge_entry(n):
-        cols = merge_inputs(n)
+    def merge_entry(n, l=l):
+        cols = merge_inputs(n, l)
         cat = [torch.cat([cols[0], cols[4]], 1), torch.cat([cols[1], cols[5]], 1),
                torch.cat([cols[2], torch.full_like(cols[5], inf)], 1),
                torch.cat([cols[3], torch.zeros_like(cols[3][:, :1]).expand(
@@ -306,7 +355,8 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
             return [t.gather(1, order) for t in cat]
 
         return entry(
-            f"merge_L{l}_n{n}", "warp_merge_kernel",
+            f"merge_L{l}_n{n}",
+            "warp_merge_kernel" if l + n <= 1024 else "block_sort_kernel",
             ops.bitonic_merge_topl(*cols),
             ops.bitonic_merge_topl_plain(*cols), 0.0, 0.0,
             lambda: ops.bitonic_merge_topl(*cols),
@@ -316,7 +366,8 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
 
     record("bitonic_sort_pairs", "src/repro_torch/kernels/csrc/bitonic_topk.cu",
            "src/repro/kernels/bitonic_topk.py:57", merge_entry(r),
-           merge_entry(4 * r), entry(
+           merge_entry(4 * r), merge_entry(r, 4 * l), merge_entry(r, 8 * l),
+           entry(
                f"sort_P{p}", "warp_sort_kernel",
                ops.bitonic_sort_pairs(keys, pos),
                ops.bitonic_sort_pairs_plain(keys, pos), 0.0, 0.0,
@@ -330,8 +381,9 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
     gathered = base[cand.long()]
     acc = torch.where(rand(q, l) < 0.5, rand(q, l), inf)
 
-    def masked_entry(label, mask):
+    def masked_entry(label, mask, cand=cand, acc=acc, gathered=gathered):
         rows = int(torch.unique(cand[mask]).numel())
+        k = cand.shape[1]
         return entry(
             label, "l2_rerank_kernel",
             ops.l2_rerank_masked(queries, cand, base, acc, mask, "l2"),
@@ -342,13 +394,21 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                                                "l2"),
             # every row, pre-gathered, in one call
             {"cdist": lambda: torch.cdist(queries[:, None, :], gathered)},
-            # ids, mask, acc, out; the asked-for rows and their queries
-            13 * q * l + 4 * rows * d
+            # mask and out; an id where the mask is set, acc where not;
+            # the asked-for rows and their queries
+            9 * q * k + 4 * rows * d
             + 4 * d * int(mask.any(1).sum()), 3 * int(mask.sum()) * d)
 
-    def at_density(label, share):
-        mask = rand(q, l) < share
-        e = masked_entry(label, mask)
+    def at_density(label, share, k=l):
+        if k == l:
+            cols = dict()
+        else:
+            kc = ints(0, n_base, (q, k), torch.int32)
+            cols = dict(cand=kc,
+                        acc=torch.where(rand(q, k) < 0.5, rand(q, k), inf),
+                        gathered=base[kc.long()])
+        mask = rand(q, k) < share
+        e = masked_entry(label, mask, **cols)
         e["mask_share"] = float(mask.float().mean())
         return e
 
@@ -356,6 +416,8 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
            "src/repro/kernels/l2_rerank.py:39",
            at_density("masked", rerank_density["round_mean"]),
            at_density("masked_margin", rerank_density["margin"]),
+           at_density(f"masked_K{filter_density['K']}",
+                      filter_density["round_mean"], filter_density["K"]),
            masked_entry("masked_all", torch.ones((q, l), dtype=torch.bool,
                                                  device=dev)), entry(
                "pregathered", "l2_rerank_kernel",
@@ -371,7 +433,7 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
 def main_path(torch, dev, args, log) -> tuple:
     """Build the index and serve the queries through the port's entry
     points; returns (the numbers the smoke prints and checks, the index,
-    the engine's (Q, 10) ids)."""
+    the engine's (Q, 10) ids and distances)."""
     import numpy as np
 
     from repro_torch.configs.base import (
@@ -426,6 +488,7 @@ def main_path(torch, dev, args, log) -> tuple:
     res["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
     done = [engine.done[i] for i in range(len(queries))]
     ids = np.stack([r.ids for r in done])
+    dists = np.stack([r.dists for r in done])
     lat = np.array([r.latency_ms for r in done])
     t_done = sorted({r.t_done for r in done})
     batch_ms = [(b - a) * 1e3 for a, b in zip(t_done, t_done[1:])]
@@ -453,7 +516,226 @@ def main_path(torch, dev, args, log) -> tuple:
     # a batch runs until its slowest lane is done
     res["mean_batch_max_rounds"] = float(np.mean([float(r.max())
                                                   for r in rounds]))
-    return res, idx, ids
+    return res, idx, ids, dists
+
+
+def _served(engine) -> list:
+    """Step ``engine`` (continuous) until every request is done, as
+    ``drain`` does; returns the lanes each tick stepped."""
+    occupied = []
+    while engine.queue or engine.inflight():
+        done = engine.step(force=True)
+        occupied.append(engine.inflight() + len(done))
+    return occupied
+
+
+def continuous_phase(torch, idx, batch_ids, batch_dists, log) -> dict:
+    """The main path's queries through ``ServingEngine(continuous=True,
+    slots=256)``: QPS, latency, ticks, occupied slots, host seconds per tick
+    and in the per-tick read of the active flags, recall@10, and whether
+    every request's ids and distances equal the batch-flush engine's."""
+    import numpy as np
+
+    from repro_torch.core.dataset import recall_at_k
+    from repro_torch.kernels import loader
+    from repro_torch.plan.rounds import RoundSession
+    from repro_torch.serve import ServingEngine
+
+    t0 = time.perf_counter()
+    engine = ServingEngine(idx, batch_size=256, continuous=True, slots=256)
+    torch.cuda.synchronize()
+    res = {"engine_warmup_s": time.perf_counter() - t0}
+    queries = idx.dataset.queries
+    # time the per-tick host read of the active flags (the retire decision)
+    active_s = []
+    real_active = RoundSession.active
+
+    def timed_active(self, state):
+        a = time.perf_counter()
+        out = real_active(self, state)
+        active_s.append(time.perf_counter() - a)
+        return out
+
+    RoundSession.active = timed_active
+    loader.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        for v in queries:
+            engine.submit(v)
+        occupied = _served(engine)
+        wall = time.perf_counter() - t0
+    finally:
+        RoundSession.active = real_active
+    res["launches"] = dict(loader.LAUNCHES)
+    done = [engine.done[i] for i in range(len(queries))]
+    ids = np.stack([r.ids for r in done])
+    dists = np.stack([r.dists for r in done])
+    lat = np.array([r.latency_ms for r in done])
+    ticks = engine.stats["ticks"]
+    res.update(
+        qps=len(queries) / wall, wall_s=wall, ticks=ticks,
+        p50_ms=float(np.percentile(lat, 50)),
+        p99_ms=float(np.percentile(lat, 99)),
+        mean_occupied_slots=float(np.mean(occupied)),
+        lane_rounds=int(np.sum(occupied)),
+        host_s_per_tick=wall / ticks,
+        active_read_s_per_tick=sum(active_s) / len(active_s),
+        retired=engine.stats["retired"],
+        fallback_batches=engine.stats["fallback_batches"],
+        recall_at_10=recall_at_k(ids, idx.dataset.gt, 10),
+        equals_batch_engine=bool((ids == batch_ids).all()
+                                 and np.array_equal(dists, batch_dists)),
+    )
+    log(f"continuous engine (slots=256): {len(queries)} queries in "
+        f"{wall:.3f} s: QPS={res['qps']:.1f} p50_ms={res['p50_ms']:.2f} "
+        f"p99_ms={res['p99_ms']:.2f} ticks={ticks} "
+        f"mean_occupied_slots={res['mean_occupied_slots']:.1f} "
+        f"lane_rounds={res['lane_rounds']} "
+        f"host_s_per_tick={res['host_s_per_tick']:.5f} "
+        f"active_read_s_per_tick={res['active_read_s_per_tick']:.6f} "
+        f"recall@10={res['recall_at_10']:.4f}")
+    log(f"launches on the continuous path: {json.dumps(res['launches'])}")
+    log(f"continuous ids and distances equal the batch-flush engine's: "
+        f"{res['equals_batch_engine']}")
+    return res
+
+
+FILTER_SPECS = (("isin_category_0_2", "masked"), ("eq_category_3", "masked"),
+                ("range_price_0_9", "scan"), ("none_pass", "empty"))
+
+
+def _specs():
+    from repro_torch.filter import FilterSpec
+
+    return {"isin_category_0_2": FilterSpec.isin("category", [0, 1, 2]),
+            "eq_category_3": FilterSpec.eq("category", 3),
+            "range_price_0_9": FilterSpec.range("price", 0, 9),
+            "none_pass": FilterSpec.range("price", 1000, None)}
+
+
+def filtered_phase(torch, idx, log) -> dict:
+    """Filtered serving on the main path's index: four specs (masked at
+    ~37.5% and ~12.5%, scan at ~1%, empty), 2,048 queries each,
+    interleaved, through the continuous engine and the batch-flush engine;
+    then each spec alone through ``Searcher.search`` (strategy, effective
+    L, rounds per lane, launches by kernel) and an exact filtered kNN on the
+    card (recall@10; every returned id must pass)."""
+    import numpy as np
+
+    from repro_torch.core.dataset import exact_knn, recall_at_k
+    from repro_torch.filter import random_attributes
+    from repro_torch.kernels import loader
+    from repro_torch.plan import Searcher, SearchRequest
+    from repro_torch.serve import ServingEngine
+
+    n_per_spec = 2048          # of the 10,000 queries, for the smoke's time
+    store = random_attributes(idx.dataset.num_base,
+                              {"category": 8, "price": 1000}, seed=5)
+    specs = _specs()
+    queries = idx.dataset.queries[:n_per_spec]
+    out = {"n_per_spec": n_per_spec, "specs": {}}
+    got = {}
+    for mode in ("continuous", "batch"):
+        engine = ServingEngine(idx, batch_size=256, attributes=store,
+                               continuous=mode == "continuous", slots=256)
+        torch.cuda.synchronize()
+        rids = {name: [] for name in specs}
+        loader.reset_launch_counts()
+        t0 = time.perf_counter()
+        for v in queries:
+            for name, spec in specs.items():
+                rids[name].append(engine.submit(v, filter=spec))
+        if mode == "continuous":
+            occupied = _served(engine)
+        else:
+            engine.drain()
+        wall = time.perf_counter() - t0
+        out[mode] = {"wall_s": wall, "qps": 4 * n_per_spec / wall,
+                     "launches": dict(loader.LAUNCHES),
+                     "stats": engine.stats}
+        if mode == "continuous":
+            out[mode]["mean_occupied_slots"] = float(np.mean(occupied))
+        for name in specs:
+            done = [engine.done[r] for r in rids[name]]
+            got[mode, name] = (np.stack([r.ids for r in done]),
+                               np.stack([r.dists for r in done]))
+            spec_wall = max(r.t_done for r in done) - min(
+                r.t_submit for r in done)
+            out["specs"].setdefault(name, {})[f"{mode}_span_qps"] = \
+                n_per_spec / spec_wall
+        log(f"filtered {mode} engine: {4 * n_per_spec} queries in "
+            f"{wall:.3f} s, QPS={out[mode]['qps']:.1f}, launches "
+            f"{json.dumps(out[mode]['launches'])}, stats "
+            f"{json.dumps(out[mode]['stats'])}")
+
+    searcher = Searcher.open(idx, attributes=store)
+    base = idx.dataset.base
+    for name, spec in specs.items():
+        mask = store.mask(spec)
+        rec = out["specs"][name]
+        rounds, strategy, eff_l = [], None, None
+        loader.reset_launch_counts()
+        for s in range(0, n_per_spec, 256):
+            r = searcher.search(SearchRequest(queries=queries[s:s + 256],
+                                              filter=spec))
+            rounds.append(r.raw.result.rounds.double().cpu())
+            strategy, eff_l = r.plan.strategy, r.plan.cfg.list_size
+        torch.cuda.synchronize()
+        rec.update(strategy=strategy, selectivity=float(mask.mean()),
+                   effective_list_size=eff_l,
+                   rounds_per_lane=float(torch.cat(rounds).mean()),
+                   searcher_launches=dict(loader.LAUNCHES))
+        ids, dists = got["continuous", name]
+        rec["engines_equal"] = bool(
+            (ids == got["batch", name][0]).all()
+            and np.array_equal(dists, got["batch", name][1]))
+        rec["all_ids_pass"] = bool(mask[ids[ids >= 0]].all())
+        pids = np.nonzero(mask)[0]
+        if len(pids):
+            k_eff = min(10, len(pids))
+            gt = pids[exact_knn(queries, base[pids], k_eff, "l2",
+                                device=idx.device)]
+            rec["recall_at_10"] = recall_at_k(ids, gt, k_eff)
+        else:
+            rec["recall_at_10"] = None
+            rec["all_padding"] = bool((ids == -1).all())
+        log(f"filter {name}: strategy={strategy} "
+            f"selectivity={rec['selectivity']:.5f} L={eff_l} "
+            f"rounds_per_lane={rec['rounds_per_lane']:.2f} "
+            f"continuous_span_qps={rec['continuous_span_qps']:.1f} "
+            f"batch_span_qps={rec['batch_span_qps']:.1f} "
+            f"recall@10={rec['recall_at_10']} "
+            f"all_ids_pass={rec['all_ids_pass']} "
+            f"engines_equal={rec['engines_equal']} "
+            f"searcher_launches={json.dumps(rec['searcher_launches'])}")
+    return out, store
+
+
+def masked_density(torch, idx, store) -> dict:
+    """The share of rows ``l2_rerank_masked`` is asked for in one 256-query
+    masked search at L=1024 (``eq_category_3``): the rounds' mean and the
+    margin's (the batch's last call), as ``rerank_density`` does."""
+    from repro_torch.plan import Searcher, SearchRequest
+    from repro_torch.kernels import ops
+
+    shares = []
+    real = ops.l2_rerank_masked
+
+    def spy(queries, ids, base, acc, mask, metric="l2"):
+        shares.append((ids.shape[1], float(mask.float().mean())))
+        return real(queries, ids, base, acc, mask, metric)
+
+    searcher = Searcher.open(idx, attributes=store)
+    ops.l2_rerank_masked = spy
+    try:
+        searcher.search(SearchRequest(queries=idx.dataset.queries[-256:],
+                                      filter=_specs()["eq_category_3"]))
+        torch.cuda.synchronize()
+    finally:
+        ops.l2_rerank_masked = real
+    rounds = [x for _, x in shares[:-1]]
+    return {"K": shares[0][0], "round_mean": sum(rounds) / len(rounds),
+            "rounds": len(rounds), "margin": shares[-1][1]}
 
 
 def cross_device(torch, idx, gpu_ids, n: int = 64) -> float:
@@ -575,6 +857,82 @@ def profile_batch(torch, idx, out_dir) -> dict:
     }
 
 
+def profile_ticks(torch, idx, out_dir, ticks: int = 60) -> dict:
+    """Continuous-engine ticks with the pool of 256 kept full (1,024 queries
+    queued, 10 ticks of warm-up): first ``ticks`` ticks with the host
+    seconds of each part timed (admission, the round, the read of the
+    active flags, gather + finalize, complete), then as many under
+    ``torch.profiler`` (launches and host syncs per tick, device busy
+    share; tables in ``<out-dir>/profile_ticks.txt``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.plan.rounds import RoundSession
+    from repro_torch.serve import ServingEngine
+    from repro_torch.serve import engine as engine_mod
+
+    engine = ServingEngine(idx, batch_size=256, continuous=True, slots=256)
+    for v in idx.dataset.queries[:1024]:
+        engine.submit(v)
+    for _ in range(10):
+        engine.step(force=True)
+    parts = {"admit": 0.0, "step": 0.0, "active": 0.0,
+             "gather_finalize": 0.0, "complete": 0.0}
+    patched = [(engine_mod.ServingEngine, "_admit", "admit"),
+               (RoundSession, "step", "step"),
+               (RoundSession, "active", "active"),
+               (RoundSession, "finalize", "gather_finalize"),
+               (engine_mod, "_gather_rows", "gather_finalize"),
+               (RoundSession, "complete", "complete")]
+    real = [getattr(owner, name) for owner, name, _ in patched]
+
+    def timed(fn, part):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            parts[part] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    torch.cuda.synchronize()
+    for (owner, name, part), fn in zip(patched, real):
+        setattr(owner, name, timed(fn, part))
+    try:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            engine.step(force=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for (owner, name, _), fn in zip(patched, real):
+            setattr(owner, name, fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(ticks):
+            engine.step(force=True)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    ev = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_us = sum(e.self_device_time_total for e in ev
+                 if e.device_type == cuda and not e.is_user_annotation)
+    (out_dir / "profile_ticks.txt").write_text(
+        ev.table(sort_by="self_cpu_time_total", row_limit=40))
+
+    def count(key):
+        return sum(e.count for e in ev if e.key == key) / ticks
+
+    return {
+        "ticks": ticks, "tick_ms": wall / ticks * 1e3,
+        "part_ms_per_tick": {k: v / ticks * 1e3 for k, v in parts.items()},
+        "profiled_tick_ms": prof_wall / ticks * 1e3,
+        "launches_per_tick": count("cudaLaunchKernel"),
+        "stream_syncs_per_tick": count("cudaStreamSynchronize"),
+        "memcpys_per_tick": count("cudaMemcpyAsync"),
+        "device_busy_share": dev_us / (prof_wall * 1e6),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--num-base", type=int, default=1_000_000)
@@ -621,7 +979,7 @@ def main(argv=None) -> int:
     log(f"kernels built in {detail['kernel_build_s']:.1f} s "
         f"({', '.join(reports) or 'cached'})")
 
-    res, idx, gpu_ids = main_path(torch, dev, args, log)
+    res, idx, gpu_ids, gpu_dists = main_path(torch, dev, args, log)
     log(f"launches on the main path: {json.dumps(res['launches'])}")
     log(f"served {args.num_queries} queries in {res['wall_s']:.3f} s: "
         f"QPS={res['qps']:.1f} p50_ms={res['p50_ms']:.2f} "
@@ -634,10 +992,21 @@ def main(argv=None) -> int:
     res["rerank_density"] = rerank_density(torch, idx)
     log(f"exact-distance mask density: {json.dumps(res['rerank_density'])}")
 
+    cont = continuous_phase(torch, idx, gpu_ids, gpu_dists, log)
+    filt, store = filtered_phase(torch, idx, log)
+    filt["masked_density"] = masked_density(torch, idx, store)
+    log(f"exact-distance mask density, masked search: "
+        f"{json.dumps(filt['masked_density'])}")
+
+    scan_pass = int(store.mask(_specs()["range_price_0_9"]).sum())
     kernels = kernel_phase(torch, dev, args.num_base, res["rerank_density"],
-                           args.seed)
+                           filt["masked_density"], scan_pass, args.seed)
+    paths = {"batch": res["launches"], "continuous": cont["launches"],
+             "filtered_continuous": filt["continuous"]["launches"],
+             "filtered_batch": filt["batch"]["launches"]}
     for k in kernels:
         k["launches"] = res["launches"][k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
         for e in k["entries"]:
             log(f"kernel {k['name']} [{e['entry']}]: "
                 f"max_abs_err={e['max_abs_err']:.3g} ms={e['ms']:.4f} "
@@ -661,8 +1030,12 @@ def main(argv=None) -> int:
         f"{json.dumps(res['loop_control_s'])}")
     res["profile"] = profile_batch(torch, idx, out_dir)
     log(f"profiled batch: {json.dumps(res['profile'])}")
+    cont["profile"] = profile_ticks(torch, idx, out_dir)
+    log(f"continuous ticks, timed and profiled: "
+        f"{json.dumps(cont['profile'])}")
 
-    detail.update(card=card, kernels=kernels, main=res)
+    detail.update(card=card, kernels=kernels, main=res, continuous=cont,
+                  filtered=filt)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     failures = []
@@ -682,6 +1055,32 @@ def main(argv=None) -> int:
         failures.append("engine ids differ from Searcher.search")
     if share < 0.95:
         failures.append(f"cross-device identical rows {share:.4f} < 0.95")
+    for path, counts in paths.items():
+        if min(counts.values()) <= 0:
+            failures.append(f"a kernel never launched on the {path} path: "
+                            f"{counts}")
+    if not cont["equals_batch_engine"]:
+        failures.append("continuous engine ids/distances differ from the "
+                        "batch-flush engine's")
+    if cont["fallback_batches"]:
+        failures.append("the unfiltered continuous run fell back to batches")
+    for (name, strategy), want_l in zip(FILTER_SPECS, (512, 1024, None, None)):
+        rec = filt["specs"][name]
+        if rec["strategy"] != strategy:
+            failures.append(f"filter {name}: strategy {rec['strategy']}, "
+                            f"expected {strategy}")
+        if want_l and rec["effective_list_size"] != want_l:
+            failures.append(f"filter {name}: L={rec['effective_list_size']}, "
+                            f"expected {want_l}")
+        if not (rec["engines_equal"] and rec["all_ids_pass"]):
+            failures.append(f"filter {name}: engines differ or an id fails "
+                            f"the filter")
+        if strategy == "empty":
+            if not rec["all_padding"]:
+                failures.append(f"filter {name}: empty plan returned ids")
+        elif rec["recall_at_10"] < 0.5:
+            failures.append(f"filter {name}: recall@10 "
+                            f"{rec['recall_at_10']:.4f} < 0.5")
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -12,7 +12,7 @@ one index.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -39,6 +39,10 @@ class ProximaIndex:
     calibrated_beta: float
     hot_count: int = 0               # ids < hot_count are hot nodes
     device: str = "cuda"
+    # per-node attribute columns (``filter.AttributeStore``) keyed by
+    # internal id; filtered search needs it (or a store passed to
+    # ``Searcher.open`` / ``ServingEngine``)
+    attributes: Optional[Any] = None
 
     def corpus(self) -> Corpus:
         """Device-side search structures, on ``self.device``."""

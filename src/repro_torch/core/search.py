@@ -31,7 +31,15 @@ entered the top-T, and the beta-margin rerank's — come from
 ``ops.l2_rerank_masked`` in the direct form of ``exact_dist``, on both
 devices: the kernel reads only the rows the mask asks for.
 
-Only unfiltered traversal is ported: ``node_mask`` must be None.
+Filtered traversal (``node_mask``, the ``filter`` subsystem): an (N,) bool
+pass mask restricts result admission, never routing — non-passing nodes
+still enter the list and route, but only passing ones count for the
+early-termination top-k, the beta-margin anchor (the T-th *passing*
+candidate) and the final top-k, as in ``search.py:178-185``, ``:292-305`` and
+``:389-408``.  The mask folds into the exact-distance mask, so no row that
+fails the filter is read for an exact distance.  With an all-true mask every
+selection reduces to the unfiltered arithmetic: the result is bit-identical
+to ``node_mask=None``.
 """
 from __future__ import annotations
 
@@ -133,11 +141,21 @@ def _topk_ids_by(ids, key, k):
     return torch.sort(ids.gather(1, _stable_order(key, k)), dim=1).values
 
 
-def _check_mask(node_mask) -> None:
-    if node_mask is not None:
-        raise NotImplementedError(
-            "filtered traversal (node_mask) is not ported yet: ROADMAP "
-            "Queue 1 item 9 (filter/)")
+def _passes_of(ids: torch.Tensor, node_mask) -> torch.Tensor:
+    """Valid AND mask-passing, elementwise (-1 slots never pass); with
+    ``node_mask=None`` plain validity, the unfiltered path."""
+    valid = ids >= 0
+    if node_mask is None:
+        return valid
+    return valid & node_mask[ids.clamp(min=0).long()]
+
+
+def _mask_on(corpus: Corpus, node_mask):
+    """The (N,) pass mask as a bool tensor on the corpus's device."""
+    if node_mask is None:
+        return None
+    return torch.as_tensor(node_mask, dtype=torch.bool,
+                           device=corpus.base.device)
 
 
 def _build_adts(corpus: Corpus, queries: torch.Tensor, cfg: SearchConfig,
@@ -152,10 +170,11 @@ def _build_adts(corpus: Corpus, queries: torch.Tensor, cfg: SearchConfig,
 
 
 def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
-               bloom_bits: int, num_hashes: int):
+               bloom_bits: int, num_hashes: int, node_mask=None):
     """THE traversal round: returns ``(init, active, step)`` over a batch of
     lanes.  ``graph_search`` and ``graph_search_step`` both apply ``step``,
-    which is what makes them agree exactly."""
+    which is what makes them agree exactly.  ``node_mask`` is None or an
+    (N,) bool tensor on the corpus's device."""
     cfg = upgrade_config(cfg)
     L, k = cfg.list_size, cfg.k
     R = corpus.adjacency.shape[1]
@@ -245,16 +264,20 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
         valid = ids >= 0
         in_t = (ar_l[None, :] < s.t[:, None]) & valid
         all_eval = in_t.any(1) & (~in_t | evaluated).all(1)
-        # exact distances for the top-T entries that have none yet, once
-        # the top-T is all evaluated; an inactive lane's result is dropped
-        # below, so none of its rows is read
-        need = in_t & torch.isinf(acc) & (all_eval & live)[:, None]
+        # only passing candidates are admitted to the reranked top-k (in_t
+        # implies valid, so without a mask in_t_pl is in_t)
+        in_t_pl = in_t if node_mask is None \
+            else in_t & _passes_of(ids, node_mask)
+        # exact distances for the admitted top-T entries that have none yet,
+        # once the top-T is all evaluated; an inactive lane's result is
+        # dropped below, so none of its rows is read
+        need = in_t_pl & torch.isinf(acc) & (all_eval & live)[:, None]
         n_acc_new = need.sum(1, dtype=i32)
         if use_pq:
             acc2 = ops.l2_rerank_masked(q, ids, corpus.base, acc, need, metric)
         else:
             acc2 = torch.where(valid, dists, INF)
-        rerank_key = torch.where(in_t, acc2, INF)
+        rerank_key = torch.where(in_t_pl, acc2, INF)
         new_topk = _topk_ids_by(ids, rerank_key, k)
         same = (new_topk == s.prev_topk).all(1)
         stable = torch.where(all_eval, torch.where(same, s.stable + 1, 1),
@@ -289,17 +312,33 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
 
 
 def _finalize_batch(corpus: Corpus, cfg: SearchConfig, metric: str,
-                    queries: torch.Tensor, s: _State) -> SearchResult:
+                    node_mask, queries: torch.Tensor,
+                    s: _State) -> SearchResult:
     """Post-loop beta-margin rerank + top-k (Alg.1 l.19-22): the margin's
     exact distances come from ``ops.l2_rerank_masked``, which reads only the
-    rows the margin asks for."""
+    rows the margin asks for (passing rows only, under a filter)."""
     L, k = cfg.list_size, cfg.k
     valid = s.ids >= 0
-    t_idx = (torch.clamp(s.t, 1, L) - 1).long()
-    d_t = s.dists.gather(1, t_idx[:, None])[:, 0]
-    thr = d_t + (cfg.beta - 1.0) * torch.abs(d_t)            # sign-safe margin
+    pass_l = _passes_of(s.ids, node_mask)
+    if node_mask is None:
+        t_idx = (torch.clamp(s.t, 1, L) - 1).long()
+        d_t = s.dists.gather(1, t_idx[:, None])[:, 0]
+        thr = d_t + (cfg.beta - 1.0) * torch.abs(d_t)        # sign-safe margin
+    else:
+        # margin anchor = the T-th PASSING candidate's distance; with an
+        # all-true mask that is position T-1 (or the +inf padding), the
+        # unfiltered read above
+        rank = torch.cumsum(pass_l, dim=1, dtype=torch.int32)
+        tt = torch.clamp(s.t, 1, L)
+        is_t = pass_l & (rank == tt[:, None])
+        d_t = torch.where(is_t, s.dists, -INF).amax(1)
+        d_t = torch.where(rank[:, -1] >= tt, d_t, INF)
+        # inf anchor (fewer than T passing): rerank every passing candidate
+        # — guarded, since beta == 1.0 would make inf + 0*inf a NaN
+        thr = torch.where(torch.isinf(d_t), INF,
+                          d_t + (cfg.beta - 1.0) * torch.abs(d_t))
     if cfg.use_pq and cfg.rerank:
-        need = valid & (s.dists <= thr[:, None]) & torch.isinf(s.acc)
+        need = pass_l & (s.dists <= thr[:, None]) & torch.isinf(s.acc)
         acc = ops.l2_rerank_masked(queries, s.ids, corpus.base, s.acc, need,
                                    metric)
         n_acc = s.n_acc + need.sum(1, dtype=torch.int32)
@@ -307,10 +346,15 @@ def _finalize_batch(corpus: Corpus, cfg: SearchConfig, metric: str,
         # no rerank (rank by PQ) / accurate traversal (dists are accurate)
         acc = torch.where(valid, s.dists, INF)
         n_acc = s.n_acc
-    key = torch.where(valid, acc, INF)
+    key = torch.where(pass_l, acc, INF)
     idx = _stable_order(key, k)
+    out_ids, out_d = s.ids.gather(1, idx), key.gather(1, idx)
+    if node_mask is not None:
+        # a filter can leave fewer than k admissible candidates: such slots
+        # carry +inf keys and come back as explicit -1 padding
+        out_ids = torch.where(torch.isinf(out_d), -1, out_ids)
     return SearchResult(
-        ids=s.ids.gather(1, idx), dists=key.gather(1, idx), n_hops=s.n_hops,
+        ids=out_ids, dists=out_d, n_hops=s.n_hops,
         n_pq=s.n_pq, n_acc=n_acc, n_hot_hops=s.n_hot, n_free_pq=s.n_free,
         rounds=s.rounds,
     )
@@ -326,8 +370,8 @@ def init_search_state(corpus: Corpus, queries, cfg: SearchConfig,
                       metric: str = "l2", bloom_bits: int = 1 << 17,
                       num_hashes: int = 8, node_mask=None) -> SearchState:
     """Round 0 for a (Q, D) query batch: normalize, build ADTs, seed every
-    lane at the entry point."""
-    _check_mask(node_mask)
+    lane at the entry point.  ``node_mask`` only matters in later rounds but
+    is accepted here for signature symmetry."""
     q = _queries_on(corpus, queries)
     if metric == "angular":
         q = l2_normalize(q)
@@ -342,8 +386,8 @@ def graph_search_step(corpus: Corpus, state: SearchState, cfg: SearchConfig,
     """ONE traversal round over every lane.  Inactive lanes — done, or at
     ``max_rounds`` — pass through unchanged.  The Bloom bits of ``state``
     are updated in place, so ``state`` itself must not be stepped again."""
-    _check_mask(node_mask)
-    _, _, step = _round_fns(corpus, cfg, metric, bloom_bits, num_hashes)
+    _, _, step = _round_fns(corpus, cfg, metric, bloom_bits, num_hashes,
+                            _mask_on(corpus, node_mask))
     return state._replace(lanes=step(state.queries, state.adts, state.lanes))
 
 
@@ -355,9 +399,9 @@ def search_state_active(state: SearchState, cfg: SearchConfig) -> torch.Tensor:
 def finalize_search(corpus: Corpus, state: SearchState, cfg: SearchConfig,
                     metric: str = "l2", node_mask=None) -> SearchResult:
     """Post-traversal beta-margin rerank + top-k over quiesced lanes."""
-    _check_mask(node_mask)
     return _finalize_batch(corpus, upgrade_config(cfg), metric,
-                           state.queries, state.lanes)
+                           _mask_on(corpus, node_mask), state.queries,
+                           state.lanes)
 
 
 def graph_search_stepped(corpus: Corpus, queries, cfg: SearchConfig,
@@ -366,8 +410,9 @@ def graph_search_stepped(corpus: Corpus, queries, cfg: SearchConfig,
     """Host-side driver: one ``graph_search_step`` at a time, asking after
     each whether any lane is active, then finalize.  Equal to
     ``graph_search``."""
+    node_mask = _mask_on(corpus, node_mask)
     state = init_search_state(corpus, queries, cfg, metric, bloom_bits,
-                              num_hashes, node_mask)
+                              num_hashes)
     while bool(search_state_active(state, cfg).any()):
         state = graph_search_step(corpus, state, cfg, metric, bloom_bits,
                                   num_hashes, node_mask)
@@ -380,14 +425,17 @@ def graph_search(corpus: Corpus, queries, cfg: SearchConfig,
     """Batched Proxima traversal. queries: (Q, D) array or tensor; the search
     runs on the corpus's device.  Steps every lane to quiescence, checking
     for it every ``DONE_CHECK_EVERY`` rounds on CUDA (extra rounds are
-    no-ops), then runs the beta-margin rerank."""
+    no-ops), then runs the beta-margin rerank.  ``node_mask`` (N,) bool, if
+    given, admits only passing nodes to the result (filtered search)."""
+    node_mask = _mask_on(corpus, node_mask)
     state = init_search_state(corpus, queries, cfg, metric, bloom_bits,
-                              num_hashes, node_mask)
-    _, active, step = _round_fns(corpus, cfg, metric, bloom_bits, num_hashes)
+                              num_hashes)
+    _, active, step = _round_fns(corpus, cfg, metric, bloom_bits, num_hashes,
+                                 node_mask)
     every = DONE_CHECK_EVERY if state.queries.is_cuda else 1
     lanes = state.lanes
     while bool(active(lanes).any()):
         for _ in range(every):
             lanes = step(state.queries, state.adts, lanes)
-    return _finalize_batch(corpus, upgrade_config(cfg), metric,
+    return _finalize_batch(corpus, upgrade_config(cfg), metric, node_mask,
                            state.queries, lanes)

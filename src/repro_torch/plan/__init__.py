@@ -1,14 +1,16 @@
-"""Port of ``repro.plan``: the ``Searcher`` facade and its ``QueryPlanner``,
-flat unfiltered plans only."""
+"""Port of ``repro.plan``: the ``Searcher`` facade, its ``QueryPlanner`` and
+the round-stepped ``RoundSession``, for flat plans (strategies none, masked,
+scan and empty)."""
 from repro_torch.configs.base import PlanConfig
 from repro_torch.plan.planner import (
     Execution, IndexCapabilities, QueryPlan, QueryPlanner,
 )
 from repro_torch.plan.request import SearchRequest, SearchResult, SearchStats
-from repro_torch.plan.searcher import Searcher
+from repro_torch.plan.rounds import RoundSession
+from repro_torch.plan.searcher import Searcher, validate_attribute_store
 
 __all__ = [
     "Execution", "IndexCapabilities", "PlanConfig", "QueryPlan",
-    "QueryPlanner", "SearchRequest", "SearchResult", "SearchStats",
-    "Searcher",
+    "QueryPlanner", "RoundSession", "SearchRequest", "SearchResult",
+    "SearchStats", "Searcher", "validate_attribute_store",
 ]

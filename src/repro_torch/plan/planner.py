@@ -1,21 +1,30 @@
 """QueryPlanner — request + index capabilities -> executable ``QueryPlan``;
-port of ``src/repro/plan/planner.py`` for the one plan this slice serves:
-kind ``flat``, strategy ``none`` (one Algorithm-1 traversal over one corpus).
-Filtered, tiled, merged and distributed plans raise, naming the ROADMAP item
-that ports them.  The plan cache and ``QueryPlan.cache_key`` (the serving
-layer's batching identity) are the reference's.  Observability is not
-ported yet (ROADMAP Queue 1 item 12), so nothing is billed or traced.
+port of ``src/repro/plan/planner.py`` for flat targets.
+
+A flat plan's ``strategy`` says where the filter runs: ``none``, ``masked``
+traversal (inflated frontier, ``filter.adapt_search_cfg``), bitmap PQ
+``scan``, or the ``empty`` short-circuit — the selectivity regime switch of
+``_filter_strategy``.  ``round_session`` gives the steppable form of the
+flat ``none`` and ``masked`` plans (``plan.rounds.RoundSession``), which the
+continuous engine runs one round at a time.  Tiled, merged and distributed
+plans raise, naming the ROADMAP item that ports them.  The plan cache,
+``QueryPlan.cache_key`` (the serving layer's batching identity) and the
+per-plan artifact cache (compiled pass masks) are the reference's.
+Observability is not ported yet (ROADMAP Queue 1 item 12), so nothing is
+billed or traced.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import (
     FilterConfig, PlanConfig, SearchConfig, upgrade_config,
 )
+from repro_torch.filter.spec import FilterSpec
 from repro_torch.plan.request import SearchRequest, SearchStats
 
 
@@ -29,19 +38,19 @@ class IndexCapabilities:
 @dataclasses.dataclass(frozen=True)
 class QueryPlan:
     """One executable strategy.  Frozen and hashable: ``cache_key`` is the
-    serving layer's batching identity."""
+    serving layer's batching identity and the artifact-cache key."""
     kind: str
-    strategy: str
-    cfg: SearchConfig                # EFFECTIVE config executed
+    strategy: str                    # none | masked | scan | empty
+    cfg: SearchConfig                # EFFECTIVE config executed (adapted)
     metric: str
-    spec: Optional[Any] = None
-    selectivity: float = 1.0
+    spec: Optional[FilterSpec] = None
+    selectivity: float = 1.0         # exact passing fraction
     probe_tiles: int = 0
     num_tiles: int = 1
     attr_bits: int = 0
     pushdown: bool = True
     tenant: Optional[str] = None
-    mask_token: int = 0
+    mask_token: int = 0              # >0: plan built from a caller mask
 
     @property
     def cache_key(self) -> tuple:
@@ -60,61 +69,81 @@ class Execution(NamedTuple):
 
 
 def _mean_counters(res) -> dict:
-    """Per-query mean counters of a core ``SearchResult``."""
+    """Per-query mean counters of a core ``SearchResult``, read to the host
+    in one copy."""
     if res is None:
         return {}
+    fields = (res.n_hops, res.n_pq, res.n_acc, res.n_hot_hops, res.n_free_pq,
+              res.rounds)
+    means = torch.stack(fields).double().mean(1).tolist()
+    return dict(zip(("hops", "pq", "acc", "hot_hops", "free_pq", "rounds"),
+                    means))
 
-    def agg(x):
-        return float(x.double().mean())
 
-    return dict(
-        hops=agg(res.n_hops), pq=agg(res.n_pq), acc=agg(res.n_acc),
-        hot_hops=agg(res.n_hot_hops), free_pq=agg(res.n_free_pq),
-        rounds=agg(res.rounds),
+def _unported_kind(kind: str) -> NotImplementedError:
+    item = {"merged": "item 10 (stream/)", "tiled": "item 11 (shard/)",
+            "distributed": "item 15 (distributed)"}.get(kind, "items 10-15")
+    return NotImplementedError(
+        f"{kind} plans are not ported yet: ROADMAP Queue 1 {item}")
+
+
+def flat_filtered_search(corpus, queries, mask, cfg: SearchConfig,
+                         metric: str, filter_cfg: Optional[FilterConfig] = None):
+    """Selectivity-adaptive filtered search over a flat corpus through a
+    one-off plan — the single regime-decision point.  Returns a
+    ``filter.FilteredSearchResult``."""
+    fcfg = filter_cfg or FilterConfig()
+    planner = QueryPlanner(
+        capabilities=IndexCapabilities(kind="flat"), cfg=cfg, metric=metric,
+        filter_cfg=fcfg, plan_cfg=PlanConfig(search=cfg, filter=fcfg),
+        corpus=corpus,
     )
+    request = SearchRequest(queries=queries, node_mask=mask, adaptive=True)
+    return planner.execute(planner.plan(request), queries).raw
 
 
 class QueryPlanner:
     """Compiles ``SearchRequest`` -> ``QueryPlan`` and executes plans over
-    one opened flat corpus.  Owns the plan cache."""
+    one opened flat corpus.  Owns the plan cache and the per-plan artifact
+    cache (compiled masks)."""
 
     def __init__(self, *, capabilities: IndexCapabilities, cfg: SearchConfig,
                  metric: str, filter_cfg: FilterConfig, plan_cfg: PlanConfig,
-                 corpus=None):
+                 corpus=None, attributes=None):
         self.capabilities = capabilities
         self.cfg = cfg
         self.metric = metric
         self.filter_cfg = filter_cfg
         self.plan_cfg = plan_cfg
         self.corpus = corpus
+        self.attributes = attributes
         self._plan_cache: Dict[tuple, QueryPlan] = {}
+        self._mask_cache: Dict[FilterSpec, np.ndarray] = {}
+        self._artifacts: Dict[tuple, dict] = {}
+        self._mask_tokens = 0
         self.plan_cache_hits = 0
         self.plan_cache_misses = 0
 
     # ------------------------------------------------------------- planning
     def plan(self, request: SearchRequest) -> QueryPlan:
         """Compile (or fetch from the plan cache) the plan serving
-        ``request``."""
-        if request.node_mask is not None or request.filter is not None:
-            raise NotImplementedError(
-                "filtered plans are not ported yet: ROADMAP Queue 1 item 9 "
-                "(filter/)")
+        ``request``.  Mask requests are compiled fresh — the mask has no
+        hashable identity."""
         if request.probe_tiles:
-            raise NotImplementedError(
-                "tile routing is not ported yet: ROADMAP Queue 1 item 11 "
-                "(shard/)")
-        key = (None, request.k, request.override_items(),
+            raise _unported_kind("tiled")
+        if request.node_mask is not None:
+            return self._plan_for_mask(request)
+        spec = request.filter
+        if spec is not None and spec.is_all:
+            spec = None              # all-pass spec == unfiltered plan
+        key = (spec, request.k, request.override_items(),
                request.probe_tiles, request.tenant)
         cached = self._plan_cache.get(key)
         if cached is not None:
             self.plan_cache_hits += 1
             return cached
         self.plan_cache_misses += 1
-        plan = QueryPlan(kind="flat", strategy="none",
-                         cfg=self._effective_cfg(request), metric=self.metric,
-                         num_tiles=self.capabilities.num_tiles,
-                         tenant=request.tenant,
-                         pushdown=bool(self.filter_cfg.pushdown))
+        plan = self._compile(spec, request)
         self._plan_cache[key] = plan
         return plan
 
@@ -127,22 +156,161 @@ class QueryPlanner:
             cfg = dataclasses.replace(cfg, **dict(items))
         return cfg
 
+    def _mask_for(self, spec: FilterSpec) -> np.ndarray:
+        mask = self._mask_cache.get(spec)
+        if mask is None:
+            if self.attributes is None:
+                raise RuntimeError(
+                    "filtered search needs an attribute store — pass "
+                    "attributes= to Searcher.open / ServingEngine or attach "
+                    "one to the index"
+                )
+            mask = np.asarray(self.attributes.mask(spec), bool)
+            self._mask_cache[spec] = mask
+        return mask
+
+    def _filter_strategy(self, mask: np.ndarray, k: int) -> Tuple[str, float]:
+        """The selectivity regime switch."""
+        n = mask.size
+        n_pass = int(mask.sum())
+        sel = n_pass / max(n, 1)
+        if n_pass == 0:
+            return "empty", 0.0
+        if sel <= self.filter_cfg.brute_force_selectivity or n_pass <= k:
+            return "scan", sel
+        return "masked", sel
+
+    def _attr_bits(self) -> int:
+        if self.attributes is not None:
+            return int(self.attributes.attr_bits)
+        return int(self.filter_cfg.attr_bits)
+
+    def _flat_plan(self, mask: np.ndarray, cfg: SearchConfig,
+                   **common) -> QueryPlan:
+        """The empty / scan / masked plan of a compiled pass mask, with the
+        mask cached as its artifact."""
+        from repro_torch.filter.traversal import adapt_search_cfg
+
+        strategy, sel = self._filter_strategy(mask, cfg.k)
+        eff = adapt_search_cfg(cfg, sel, self.filter_cfg) \
+            if strategy == "masked" else cfg
+        plan = QueryPlan(kind="flat", strategy=strategy, cfg=eff,
+                         selectivity=sel, attr_bits=self._attr_bits(),
+                         **common)
+        self._artifacts[plan.cache_key] = {"mask": mask}
+        return plan
+
+    def _common(self, request: SearchRequest) -> dict:
+        return dict(metric=self.metric,
+                    num_tiles=self.capabilities.num_tiles,
+                    tenant=request.tenant,
+                    pushdown=bool(self.filter_cfg.pushdown))
+
+    def _compile(self, spec: Optional[FilterSpec],
+                 request: SearchRequest) -> QueryPlan:
+        cfg = self._effective_cfg(request)
+        if spec is None:
+            return QueryPlan(kind="flat", strategy="none", cfg=cfg,
+                             **self._common(request))
+        return self._flat_plan(self._mask_for(spec), cfg, spec=spec,
+                               **self._common(request))
+
+    def _plan_for_mask(self, request: SearchRequest) -> QueryPlan:
+        """Plans for caller-compiled masks.  ``adaptive`` selects the
+        regime switch + config adaptation vs the verbatim
+        ``graph_search(node_mask=...)`` traversal."""
+        cfg = self._effective_cfg(request)
+        self._mask_tokens += 1
+        common = dict(self._common(request), mask_token=self._mask_tokens)
+        mask = np.asarray(request.node_mask, bool)
+        if request.adaptive:
+            return self._flat_plan(mask, cfg, **common)
+        plan = QueryPlan(kind="flat", strategy="masked", cfg=cfg,
+                         selectivity=float(mask.mean()),
+                         attr_bits=self._attr_bits(), **common)
+        self._artifacts[plan.cache_key] = {"mask": mask}
+        return plan
+
+    # -------------------------------------------------------- round stepping
+    def round_session(self, plan: QueryPlan):
+        """The round-steppable form of ``plan`` (a ``plan.rounds.
+        RoundSession``), or ``None`` when the plan has no per-round spine —
+        bitmap scans, empty short-circuits, one-shot mask-token plans — in
+        which case callers fall back to whole-batch ``execute``."""
+        from repro_torch.plan.rounds import RoundSession
+
+        if plan.kind != "flat":
+            raise _unported_kind(plan.kind)
+        if plan.mask_token or plan.strategy not in ("none", "masked"):
+            return None
+        pc = self.plan_cfg
+        common = dict(planner=self, plan=plan, corpus=self.corpus,
+                      cfg=plan.cfg, metric=self.metric,
+                      bloom_bits=pc.bloom_bits, num_hashes=pc.num_hashes)
+        if plan.strategy == "none":
+            return RoundSession(**common)
+        return RoundSession(node_mask=self._device_mask(plan),
+                            selectivity=plan.selectivity, **common)
+
+    def _artifacts_for(self, plan: QueryPlan) -> dict:
+        """Compiled artifacts for a plan.  Spec-keyed plans keep theirs
+        cached; mask-token plans are one-shot, so theirs are popped here."""
+        if plan.mask_token:
+            return self._artifacts.pop(plan.cache_key, {})
+        return self._artifacts.get(plan.cache_key, {})
+
+    def _device_mask(self, plan: QueryPlan) -> torch.Tensor:
+        """The plan's pass mask on the corpus's device, copied there once
+        per spec-keyed plan."""
+        art = self._artifacts_for(plan)
+        dev = art.get("mask_on_device")
+        if dev is None:
+            dev = torch.as_tensor(art["mask"], device=self.corpus.base.device)
+            if not plan.mask_token:
+                art["mask_on_device"] = dev
+        return dev
+
     # ------------------------------------------------------------ execution
     def execute(self, plan: QueryPlan, queries) -> Execution:
         """Run one plan over a query batch on the corpus's device."""
-        from repro_torch.core.search import graph_search
+        from repro_torch.core.search import empty_search_result, graph_search
+        from repro_torch.filter.traversal import (
+            FilteredSearchResult, scan_search,
+        )
 
-        if (plan.kind, plan.strategy) != ("flat", "none"):
-            raise NotImplementedError(
-                f"{plan.kind}/{plan.strategy} plans are not ported yet "
-                "(ROADMAP Queue 1 items 9-11, 15)")
+        if plan.kind != "flat":
+            raise _unported_kind(plan.kind)
         pc = self.plan_cfg
         q_np = np.atleast_2d(np.asarray(queries, np.float32))
-        res = graph_search(self.corpus, q_np, plan.cfg, self.metric,
-                           pc.bloom_bits, pc.num_hashes)
-        return Execution(ids=res.ids.cpu().numpy(),
-                         dists=res.dists.cpu().numpy(), raw=res,
-                         counters=res, selectivity=1.0, delta_candidates=0.0)
+        if plan.strategy == "none":
+            res = graph_search(self.corpus, q_np, plan.cfg, self.metric,
+                               pc.bloom_bits, pc.num_hashes)
+            return Execution(ids=res.ids.cpu().numpy(),
+                             dists=res.dists.cpu().numpy(), raw=res,
+                             counters=res, selectivity=1.0,
+                             delta_candidates=0.0)
+        if plan.strategy == "empty":
+            core = empty_search_result(q_np.shape[0], plan.cfg.k,
+                                       device=self.corpus.base.device)
+            fres = FilteredSearchResult(
+                ids=core.ids.cpu().numpy(), dists=core.dists.cpu().numpy(),
+                result=core, mode="empty", selectivity=0.0,
+                effective=plan.cfg)
+        elif plan.strategy == "scan":
+            fres = scan_search(self.corpus, q_np,
+                               self._artifacts_for(plan)["mask"], plan.cfg,
+                               self.metric, self.filter_cfg, plan.selectivity)
+        else:                        # masked traversal, plan.cfg pre-adapted
+            res = graph_search(self.corpus, q_np, plan.cfg, self.metric,
+                               pc.bloom_bits, pc.num_hashes,
+                               node_mask=self._device_mask(plan))
+            fres = FilteredSearchResult(
+                ids=res.ids.cpu().numpy(), dists=res.dists.cpu().numpy(),
+                result=res, mode="traversal", selectivity=plan.selectivity,
+                effective=plan.cfg)
+        return Execution(ids=fres.ids, dists=fres.dists, raw=fres,
+                         counters=fres.result, selectivity=fres.selectivity,
+                         delta_candidates=0.0)
 
     # ----------------------------------------------------------------- stats
     def stats_for(self, plan: QueryPlan, execution: Execution) -> SearchStats:

@@ -1,21 +1,25 @@
 """Typed request/result envelope of the query-plan layer — port of
-``src/repro/plan/request.py``.  Same fields as the reference; ``filter``
-stays untyped until ``filter/`` is ported (ROADMAP Queue 1 item 9), and a
-request that sets it is refused by the planner."""
+``src/repro/plan/request.py``.  Same fields as the reference."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Mapping, Optional, Tuple
 
+from repro_torch.filter.spec import FilterSpec
+
 
 @dataclasses.dataclass
 class SearchRequest:
     """One search call against a ``Searcher``: a ``(Q, D)`` (or ``(D,)``)
-    float query array, ``k`` (default: the searcher's ``SearchConfig.k``)
-    and per-request ``SearchConfig`` overrides (e.g. ``{"beam_width": 4}``)."""
+    float query array, ``k`` (default: the searcher's ``SearchConfig.k``),
+    a hashable ``filter`` (``filter.FilterSpec``) and per-request
+    ``SearchConfig`` overrides (e.g. ``{"beam_width": 4}``).  ``node_mask``
+    is a caller-compiled (N,) bool admission mask; ``adaptive`` selects
+    whether the selectivity regimes (scan / inflated masked traversal)
+    apply to it, or it goes to the traversal verbatim."""
     queries: Any
     k: Optional[int] = None
-    filter: Optional[Any] = None
+    filter: Optional[FilterSpec] = None
     tenant: Optional[str] = None
     overrides: Any = ()
     probe_tiles: Optional[int] = None
@@ -53,9 +57,11 @@ class SearchStats:
 
 @dataclasses.dataclass
 class SearchResult:
-    """Plan-layer search reply: host numpy ``(Q, k)`` ``ids``/``dists``,
-    the ``stats``, the executed ``plan`` and the ``raw`` kernel result
-    (``core.search.SearchResult``, tensors on the search device)."""
+    """Plan-layer search reply: host numpy ``(Q, k)`` ``ids``/``dists``
+    (-1 / +inf padded where a filter admits fewer than k), the ``stats``,
+    the executed ``plan`` and the ``raw`` kernel result
+    (``core.search.SearchResult`` or ``filter.FilteredSearchResult``, its
+    tensors on the search device)."""
     ids: Any
     dists: Any
     stats: SearchStats

@@ -1,11 +1,12 @@
 """``Searcher`` — the host-side query API; port of
 ``src/repro/plan/searcher.py`` (``open`` on an index or a ``Corpus``,
-``search``, ``plan``, ``execute``).
+``search``, ``plan``, ``execute``, ``round_session``).
 
-    s = Searcher.open(index)                  # a repro_torch ProximaIndex
-    res = s.search(SearchRequest(queries=q, k=10))
-    res.ids, res.dists                        # (Q, k) numpy
-    res.stats.as_dict()
+    s = Searcher.open(index, attributes=store)   # a repro_torch ProximaIndex
+    res = s.search(SearchRequest(queries=q, k=10,
+                                 filter=FilterSpec.eq("category", 3)))
+    res.ids, res.dists                           # (Q, k) numpy
+    res.stats.as_dict(), res.plan.strategy       # none|masked|scan|empty
 
 The search runs on the device of the opened corpus.  Only flat targets are
 ported: a mutable, tiled, segmented or distributed target, or a
@@ -26,6 +27,17 @@ from repro_torch.plan.planner import (
 from repro_torch.plan.request import SearchRequest, SearchResult
 
 
+def validate_attribute_store(store, expected_rows: int, owner: str):
+    """The attribute-store/corpus length check shared by ``Searcher.open``
+    and ``ServingEngine``.  Returns the store; ``None`` passes through."""
+    if store is not None and len(store) != expected_rows:
+        raise ValueError(
+            f"attribute store has {len(store)} rows, {owner} has "
+            f"{expected_rows}"
+        )
+    return store
+
+
 class Searcher:
     """Facade over one opened search target.  Use :meth:`open`."""
 
@@ -41,12 +53,15 @@ class Searcher:
     def open(cls, index, plan: Optional[PlanConfig] = None, *,
              cfg: Optional[SearchConfig] = None,
              metric: Optional[str] = None,
+             attributes=None,
              beam_width: Optional[int] = None,
              bloom_bits: Optional[int] = None,
              num_hashes: Optional[int] = None) -> "Searcher":
         """Open a ``ProximaIndex`` or a ``Corpus``.  Keyword arguments
         override the matching ``PlanConfig`` fields; unset fields defer to
-        the index's own config."""
+        the index's own config.  ``attributes`` (a ``filter.AttributeStore``
+        keyed by internal id) serves filtered requests; an index's own
+        ``attributes`` is the default."""
         pc = plan or PlanConfig()
         kw = dict(search=cfg, beam_width=beam_width, bloom_bits=bloom_bits,
                   num_hashes=num_hashes)
@@ -58,10 +73,13 @@ class Searcher:
                 "(shard/)")
         if isinstance(index, Corpus):
             scfg = cls._resolve_cfg(pc, pc.search or SearchConfig())
+            validate_attribute_store(attributes, index.base.shape[0],
+                                     "corpus")
             planner = QueryPlanner(
                 capabilities=IndexCapabilities(kind="flat"), cfg=scfg,
-                metric=metric or "l2", filter_cfg=pc.filter or FilterConfig(),
-                plan_cfg=pc, corpus=index)
+                metric=metric or "l2",
+                filter_cfg=pc.filter or FilterConfig(), plan_cfg=pc,
+                corpus=index, attributes=attributes)
             return cls(planner=planner, plan_cfg=pc)
         if not hasattr(index, "graph"):
             raise NotImplementedError(
@@ -69,11 +87,14 @@ class Searcher:
                 "flat ProximaIndex or Corpus (ROADMAP Queue 1 items 10-11)")
         cfg_full = upgrade_config(index.config)
         scfg = cls._resolve_cfg(pc, cfg_full.search)
+        attributes = validate_attribute_store(
+            attributes, index.dataset.num_base, "index"
+        ) if attributes is not None else index.attributes
         planner = QueryPlanner(
             capabilities=IndexCapabilities(kind="flat"), cfg=scfg,
             metric=metric or index.dataset.metric,
             filter_cfg=pc.filter or cfg_full.filter, plan_cfg=pc,
-            corpus=index.corpus())
+            corpus=index.corpus(), attributes=attributes)
         return cls(planner=planner, plan_cfg=pc, index=index)
 
     @classmethod
@@ -100,6 +121,11 @@ class Searcher:
                             stats=self.planner.stats_for(plan, ex),
                             plan=plan, raw=ex.raw)
 
+    def round_session(self, plan: QueryPlan):
+        """Steppable session for a plan (``None`` when the plan has no
+        round-steppable spine) — the continuous engine's entry point."""
+        return self.planner.round_session(plan)
+
     # ------------------------------------------------------------ inspection
     @property
     def cfg(self) -> SearchConfig:
@@ -108,6 +134,14 @@ class Searcher:
     @property
     def metric(self) -> str:
         return self.planner.metric
+
+    @property
+    def filter_cfg(self) -> FilterConfig:
+        return self.planner.filter_cfg
+
+    @property
+    def attributes(self):
+        return self.planner.attributes
 
     @property
     def corpus(self):

@@ -191,8 +191,16 @@ def test_stepping_to_quiescence_equals_graph_search(tiny_port, beam):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
-def test_node_mask_is_not_ported(tiny_port):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        graph_search(tiny_port.corpus(), tiny_port.dataset.queries[:2],
-                     tiny_port.config.search,
-                     node_mask=np.ones(tiny_port.dataset.num_base, bool))
+@pytest.mark.parametrize("beam", [1, 4])
+def test_all_pass_node_mask_is_bit_identical(tiny_port, beam):
+    """An all-true node mask takes the filtered traversal and finalize, and
+    every selection reduces to the unfiltered arithmetic: ids, distances
+    and counters bit for bit, through ``graph_search`` and
+    ``graph_search_stepped``."""
+    cfg = dataclasses.replace(tiny_port.config.search, beam_width=beam)
+    corpus, q = tiny_port.corpus(), tiny_port.dataset.queries
+    mask = np.ones(tiny_port.dataset.num_base, bool)
+    whole = graph_search(corpus, q, cfg)
+    for got in (graph_search(corpus, q, cfg, node_mask=mask),
+                graph_search_stepped(corpus, q, cfg, node_mask=mask)):
+        assert all(torch.equal(a, b) for a, b in zip(whole, got))

@@ -215,11 +215,13 @@ def _merge_inputs(q, l, n):
 @pytest.mark.parametrize("q,l,n", [(3, 16, 8), (7, 64, 24), (9, 100, 60),
                                    (256, 128, 64), (256, 128, 256),
                                    (3, 600, 64), (5, 600, 300),
-                                   (5, 512, 1000)])
+                                   (5, 512, 1000), (256, 512, 64),
+                                   (256, 1024, 64)])
 def test_bitonic_merge_kernel_exact(cuda, q, l, n):
     """The merge entry against its plain version, all four columns bit for
     bit.  Up to 1024 the warp merges fresh keys into the sorted list;
-    (600, 300) and (512, 1000) exceed it and take the block path."""
+    (600, 300), (512, 1000) and the masked search's (1024, 64) exceed it and
+    take the block path; (512, 64) is the masked search at ~25%."""
     cols = [_t(a, cuda) for a in _merge_inputs(q, l, n)]
     got = ops.bitonic_merge_topl(*cols)
     torch.cuda.synchronize()
@@ -316,3 +318,78 @@ def test_cuda_search_matches_cpu_search(cuda):
         assert same >= 0.95, same
         stepped = graph_search_stepped(idx.corpus(), idx.dataset.queries, scfg)
         assert all(torch.equal(a, b) for a, b in zip(gpu, stepped))
+
+
+def _small_cuda_index():
+    from repro_torch.configs.base import (
+        DatasetConfig, GraphConfig, PQConfig, ProximaConfig, SearchConfig,
+    )
+    from repro_torch.core.index import build_index
+
+    cfg = ProximaConfig(
+        dataset=DatasetConfig(name="sift-like", num_base=1500, num_queries=24,
+                              dim=64, num_clusters=12, cluster_std=0.3),
+        pq=PQConfig(num_subvectors=32, num_centroids=128, kmeans_iters=8),
+        graph=GraphConfig(max_degree=24, build_list_size=48, alpha=1.2),
+        search=SearchConfig(k=10, list_size=64, t_init=16, t_step=8,
+                            repetition_rate=3, beta=1.06),
+        hot_node_fraction=0.0, gap_encode=False,
+    )
+    return build_index(cfg, device="cuda")
+
+
+_FILTERS = (("category", [0, 1]), ("category", [3]), ("price", range(15)),
+            ("price", []))
+
+
+def test_cuda_filtered_search_matches_cpu_search(cuda):
+    """Filtered search through ``Searcher`` on the card (kernels) against
+    the CPU port (plain versions) on one small index: the masked (~25%,
+    ~12.5%), scan (~1.5%) and empty strategies.  Same bar as the unfiltered
+    cross-device test (>= 95% identical rows: the kernels' ADT rounds
+    differently from the CPU's expanded form); every id passes."""
+    from repro_torch.filter import FilterSpec, random_attributes
+    from repro_torch.plan import Searcher, SearchRequest
+
+    idx = _small_cuda_index()
+    store = random_attributes(idx.dataset.num_base,
+                              {"category": 8, "price": 1000}, seed=5)
+    gpu = Searcher.open(idx, attributes=store)
+    cpu = Searcher.open(dataclasses.replace(idx, device="cpu"),
+                        attributes=store)
+    q = idx.dataset.queries
+    strategies = []
+    for field, values in _FILTERS:
+        spec = FilterSpec.isin(field, values)
+        a = gpu.search(SearchRequest(queries=q, filter=spec))
+        b = cpu.search(SearchRequest(queries=q, filter=spec))
+        strategies.append(a.plan.strategy)
+        assert (a.ids == b.ids).all(1).mean() >= 0.95
+        mask = store.mask(spec)
+        assert mask[a.ids[a.ids >= 0]].all()
+    assert strategies == ["masked", "masked", "scan", "empty"]
+
+
+def test_cuda_continuous_engine_equals_batch_engine(cuda):
+    """The continuous engine on the card returns, bit for bit, the batch
+    engine's ids and distances, unfiltered and filtered requests mixed."""
+    from repro_torch.filter import FilterSpec, random_attributes
+    from repro_torch.serve import ServingEngine
+
+    idx = _small_cuda_index()
+    store = random_attributes(idx.dataset.num_base,
+                              {"category": 8, "price": 1000}, seed=5)
+    specs = [None] + [FilterSpec.isin(f, v) for f, v in _FILTERS]
+    engines = [ServingEngine(idx, batch_size=8, attributes=store,
+                             continuous=c, slots=6, flush_us=0.0)
+               for c in (True, False)]
+    for e in engines:
+        for i, v in enumerate(np.tile(idx.dataset.queries, (2, 1))):
+            e.submit(v, filter=specs[i % len(specs)])
+        e.drain()
+    cont, batch = engines
+    assert cont.stats["retired"] > 0 and cont.stats["fallback_batches"] > 0
+    assert sorted(cont.done) == sorted(batch.done)
+    for rid, r in batch.done.items():
+        np.testing.assert_array_equal(cont.done[rid].ids, r.ids)
+        np.testing.assert_array_equal(cont.done[rid].dists, r.dists)

@@ -84,12 +84,21 @@ def test_engine_beam_width_and_plan_config(tiny_index, tiny_port):
 
 
 def test_unported_serving_modes_raise(tiny_port):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServingEngine(tiny_port, batch_size=4, continuous=True)
-    eng = ServingEngine(tiny_port, batch_size=4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.submit(tiny_port.dataset.queries[0], filter=("category", 3))
+    """What the port still refuses names its ROADMAP item: tiles (item 11),
+    merged plans (item 10), observability and SLOs (item 12), NAND billing
+    (item 13); targets other than a flat index or corpus raise too."""
     with pytest.raises(NotImplementedError, match="item 11"):
         Searcher.open(tiny_port, PlanConfig(num_tiles=2))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Searcher.open(tiny_port).search(SearchRequest(
+            queries=tiny_port.dataset.queries[:1], probe_tiles=2))
     with pytest.raises(NotImplementedError):
         Searcher.open(dataclasses.replace(tiny_port.dataset))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ServingEngine(tiny_port, batch_size=4, continuous=True, obs=object())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ServingEngine(tiny_port, batch_size=4, nand=object())
+    s = Searcher.open(tiny_port)
+    plan = s.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        s.round_session(dataclasses.replace(plan, kind="merged"))
