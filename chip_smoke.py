@@ -10,10 +10,14 @@ not printed):
 1. The card's name and power limit, then the build of the four kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
 2. Main path: a sift-like corpus (ann-benchmarks sift-128-euclidean scale:
-   1M base, 10k queries, 128-d, L2) built into a Proxima index on the card
-   (PQ M=32 x C=256, graph R=64 / build list 128, hot_node_fraction=0, no
-   gap encoding), then all queries submitted to ``ServingEngine(index,
-   batch_size=256)`` and drained.  Launch counts are zeroed just before and
+   1M base, 10k queries, 128-d, L2) built into the paper's default Proxima
+   index on the card (PQ M=32 x C=256, graph R=64 / build list 128,
+   hot_node_fraction=0.03 — 30,000 hot nodes from a 128-query reorder trace
+   on the kernels — gap encoding, calibrate_beta): build seconds by stage
+   (trace, reorder and gap among them), the launches of the trace and
+   calibrate_beta, the gap compression ratio, ``index_bytes()``, the mean
+   hot hops and free PQ fetches per query.  Then all queries submitted to
+   ``ServingEngine(index, batch_size=256)`` and drained.  Launch counts are zeroed just before and
    read just after; every kernel must have launched, and ``l2_rerank`` once
    a round and once a batch.  Fails if recall@10 against the exact ground
    truth is below 0.5, or if the engine's ids differ from
@@ -35,6 +39,19 @@ not printed):
    two engines agree bit for bit, every returned id passes its filter, the
    strategies and L are as listed, the empty spec returns only padding, and
    filtered recall@10 against an exact filtered kNN on the card is >= 0.5.
+   Tiled phase: the same index in 4 channel tiles through
+   ``ServingEngine(num_tiles=4, shard_policy=, probe_tiles=)`` — cluster
+   tiles at full fan-out and routed to 2 tiles, hash tiles at full fan-out —
+   2,048 queries each: tile-build seconds (per-tile graphs rebuilt on the
+   card), QPS, recall@10, launches, cross-tile merges (one sort launch a
+   batch).  Fails unless recall@10 >= 0.5, the engine's ids equal
+   ``Searcher.search``'s, 64 queries on the CPU over the same tiles equal the
+   card's in >= 95% of rows, and the merges equal the batches.
+   Segmented phase: ``build_segmented`` of the corpus in 4 segments of
+   250,000 on the card, 16,384 stitch anchors a joining segment (stage and
+   stitch seconds, patched rows), 2,048
+   queries served tiled through the segments (the checks above) and flat
+   through ``to_flat()``; recall@10 >= 0.5 for both.
    Every kernel must launch on each path (launches zeroed before each).
 3. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
    M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
@@ -48,7 +65,12 @@ not printed):
    rows.  The filtered paths' shapes too: the merge at (L=512, n=64) and
    (L=1024, n=64, the block network), the masked entry at K=1024 at the
    masked search's density, the lookup over the scan's (Q=256, S=16384)
-   rows.  Each entry is timed over 30 launches, the 50 MB L2 cache flushed
+   rows.  The new call sites of this index: ``pq_adt`` at Q=1 and the
+   lookup at (1, 64) (the reorder trace), the lookup at (256, 512)
+   (``calibrate_beta``), ``l2_rerank_masked`` at (1, 16) (the trace's exact
+   distances), and the sort entry at the cross-tile merge's (256, 64), with
+   ties, duplicate ids keyed +inf and -1 padding.  Each entry is timed over
+   30 launches, the 50 MB L2 cache flushed
    before each and the launch queued behind a spin: by CUDA events around
    each launch (``ms``) and, for the same launches, by the kernel's own
    device duration from ``torch.profiler`` (``cupti_ms``); beside them the
@@ -73,12 +95,22 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+REORDER_SAMPLES = 128            # build_index's default trace sample
+SHARD_QUERIES = 2048             # of the 10,000, for the smoke's time
+NUM_TILES = 4
+TILED_VARIANTS = (("cluster", 0), ("cluster", 2), ("hash", 0))
+SEGMENT_SIZE = 250_000
+# boundary anchors a joining segment stitches (BuildConfig's default is 32:
+# the stitched 1M graph then stays inside segment 0, recall@10 0.2339 on an
+# H100, PERF.md)
+STITCH_SAMPLE = 16384
 FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
 
@@ -248,17 +280,24 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                    entries=[main, *others])
         out.append(rec)
 
-    # ---- pq_adt --------------------------------------------------------
+    # ---- pq_adt: the batch's (Q=256, also calibrate_beta's) and the
+    # reorder trace's (one sampled base vector a search, Q=1) -------------
     qs = queries.reshape(q, m, d // m).transpose(0, 1).contiguous()
+
+    def adt_entry(label, nq):
+        qq, qsub = queries[:nq], qs[:, :nq]
+        return entry(
+            label, "pq_adt_kernel", ops.pq_adt(qq, cents, "l2"),
+            ops.pq_adt_plain(qq, cents, "l2"), 1e-4, 1e-4,
+            lambda: ops.pq_adt(qq, cents, "l2"),
+            lambda: ops.pq_adt_plain(qq, cents, "l2"),
+            {"cdist": lambda: torch.cdist(qsub, cents)},  # sqrt of the table
+            4 * (nq * d + m * c * (d // m) + nq * m * c),
+            3 * nq * m * c * (d // m))
+
     record("pq_adt", "src/repro_torch/kernels/csrc/pq_adt.cu",
-           "src/repro/kernels/pq_adt.py:38", entry(
-               "pq_adt", "pq_adt_kernel", ops.pq_adt(queries, cents, "l2"),
-               ops.pq_adt_plain(queries, cents, "l2"), 1e-4, 1e-4,
-               lambda: ops.pq_adt(queries, cents, "l2"),
-               lambda: ops.pq_adt_plain(queries, cents, "l2"),
-               {"cdist": lambda: torch.cdist(qs, cents)},  # sqrt of the table
-               4 * (q * d + m * c * (d // m) + q * m * c),
-               3 * q * m * c * (d // m)))
+           "src/repro/kernels/pq_adt.py:38", adt_entry("pq_adt", q),
+           adt_entry("pq_adt_Q1_trace", 1))
 
     # ---- pq_lookup (the search's gather entry, masked and not) -----------
     adts = ops.pq_adt(queries, cents, "l2")
@@ -314,6 +353,31 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
         5 * scan_rows + 4 * q * scan_rows + n_pass * m + 4 * q * m * c,
         q * n_pass * m)
     scan["valid_share"] = n_pass / scan_rows
+    # the reorder trace: one query's E*R = 64 fresh neighbours, unmasked
+    nbr1, adt1 = nbr[:1].contiguous(), adts[:1].contiguous()
+    touched1 = int(torch.unique(lane_idx[:1]).numel())
+    trace = entry(
+        "gather_Q1_n64_trace", "pq_lookup_gather_kernel",
+        ops.pq_lookup_gather(nbr1, codes, adt1),
+        ops.pq_lookup_gather_plain(nbr1, codes, adt1), 1e-4, 1e-4,
+        lambda: ops.pq_lookup_gather(nbr1, codes, adt1),
+        lambda: ops.pq_lookup_gather_plain(nbr1, codes, adt1),
+        {"codes_gather_sum": lambda: adt_flat[:1].gather(
+            2, codes[nbr1.long()].long() + offs).sum(-1)},
+        4 * r + r * m + 4 * touched1 + 4 * r, r * m)
+    # calibrate_beta: 256 sampled queries x the same 512 target rows
+    tcodes = codes[:512].contiguous()
+    tids = torch.arange(512, dtype=torch.int32, device=dev).expand(
+        q, 512).contiguous()
+    calib = entry(
+        "gather_Q256_n512_calibrate", "pq_lookup_gather_kernel",
+        ops.pq_lookup_gather(tids, tcodes, adts),
+        ops.pq_lookup_gather_plain(tids, tcodes, adts), 1e-4, 1e-4,
+        lambda: ops.pq_lookup_gather(tids, tcodes, adts),
+        lambda: ops.pq_lookup_gather_plain(tids, tcodes, adts),
+        # the reference's form: the target codes, one ADT gather and sum
+        {"index_sum": lambda: adts_2d[:, tcodes.long() + offs].sum(-1)},
+        4 * q * 512 + 512 * m + 4 * q * m * c + 4 * q * 512, q * 512 * m)
     record("pq_lookup", "src/repro_torch/kernels/csrc/pq_lookup.cu",
            "src/repro/kernels/pq_lookup.py:42", masked, entry(
                "gather", "pq_lookup_gather_kernel",
@@ -321,7 +385,8 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                ops.pq_lookup_gather_plain(nbr, codes, adts), 1e-4, 1e-4,
                lambda: ops.pq_lookup_gather(nbr, codes, adts),
                lambda: ops.pq_lookup_gather_plain(nbr, codes, adts),
-               libraries, lookup_bytes(everything) - q * r, q * r * m), scan)
+               libraries, lookup_bytes(everything) - q * r, q * r * m), scan,
+           trace, calib)
 
     # ---- bitonic_sort_pairs: the merge entry the round runs, the sort ----
     def merge_inputs(n, l):
@@ -364,10 +429,39 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
             {"sort_and_4_gathers": sort_and_gathers},
             26 * q * l + 8 * q * n, network_ops(l + n))
 
+    # the cross-tile merge's sort: P=4 tiles x k=10 candidates a query, with
+    # duplicate ids (hot replicas) keyed +inf, -1 ids (+inf) and ties,
+    # padded to 64 with +inf keys and position 0, as cross_tile_merge pads
+    n_cand, p_pad = NUM_TILES * 10, 64
+    c_ids = torch.where(rand(q, n_cand) < 0.1, -1,
+                        ints(0, 64, (q, n_cand), torch.int32))
+    dup = ((c_ids[:, :, None] == c_ids[:, None, :])
+           & torch.ones(n_cand, n_cand, dtype=torch.bool,
+                        device=dev).tril(-1)).any(-1)
+    c_keys = torch.where(dup | (c_ids < 0), inf,
+                         ints(0, 16, (q, n_cand)).float())
+    x_keys = torch.nn.functional.pad(c_keys, (0, p_pad - n_cand), value=inf)
+    x_pos = torch.nn.functional.pad(
+        torch.arange(n_cand, dtype=torch.int32, device=dev),
+        (0, p_pad - n_cand)).expand(q, p_pad).contiguous()
+
+    def sort_and_gather():
+        sk, order = torch.sort(x_keys, dim=1, stable=True)
+        return sk, x_pos.gather(1, order)
+
+    cross = entry(
+        f"sort_cross_tile_Q{q}_P{p_pad}", "warp_sort_kernel",
+        ops.bitonic_sort_pairs(x_keys, x_pos),
+        ops.bitonic_sort_pairs_plain(x_keys, x_pos), 0.0, 0.0,
+        lambda: ops.bitonic_sort_pairs(x_keys, x_pos),
+        lambda: ops.bitonic_sort_pairs_plain(x_keys, x_pos),
+        {"torch.sort+gather": sort_and_gather},
+        16 * q * p_pad, network_ops(p_pad))
+    cross["inf_share"] = float(torch.isinf(x_keys).float().mean())
     record("bitonic_sort_pairs", "src/repro_torch/kernels/csrc/bitonic_topk.cu",
            "src/repro/kernels/bitonic_topk.py:57", merge_entry(r),
            merge_entry(4 * r), merge_entry(r, 4 * l), merge_entry(r, 8 * l),
-           entry(
+           cross, entry(
                f"sort_P{p}", "warp_sort_kernel",
                ops.bitonic_sort_pairs(keys, pos),
                ops.bitonic_sort_pairs_plain(keys, pos), 0.0, 0.0,
@@ -381,9 +475,10 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
     gathered = base[cand.long()]
     acc = torch.where(rand(q, l) < 0.5, rand(q, l), inf)
 
-    def masked_entry(label, mask, cand=cand, acc=acc, gathered=gathered):
+    def masked_entry(label, mask, cand=cand, acc=acc, gathered=gathered,
+                     queries=queries):
         rows = int(torch.unique(cand[mask]).numel())
-        k = cand.shape[1]
+        nq, k = cand.shape
         return entry(
             label, "l2_rerank_kernel",
             ops.l2_rerank_masked(queries, cand, base, acc, mask, "l2"),
@@ -396,7 +491,7 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
             {"cdist": lambda: torch.cdist(queries[:, None, :], gathered)},
             # mask and out; an id where the mask is set, acc where not;
             # the asked-for rows and their queries
-            9 * q * k + 4 * rows * d
+            9 * nq * k + 4 * rows * d
             + 4 * d * int(mask.any(1).sum()), 3 * int(mask.sum()) * d)
 
     def at_density(label, share, k=l):
@@ -419,7 +514,15 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
            at_density(f"masked_K{filter_density['K']}",
                       filter_density["round_mean"], filter_density["K"]),
            masked_entry("masked_all", torch.ones((q, l), dtype=torch.bool,
-                                                 device=dev)), entry(
+                                                 device=dev)),
+           # search_reference's exact distances: one query, the T=16 entries
+           # of a round's top-T, every one asked for
+           masked_entry("masked_Q1_K16_trace",
+                        torch.ones((1, 16), dtype=torch.bool, device=dev),
+                        cand=cand[:1, :16].contiguous(),
+                        acc=acc[:1, :16].contiguous(),
+                        gathered=gathered[:1, :16], queries=queries[:1]),
+           entry(
                "pregathered", "l2_rerank_kernel",
                ops.l2_rerank(queries, gathered, "l2"),
                ops.l2_rerank_plain(queries, gathered, "l2"), 1e-4, 1e-3,
@@ -453,7 +556,7 @@ def main_path(torch, dev, args, log) -> tuple:
         pq=PQConfig(num_subvectors=32, num_centroids=256),
         graph=GraphConfig(max_degree=64, build_list_size=128),
         search=SearchConfig(),
-        hot_node_fraction=0.0, gap_encode=False,
+        hot_node_fraction=0.03, gap_encode=True,   # the paper's defaults
     )
     res = {"config": {"num_base": args.num_base,
                       "num_queries": args.num_queries,
@@ -463,9 +566,24 @@ def main_path(torch, dev, args, log) -> tuple:
     ds = make_dataset(cfg.dataset, k_gt=10, device=dev)
     torch.cuda.synchronize()
     stages = {"dataset_and_ground_truth": time.perf_counter() - t0}
-    idx = build_index(cfg, dataset=ds, device=dev, stage_times=stages)
+    # the reorder trace (one search_reference per sampled base vector) and
+    # calibrate_beta run the kernels during the build
+    loader.reset_launch_counts()
+    idx = build_index(cfg, dataset=ds, device=dev, stage_times=stages,
+                      reorder_samples=REORDER_SAMPLES, calibrate=True)
+    res["build_launches"] = dict(loader.LAUNCHES)
     res["build_s"] = stages
     log(f"build seconds by stage: {json.dumps(stages)}")
+    res["hot_count"] = idx.hot_count
+    res["gap"] = {"bit_width": idx.gap.bit_width,
+                  "compression_ratio": idx.gap.compression_ratio}
+    res["index_bytes"] = idx.index_bytes()
+    res["calibrated_beta"] = idx.calibrated_beta
+    log(f"hot nodes {idx.hot_count}, gap encoding {idx.gap.bit_width} bits "
+        f"a neighbour, compression ratio {idx.gap.compression_ratio:.4f}, "
+        f"calibrated beta {idx.calibrated_beta:.4f}, launches in the build "
+        f"(trace + calibrate_beta) {json.dumps(res['build_launches'])}")
+    log(f"index bytes: {json.dumps(res['index_bytes'])}")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -498,25 +616,29 @@ def main_path(torch, dev, args, log) -> tuple:
         p99_ms=float(np.percentile(lat, 99)),
         batch_ms_median=sorted(batch_ms)[len(batch_ms) // 2]
         if batch_ms else None,
-        recall_at_10=recall_at_k(ids, ds.gt, 10),
+        recall_at_10=recall_at_k(ids, idx.dataset.gt, 10),
     )
 
     # the same queries through Searcher.search directly, 256 at a time
     searcher = Searcher.open(idx)
-    direct, hops, rounds = [], [], []
+    direct, hops, rounds, hot, free = [], [], [], [], []
     for s in range(0, len(queries), 256):
         out = searcher.search(SearchRequest(queries=queries[s : s + 256]))
         direct.append(out.ids)
         hops.append(out.raw.n_hops.double().cpu())
         rounds.append(out.raw.rounds.double().cpu())
+        hot.append(out.raw.n_hot_hops.double().cpu())
+        free.append(out.raw.n_free_pq.double().cpu())
     direct = np.concatenate(direct)
     res["engine_equals_searcher"] = bool((direct == ids).all())
     res["mean_hops"] = float(torch.cat(hops).mean())
     res["mean_rounds"] = float(torch.cat(rounds).mean())
+    res["mean_hot_hops"] = float(torch.cat(hot).mean())
+    res["mean_free_pq"] = float(torch.cat(free).mean())
     # a batch runs until its slowest lane is done
     res["mean_batch_max_rounds"] = float(np.mean([float(r.max())
                                                   for r in rounds]))
-    return res, idx, ids, dists
+    return res, ds, idx, ids, dists
 
 
 def _served(engine) -> list:
@@ -736,6 +858,177 @@ def masked_density(torch, idx, store) -> dict:
     rounds = [x for _, x in shares[:-1]]
     return {"K": shares[0][0], "round_mean": sum(rounds) / len(rounds),
             "rounds": len(rounds), "margin": shares[-1][1]}
+
+
+def _serve(engine, queries) -> tuple:
+    """Submit every query, drain; (ids, wall seconds, launches by kernel,
+    launches by C entry, batches), launch counts zeroed just before."""
+    import numpy as np
+
+    from repro_torch.kernels import loader
+
+    b0 = engine.stats["batches"]
+    loader.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [engine.submit(v) for v in queries]
+    engine.drain()
+    wall = time.perf_counter() - t0
+    ids = np.stack([engine.done[r].ids for r in rids])
+    return (ids, wall, dict(loader.LAUNCHES), dict(loader.ENTRY_LAUNCHES),
+            engine.stats["batches"] - b0)
+
+
+def _searcher_ids(searcher, queries) -> "np.ndarray":
+    import numpy as np
+
+    from repro_torch.plan import SearchRequest
+
+    return np.concatenate([
+        searcher.search(SearchRequest(queries=queries[s : s + 256])).ids
+        for s in range(0, len(queries), 256)])
+
+
+def _tiled_record(name, engine, searcher, queries, gt, log) -> dict:
+    """Serve ``queries`` through a tiled engine: QPS, recall@10, launches
+    per kernel, cross-tile merges (sort-entry launches) against batches,
+    engine ids against ``Searcher.search``, and 64 queries on the CPU (the
+    plain versions over the same tiles) against the card."""
+    from repro_torch.core.dataset import recall_at_k
+    from repro_torch.plan import Searcher
+    from repro_torch.shard import TiledCorpus
+
+    ids, wall, launches, entries, batches = _serve(engine, queries)
+    tiled = searcher.tiled
+    cpu = Searcher.open(TiledCorpus(*(t.cpu() for t in tiled)),
+                        cfg=searcher.cfg, metric=searcher.metric,
+                        probe_tiles=searcher.probe_tiles)
+    cpu_ids = _searcher_ids(cpu, queries[:64])
+    rec = {
+        "num_tiles": tiled.num_tiles, "probe_tiles": engine.probe_tiles,
+        "queries": len(queries), "wall_s": wall, "qps": len(queries) / wall,
+        "recall_at_10": recall_at_k(ids, gt, 10), "launches": launches,
+        "entry_launches": entries, "batches": batches,
+        "cross_tile_merges": entries.get("bitonic_sort_launch", 0),
+        "engine_equals_searcher": bool(
+            (_searcher_ids(searcher, queries) == ids).all()),
+        "cross_device_identical_rows": float(
+            (cpu_ids == ids[:64]).all(1).mean()),
+    }
+    log(f"tiled {name}: {len(queries)} queries in {wall:.3f} s: "
+        f"QPS={rec['qps']:.1f} recall@10={rec['recall_at_10']:.4f} "
+        f"batches={batches} cross_tile_merges={rec['cross_tile_merges']} "
+        f"engine_equals_searcher={rec['engine_equals_searcher']} "
+        f"cross_device={rec['cross_device_identical_rows']:.4f} "
+        f"launches={json.dumps(launches)}")
+    return rec
+
+
+def tiled_phase(torch, idx, flat_ids, log) -> dict:
+    """The main path's index served in NUM_TILES channel tiles through
+    ``ServingEngine(num_tiles=, shard_policy=, probe_tiles=)``: cluster
+    tiles at full fan-out and routed to 2 tiles, hash tiles at full
+    fan-out, SHARD_QUERIES queries each.  Each policy's tiles are built
+    once (per-tile graphs rebuilt on the card; the seconds of the
+    assignment and of the tile graphs) and reused by its engines and
+    Searchers."""
+    from repro_torch.core import index as index_mod
+    from repro_torch.plan import Searcher
+    from repro_torch.serve import ServingEngine
+
+    from repro_torch.core.dataset import recall_at_k
+
+    queries = idx.dataset.queries[:SHARD_QUERIES]
+    gt = idx.dataset.gt[:SHARD_QUERIES]
+    real = index_mod.ProximaIndex.sharded_corpus
+    # the flat engine's recall over the same queries, the tiles' yardstick
+    built, out = {}, {"tile_build_s": {}, "variants": {},
+                      "flat_recall_at_10": recall_at_k(
+                          flat_ids[:SHARD_QUERIES], gt, 10)}
+    log(f"flat recall@10 over the tiled phase's {SHARD_QUERIES} queries: "
+        f"{out['flat_recall_at_10']:.4f}")
+
+    def sharded_corpus(self, num_tiles=None, policy=None, replicate_hot=None):
+        if (num_tiles, policy) not in built:
+            from repro_torch.shard import partition_index
+
+            stages = {}
+            t0 = time.perf_counter()
+            built[num_tiles, policy] = partition_index(
+                self, num_tiles, policy, stage_times=stages)
+            torch.cuda.synchronize()
+            stages["total"] = time.perf_counter() - t0
+            out["tile_build_s"][policy] = stages
+            part = built[num_tiles, policy][1]
+            log(f"tiles ({policy}, P={num_tiles}) built in "
+                f"{json.dumps(stages)} s; sizes {part.tile_sizes.tolist()}")
+        return built[num_tiles, policy]
+
+    index_mod.ProximaIndex.sharded_corpus = sharded_corpus
+    try:
+        for policy, probe in TILED_VARIANTS:
+            name = f"{policy}_probe{probe}" if probe else f"{policy}_full"
+            kw = dict(num_tiles=NUM_TILES, shard_policy=policy,
+                      probe_tiles=probe)
+            engine = ServingEngine(idx, batch_size=256, **kw)
+            searcher = Searcher.open(idx, **kw)
+            out["variants"][name] = _tiled_record(
+                name, engine, searcher, queries, gt, log)
+    finally:
+        index_mod.ProximaIndex.sharded_corpus = real
+    return out
+
+
+def segmented_phase(torch, cfg, ds, dev, log) -> dict:
+    """``build_segmented`` of the main path's corpus in SEGMENT_SIZE
+    segments on the card (stage seconds summed over the segments, the
+    stitch's seconds and patched rows), then SHARD_QUERIES queries served
+    tiled through its segments and flat through ``to_flat()`` (the
+    stitched graph)."""
+    from repro_torch.core.dataset import recall_at_k
+    from repro_torch.core.segmented import build_segmented
+    from repro_torch.plan import Searcher
+    from repro_torch.serve import ServingEngine
+
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, build=dataclasses.replace(
+        cfg.build, stitch_sample=STITCH_SAMPLE))
+    stages = {}
+    t0 = time.perf_counter()
+    seg = build_segmented(cfg, dataset=ds, segment_size=SEGMENT_SIZE,
+                          reorder_samples=REORDER_SAMPLES, device=dev,
+                          stage_times=stages)
+    torch.cuda.synchronize()
+    stages["total"] = time.perf_counter() - t0
+    out = {"segments": seg.num_segments, "build_s": stages,
+           "stitch_anchors": len(seg.stitch.anchors),
+           "patched_rows": seg.stitch.patched_rows,
+           "cross_edges": seg.stitch.cross_edges,
+           "hot_counts": [s.hot_count for s in seg.segments]}
+    log(f"segmented build ({seg.num_segments} x {SEGMENT_SIZE}): seconds "
+        f"{json.dumps(stages)}, {len(seg.stitch.anchors)} anchors stitched, "
+        f"{seg.stitch.patched_rows} rows patched, {seg.stitch.cross_edges} "
+        f"cross-segment edges")
+    queries = ds.queries[:SHARD_QUERIES]
+    # tiled through the segments: global built ids
+    engine = ServingEngine(seg, batch_size=256)
+    out["tiled"] = _tiled_record(
+        "segments", engine, Searcher.open(seg), queries,
+        seg.global_perm()[ds.gt[:SHARD_QUERIES]], log)
+    flat = seg.to_flat()
+    engine = ServingEngine(flat, batch_size=256)
+    ids, wall, launches, _, batches = _serve(engine, queries)
+    out["flat"] = {"wall_s": wall, "qps": len(queries) / wall,
+                   "recall_at_10": recall_at_k(
+                       ids, flat.dataset.gt[:SHARD_QUERIES], 10),
+                   "launches": launches, "batches": batches}
+    log(f"segmented flat (stitched graph): {len(queries)} queries in "
+        f"{wall:.3f} s: QPS={out['flat']['qps']:.1f} "
+        f"recall@10={out['flat']['recall_at_10']:.4f} "
+        f"launches={json.dumps(launches)}")
+    out["launches"] = {k: out["tiled"]["launches"][k] + launches[k]
+                       for k in launches}
+    return out
 
 
 def cross_device(torch, idx, gpu_ids, n: int = 64) -> float:
@@ -979,7 +1272,7 @@ def main(argv=None) -> int:
     log(f"kernels built in {detail['kernel_build_s']:.1f} s "
         f"({', '.join(reports) or 'cached'})")
 
-    res, idx, gpu_ids, gpu_dists = main_path(torch, dev, args, log)
+    res, ds, idx, gpu_ids, gpu_dists = main_path(torch, dev, args, log)
     log(f"launches on the main path: {json.dumps(res['launches'])}")
     log(f"served {args.num_queries} queries in {res['wall_s']:.3f} s: "
         f"QPS={res['qps']:.1f} p50_ms={res['p50_ms']:.2f} "
@@ -989,6 +1282,8 @@ def main(argv=None) -> int:
         f"mean_hops={res['mean_hops']:.2f} "
         f"recall@10={res['recall_at_10']:.4f}")
     log(f"engine ids equal Searcher.search: {res['engine_equals_searcher']}")
+    log(f"mean hot hops per query {res['mean_hot_hops']:.2f}, mean PQ "
+        f"fetches covered by hot-node pages {res['mean_free_pq']:.2f}")
     res["rerank_density"] = rerank_density(torch, idx)
     log(f"exact-distance mask density: {json.dumps(res['rerank_density'])}")
 
@@ -998,15 +1293,24 @@ def main(argv=None) -> int:
     log(f"exact-distance mask density, masked search: "
         f"{json.dumps(filt['masked_density'])}")
 
+    tiled = tiled_phase(torch, idx, gpu_ids, log)
+    segmented = segmented_phase(torch, idx.config, ds, dev, log)
+    del ds
+
     scan_pass = int(store.mask(_specs()["range_price_0_9"]).sum())
     kernels = kernel_phase(torch, dev, args.num_base, res["rerank_density"],
                            filt["masked_density"], scan_pass, args.seed)
+    tiled_launches = {k: sum(v["launches"][k]
+                             for v in tiled["variants"].values())
+                      for k in res["launches"]}
     paths = {"batch": res["launches"], "continuous": cont["launches"],
              "filtered_continuous": filt["continuous"]["launches"],
-             "filtered_batch": filt["batch"]["launches"]}
+             "filtered_batch": filt["batch"]["launches"],
+             "tiled": tiled_launches, "segmented": segmented["launches"]}
     for k in kernels:
         k["launches"] = res["launches"][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
+        k["launches_build"] = res["build_launches"][k["name"]]
         for e in k["entries"]:
             log(f"kernel {k['name']} [{e['entry']}]: "
                 f"max_abs_err={e['max_abs_err']:.3g} ms={e['ms']:.4f} "
@@ -1035,7 +1339,7 @@ def main(argv=None) -> int:
         f"{json.dumps(cont['profile'])}")
 
     detail.update(card=card, kernels=kernels, main=res, continuous=cont,
-                  filtered=filt)
+                  filtered=filt, tiled=tiled, segmented=segmented)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     failures = []
@@ -1081,6 +1385,30 @@ def main(argv=None) -> int:
         elif rec["recall_at_10"] < 0.5:
             failures.append(f"filter {name}: recall@10 "
                             f"{rec['recall_at_10']:.4f} < 0.5")
+    if res["hot_count"] != math.ceil(0.03 * args.num_base) or not res["gap"]:
+        failures.append(f"the default index has {res['hot_count']} hot nodes "
+                        f"and gap {res['gap']}")
+    for key in ("pq_adt", "pq_lookup", "l2_rerank"):
+        if res["build_launches"][key] <= 0:
+            failures.append(f"{key} never launched in the build's trace "
+                            "and calibrate_beta")
+    shard_runs = dict(tiled["variants"], segments=segmented["tiled"])
+    for name, rec in shard_runs.items():
+        if rec["recall_at_10"] < 0.5:
+            failures.append(f"tiled {name}: recall@10 "
+                            f"{rec['recall_at_10']:.4f} < 0.5")
+        if rec["cross_tile_merges"] != rec["batches"]:
+            failures.append(f"tiled {name}: {rec['cross_tile_merges']} "
+                            f"cross-tile merges for {rec['batches']} batches")
+        if not rec["engine_equals_searcher"]:
+            failures.append(f"tiled {name}: engine ids differ from "
+                            "Searcher.search")
+        if rec["cross_device_identical_rows"] < 0.95:
+            failures.append(f"tiled {name}: cross-device identical rows "
+                            f"{rec['cross_device_identical_rows']:.4f} < 0.95")
+    if segmented["flat"]["recall_at_10"] < 0.5:
+        failures.append(f"segmented flat: recall@10 "
+                        f"{segmented['flat']['recall_at_10']:.4f} < 0.5")
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

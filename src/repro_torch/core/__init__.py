@@ -1,20 +1,28 @@
-"""Port of ``repro.core``: Algorithm 1 and the single-segment index build."""
+"""Port of ``repro.core``: Algorithm 1, its reference oracle, and the index
+build (single-segment and segmented, with hot-node reordering and gap
+encoding)."""
 from repro_torch.core.dataset import (
-    Dataset, exact_knn, make_dataset, recall_at_k, recall_hits_per_query,
+    ArraySegmentSource, Dataset, SyntheticSegmentSource, exact_knn,
+    make_dataset, recall_at_k, recall_hits_per_query,
 )
 from repro_torch.core.index import (
-    ProximaIndex, build_index, index_from_arrays,
+    ProximaIndex, build_index, build_index_monolithic, index_from_arrays,
 )
 from repro_torch.core.search import (
     Corpus, SearchResult, SearchState, finalize_search, graph_search,
     graph_search_step, graph_search_stepped, init_search_state,
-    search_state_active,
+    search_reference, search_state_active,
+)
+from repro_torch.core.segmented import (
+    IndexSegment, SegmentedIndex, build_segmented,
 )
 
 __all__ = [
-    "Corpus", "Dataset", "ProximaIndex", "SearchResult", "SearchState",
-    "build_index", "exact_knn", "finalize_search", "graph_search",
-    "graph_search_step", "graph_search_stepped", "index_from_arrays",
-    "init_search_state", "make_dataset", "recall_at_k",
-    "recall_hits_per_query", "search_state_active",
+    "ArraySegmentSource", "Corpus", "Dataset", "IndexSegment", "ProximaIndex",
+    "SearchResult", "SearchState", "SegmentedIndex", "SyntheticSegmentSource",
+    "build_index", "build_index_monolithic", "build_segmented", "exact_knn",
+    "finalize_search", "graph_search", "graph_search_step",
+    "graph_search_stepped", "index_from_arrays", "init_search_state",
+    "make_dataset", "recall_at_k", "recall_hits_per_query",
+    "search_reference", "search_state_active",
 ]

@@ -1,6 +1,7 @@
 """Synthetic ANN corpora + exact ground truth — port of
 ``src/repro/core/dataset.py`` (``make_dataset``, ``pairwise_dist``,
-``exact_knn``, ``recall_at_k``).
+``exact_knn``, ``recall_at_k``, the segment sources ``Dataset.as_source``,
+``ArraySegmentSource`` and ``SyntheticSegmentSource``).
 
 The generators are the reference's numpy code, kept as numpy so that the
 same config yields bit-identical base and query arrays.  ``exact_knn`` routes
@@ -33,6 +34,11 @@ class Dataset:
     @property
     def dim(self) -> int:
         return self.base.shape[1]
+
+    def as_source(self, segment_size: int = 0) -> "ArraySegmentSource":
+        """View this (host-resident) corpus as a segment stream for the
+        segmented builder; ``segment_size == 0`` -> one segment."""
+        return ArraySegmentSource(self.base, segment_size)
 
 
 def normalize(x: np.ndarray) -> np.ndarray:
@@ -195,3 +201,93 @@ def recall_at_k(pred: np.ndarray, gt: np.ndarray, k: int) -> float:
     """Paper Eq. (2): |pred∩gt|/k averaged over queries."""
     return int(recall_hits_per_query(pred[:, :k], gt[:, :k]).sum()) \
         / (pred.shape[0] * k)
+
+
+class ArraySegmentSource:
+    """Fixed-size segment view over a host-resident array — the trivial
+    segment source.  The segmented builder (``core.segmented``) consumes any
+    object with this surface (``num_base``, ``dim``, ``num_segments``,
+    ``bounds(s)``, ``segment(s)``)."""
+
+    def __init__(self, base: np.ndarray, segment_size: int = 0):
+        self.base = base
+        self.segment_size = segment_size if segment_size > 0 else base.shape[0]
+
+    @property
+    def num_base(self) -> int:
+        return self.base.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.base.shape[1]
+
+    @property
+    def num_segments(self) -> int:
+        return max(1, -(-self.num_base // self.segment_size))
+
+    def bounds(self, s: int) -> tuple[int, int]:
+        lo = s * self.segment_size
+        return lo, min(lo + self.segment_size, self.num_base)
+
+    def segment(self, s: int) -> np.ndarray:
+        lo, hi = self.bounds(s)
+        return self.base[lo:hi]
+
+    def __iter__(self):
+        for s in range(self.num_segments):
+            yield self.segment(s)
+
+
+class SyntheticSegmentSource:
+    """Out-of-core synthetic corpus: segment ``s`` is a pure function of
+    ``(config, s)`` — a per-segment RNG stream seeded ``(seed, s)`` draws
+    the cluster assignments and noise — so only the (num_clusters, dim)
+    centre matrix plus one segment is ever resident.  Gaussian-mixture
+    (sift-like) geometry only; queries come from the same mixture via
+    :meth:`queries`.  The reference's draws, bit for bit."""
+
+    def __init__(self, cfg: DatasetConfig, segment_size: int):
+        if segment_size <= 0:
+            raise ValueError("SyntheticSegmentSource needs segment_size > 0")
+        self.config = cfg
+        self.segment_size = segment_size
+        self.metric = cfg.metric if cfg.metric else "l2"
+        rng = np.random.default_rng(cfg.seed)
+        self.centers = rng.standard_normal(
+            (cfg.num_clusters, cfg.dim)
+        ).astype(np.float32)
+
+    @property
+    def num_base(self) -> int:
+        return self.config.num_base
+
+    @property
+    def dim(self) -> int:
+        return self.config.dim
+
+    @property
+    def num_segments(self) -> int:
+        return max(1, -(-self.num_base // self.segment_size))
+
+    def bounds(self, s: int) -> tuple[int, int]:
+        lo = s * self.segment_size
+        return lo, min(lo + self.segment_size, self.num_base)
+
+    def segment(self, s: int) -> np.ndarray:
+        cfg = self.config
+        lo, hi = self.bounds(s)
+        rng = np.random.default_rng((cfg.seed, s))
+        assign = rng.integers(0, cfg.num_clusters, size=hi - lo)
+        noise = cfg.cluster_std * rng.standard_normal((hi - lo, cfg.dim))
+        return (self.centers[assign] + noise).astype(np.float32)
+
+    def __iter__(self):
+        for s in range(self.num_segments):
+            yield self.segment(s)
+
+    def queries(self, num_queries: int) -> np.ndarray:
+        cfg = self.config
+        rng = np.random.default_rng((cfg.seed, -1))
+        qa = rng.integers(0, cfg.num_clusters, size=num_queries)
+        noise = cfg.cluster_std * rng.standard_normal((num_queries, cfg.dim))
+        return (self.centers[qa] + noise).astype(np.float32)

@@ -20,12 +20,18 @@ kNN is a chunked full-float32 ``torch.matmul`` with a stable top-k; the prune
 runs for a chunk of nodes at once — a loop over candidate positions with
 each node's K x K candidate distances in one batched product; re-prunes are
 grouped by merged-list size; reachability is a BFS over the device
-adjacency.  Distances round differently from numpy's, so a near-tie can
-resolve the other way; on the test corpus the rows agree (PERF.md).
+adjacency.  A build list longer than ``_LONG_LIST`` (the segments' 4x list,
+or ~N/4 under the tile partitioner's k // 4 floor) is never held whole:
+``_knn_prune_windows`` walks each node's sorted candidates a window at a
+time, keeps one node per step, and stops once r are kept — the same rule
+over the same order.  Distances round differently from
+numpy's, so a near-tie can resolve the other way; on the test corpus the
+rows agree (PERF.md).
 ``build_incremental`` is not ported (ROADMAP).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
@@ -41,6 +47,18 @@ from repro_torch.core.dataset import (
 # elements of a chunk's largest temporary: the (rows, N) kNN distance block,
 # or the (nodes, K, K + D) candidate block of the prune — 1 GiB of float32
 _CHUNK_ELEMS = 1 << 28
+# Build lists longer than _LONG_LIST (the segments' and tiles' compensated
+# lists: 512 at 4 segments, ~N/4 under the tile partitioner's floor) take the
+# windowed kNN + prune: the batched prune holds K x K distances per node, and
+# its chunks of nodes shrink with K^2.  It fetches sorted candidates _FETCH
+# at first and 4x more each time after (to the nodes that have not kept R
+# yet), prunes them _WINDOW at a time, and stops a chunk once its nodes have
+# kept R or spent their lists.  On the smoke's corpus a tile
+# graph from a 512-long list and one from the floor's 62,500-long list search
+# alike (scripts/tile_graph_recall.py, PERF.md).
+_LONG_LIST = 256
+_FETCH = 512
+_WINDOW = 1024
 
 
 @dataclass
@@ -57,6 +75,24 @@ class Graph:
     @property
     def max_degree(self) -> int:
         return self.adjacency.shape[1]
+
+
+def compensated_build_cfg(cfg: GraphConfig, factor: int, n: int,
+                          floor: int = 0) -> GraphConfig:
+    """The density-compensation rule of the reference (``graph.py:64-86``),
+    shared by the tile partitioner, the segmented builder and the stitcher:
+    a graph built over a 1/``factor`` sample of every cluster sees
+    intra-cluster gaps grow by ~``factor``, so the build neighbourhood is
+    scaled by ``factor`` (with an optional ``floor``, capped at n - 1)."""
+    if factor <= 1 and floor <= 0:
+        return cfg
+    return dataclasses.replace(
+        cfg,
+        build_list_size=min(
+            max(cfg.build_list_size * max(factor, 1), floor),
+            max(n - 1, 1),
+        ),
+    )
 
 
 def medoid(base: np.ndarray, metric: str, sample: int = 4096, seed: int = 0) -> int:
@@ -149,6 +185,91 @@ def _prune_chunks(nodes: torch.Tensor, cand: torch.Tensor, cand_d, base,
     ]) if nodes.numel() else cand.new_empty((0, r))
 
 
+def _knn_prune_windows(base: torch.Tensor, k: int, metric: str, r: int,
+                       alpha: float) -> torch.Tensor:
+    """kNN lists of length ``k`` and their robust prune in one pass, for
+    build lists too long to hold (N x k): a chunk of nodes takes its
+    candidates in (distance, id) order, fetched in growing batches for the
+    nodes that have not kept r yet, prunes them ``_WINDOW`` at a time, and
+    stops as soon as every node of the chunk has r kept or its k candidates
+    are spent.  Per node, exactly
+    ``robust_prune_batch`` over the full sorted list: a window's candidates
+    are first tested against the nodes already kept (the kill rule is per
+    pair, so order does not matter); within the window the first live
+    candidate is kept and kills the later ones, one kept node per step.
+    Pair distances are the prune's expanded form.  -> (N, r) kept ids, -1
+    padded."""
+    n = base.shape[0]
+    dev = base.device
+    x2 = (base * base).sum(-1) if metric == "l2" else None
+    unit = l2_normalize(base) if metric == "angular" else base
+    sq = (unit * unit).sum(-1)                       # the prune's norms
+    chunk = max(1, _CHUNK_ELEMS // n)
+    out = []
+
+    def pair(a, a_sq, x, xs):
+        """(b, m, D) rows x (b, w, D) rows -> (b, m, w)."""
+        dot = torch.bmm(a, x.transpose(1, 2))
+        if metric == "l2":
+            return a_sq[:, :, None] + xs[:, None, :] - 2.0 * dot
+        return -dot
+
+    for s in range(0, n, chunk):
+        d = pairwise_dist_torch(base[s : s + chunk], base, metric, x2)
+        b = d.shape[0]
+        ar = torch.arange(b, device=dev)
+        d[ar, s + ar] = float("inf")                      # exclude self
+        chunk_kept = torch.full((b, r), -1, dtype=torch.long, device=dev)
+        rows = ar                        # the chunk's nodes still walking
+        kept = chunk_kept.clone()
+        count = torch.zeros(b, dtype=torch.long, device=dev)
+        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        taken, fetch = 0, _FETCH
+        while True:
+            f = min(fetch, k - taken)
+            v_f, i_f = sorted_smallest(d, f)              # next in order
+            d.scatter_(1, i_f, float("inf"))
+            taken, fetch = taken + f, 4 * fetch
+            for w0 in range(0, f, _WINDOW):
+                if w0 and bool(done.all()):
+                    break
+                v, i = v_f[:, w0 : w0 + _WINDOW], i_f[:, w0 : w0 + _WINDOW]
+                w = v.shape[1]
+                x, xs = unit[i], sq[i]                    # (b, w, D), (b, w)
+                alive = ~done[:, None].expand(b, w).clone()
+                if bool((count > 0).any()):
+                    kc = kept.clamp(min=0)
+                    dk = pair(unit[kc], sq[kc], x, xs)
+                    alive &= ~((alpha * dk <= v[:, None, :])
+                               & (kept >= 0)[:, :, None]).any(1)
+                while True:
+                    has = alive.any(1)
+                    if not bool(has.any()):
+                        break
+                    j = alive.to(torch.int8).argmax(1)    # first live one
+                    p = i[ar, j]
+                    kept[ar[has], count[has]] = p[has]
+                    count += has
+                    done |= count >= r
+                    alive[ar, j] = False
+                    dp = pair(unit[p][:, None], sq[p][:, None], x, xs)[:, 0]
+                    alive &= ~((alpha * dp <= v) & (has & ~done)[:, None])
+                    alive &= ~done[:, None]
+            if taken >= k or bool(done.all()):
+                break
+            # the nodes that kept r leave; the rest walk on alone
+            chunk_kept[rows[done]] = kept[done]
+            walk = ~done
+            rows, d, kept, count = rows[walk], d[walk], kept[walk], count[walk]
+            b = rows.numel()
+            ar = torch.arange(b, device=dev)
+            done = torch.zeros(b, dtype=torch.bool, device=dev)
+        chunk_kept[rows] = kept
+        del d
+        out.append(chunk_kept)
+    return torch.cat(out)
+
+
 def _dist_to_rows(base: torch.Tensor, nodes: torch.Tensor,
                   cand: torch.Tensor, metric: str) -> torch.Tensor:
     """(B,) nodes, (B, W) candidate ids (-1 padding) -> (B, W) distances
@@ -180,17 +301,28 @@ def _add_reverse_edges(rows: torch.Tensor, base, metric, r, alpha):
     pos = torch.searchsorted(fwd, back).clamp(max=fwd.numel() - 1)
     mutual = fwd[pos] == back
     back = torch.sort(back[~mutual]).values                    # by (dst, src)
-    r_dst, r_src = back // n, back % n
+    return merge_edges(rows, back // n, back % n, base, metric, r, alpha)
+
+
+def merge_edges(rows: torch.Tensor, r_dst: torch.Tensor, r_src: torch.Tensor,
+                base, metric, r, alpha) -> torch.Tensor:
+    """rows (N, r) compact lists (-1 after the entries) and new edges
+    ``r_dst -> r_src``, sorted by (dst, src), none already in its row ->
+    (N, r): each touched row followed by its new entries, re-pruned over
+    that merged list when it is longer than r; other rows as they were."""
+    n = rows.shape[0]
+    dev = rows.device
     cnt = torch.bincount(r_dst, minlength=n)
     ptr = torch.cumsum(cnt, 0) - cnt
-    deg = has.sum(1)
-    merged_len = deg + cnt
-    out = torch.full_like(rows, -1)
-    big = merged_len > r
+    merged_len = (rows >= 0).sum(1) + cnt
+    out = rows.clone()
     # groups of similar merged length share one padded width
-    width = torch.where(big, 2 ** torch.ceil(torch.log2(
+    width = torch.where(merged_len > r, 2 ** torch.ceil(torch.log2(
         merged_len.clamp(min=1).double())).long(), r)
+    width = torch.where(cnt > 0, width, 0)
     for w in torch.unique(width).tolist():
+        if not w:
+            continue
         nodes = torch.nonzero(width == w)[:, 0]
         nodes = nodes[torch.argsort(cnt[nodes])]
         step = max(1, _CHUNK_ELEMS // (w * (w + base.shape[1])))
@@ -326,12 +458,16 @@ def build_knn_prune(base: np.ndarray, cfg: GraphConfig, metric: str,
     with full_precision():
         xb = torch.as_tensor(np.ascontiguousarray(base, np.float32),
                              device=device)
-        knn, knn_d = knn_lists(xb, k, metric)
-        timer.mark("knn")
-        nodes = torch.arange(n, device=device)
-        rows = _prune_chunks(nodes, knn, knn_d, xb, metric, r, cfg.alpha)
-        del knn, knn_d
-        timer.mark("prune")
+        if k <= _LONG_LIST:
+            knn, knn_d = knn_lists(xb, k, metric)
+            timer.mark("knn")
+            nodes = torch.arange(n, device=device)
+            rows = _prune_chunks(nodes, knn, knn_d, xb, metric, r, cfg.alpha)
+            del knn, knn_d
+            timer.mark("prune")
+        else:
+            rows = _knn_prune_windows(xb, k, metric, r, cfg.alpha)
+            timer.mark("knn_prune")
         rows = _add_reverse_edges(rows, xb, metric, r, cfg.alpha)
         timer.mark("reverse_edges")
         entry = medoid(base, metric, seed=cfg.seed)
@@ -343,7 +479,8 @@ def build_knn_prune(base: np.ndarray, cfg: GraphConfig, metric: str,
 
 
 class StageTimer:
-    """Records synchronised seconds per build stage into a dict (or not)."""
+    """Adds synchronised seconds per build stage into a dict (or not): a
+    stage marked again, e.g. once per segment, accumulates."""
 
     def __init__(self, out: dict | None, device):
         self.out, self.device = out, torch.device(device)
@@ -355,8 +492,22 @@ class StageTimer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.out[name] = now - self.t
+        self.out[name] = self.out.get(name, 0.0) + now - self.t
         self.t = now
+
+    def restart(self) -> None:
+        """Start the next stage now, leaving the time since the last mark
+        unrecorded (a callee recorded it)."""
+        if self.out is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.t = time.perf_counter()
+
+
+def add_stage_times(out: dict | None, times: dict, prefix: str) -> None:
+    """Add ``times`` into ``out`` (if given) under ``prefix + name``."""
+    if out is not None:
+        for k, v in times.items():
+            out[prefix + k] = out.get(prefix + k, 0.0) + v
 
 
 def build_graph(base: np.ndarray, cfg: GraphConfig, metric: str,

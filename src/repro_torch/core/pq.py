@@ -1,5 +1,6 @@
 """Product quantization (paper §III-B) — port of ``src/repro/core/pq.py``
-(``train_pq``, ``encode``, ``compute_adt``, ``pq_distance``, ``decode``).
+(``train_pq``, ``encode``, ``compute_adt``, ``pq_distance``, ``decode``,
+``calibrate_beta``).
 
 ``compute_adt`` and ``pq_distance`` are the reference's jnp-path forms: the
 ADT in the expanded form ||q||^2 - 2 q.c + ||c||^2 (``pq.py:123-128``) and a
@@ -131,3 +132,47 @@ def decode(codes: np.ndarray, centroids: np.ndarray) -> np.ndarray:
     m, _, dsub = centroids.shape
     out = centroids[np.arange(m)[None, :], codes.astype(np.int64)]  # (N, M, dsub)
     return out.reshape(codes.shape[0], m * dsub)
+
+
+def calibrate_beta(
+    codebook: PQCodebook,
+    codes: np.ndarray,
+    base: np.ndarray,
+    rng: np.random.Generator,
+    num_samples: int = 256,
+    num_targets: int = 512,
+    quantile: float = 0.99,
+    device="cuda",
+) -> float:
+    """Empirical PQ error ratio beta (paper §III-C: 99% of PQ distances are
+    within beta x of accurate distances) — port of the reference's
+    ``calibrate_beta`` (``src/repro/core/pq.py:146-181``): the same numpy
+    draws of sampled queries and targets and the same numpy accurate
+    distances; the PQ distances on ``device`` (on CUDA one ``pq_adt`` launch
+    for the (S, M, C) tables and one lookup launch for the (S, T) pairs).
+    Returns the ``quantile`` of max(accurate/PQ, PQ/accurate)."""
+    from repro_torch.core.dataset import pairwise_dist
+    from repro_torch.kernels import ops
+
+    n = base.shape[0]
+    qi = rng.choice(n, size=min(num_samples, n), replace=False)
+    ti = rng.choice(n, size=min(num_targets, n), replace=False)
+    q = base[qi]
+    if codebook.metric == "angular":
+        q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
+    acc = pairwise_dist(q, base[ti], codebook.metric)          # (S, T)
+    qt = torch.as_tensor(np.ascontiguousarray(q, np.float32), device=device)
+    cents = torch.as_tensor(codebook.centroids, device=device)
+    adts = ops.pq_adt(qt, cents, codebook.metric) if qt.is_cuda \
+        else compute_adt(qt, cents, codebook.metric)
+    sub_codes = torch.as_tensor(np.ascontiguousarray(codes[ti]), device=device)
+    ids = torch.arange(len(ti), dtype=torch.int32, device=device)
+    approx = ops.pq_lookup_gather(
+        ids.expand(len(qi), len(ti)).contiguous(), sub_codes,
+        adts).cpu().numpy()
+    # shift to positive for ratio stability (ip/angular distances are negative)
+    shift = min(acc.min(), approx.min())
+    acc_s = acc - shift + 1e-3
+    app_s = approx - shift + 1e-3
+    ratio = np.maximum(acc_s / app_s, app_s / acc_s)
+    return float(np.quantile(ratio, quantile))

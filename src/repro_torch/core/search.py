@@ -45,6 +45,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import SearchConfig, upgrade_config
@@ -360,10 +361,20 @@ def _finalize_batch(corpus: Corpus, cfg: SearchConfig, metric: str,
     )
 
 
+def queries_to(queries, device, dim: int) -> torch.Tensor:
+    """(Q, dim) float32 queries on ``device``, in memory of their own: the
+    round step and the slot pools write into the state's query rows, which
+    must never be the caller's array."""
+    if isinstance(queries, torch.Tensor):
+        q = queries.to(device=device, dtype=torch.float32, copy=True)
+    else:
+        q = torch.tensor(np.asarray(queries), dtype=torch.float32,
+                         device=device)
+    return q.reshape(-1, dim).contiguous()
+
+
 def _queries_on(corpus: Corpus, queries) -> torch.Tensor:
-    return torch.as_tensor(queries, dtype=torch.float32,
-                           device=corpus.base.device).reshape(
-        -1, corpus.base.shape[1]).contiguous()
+    return queries_to(queries, corpus.base.device, corpus.base.shape[1])
 
 
 def init_search_state(corpus: Corpus, queries, cfg: SearchConfig,
@@ -439,3 +450,164 @@ def graph_search(corpus: Corpus, queries, cfg: SearchConfig,
             lanes = step(state.queries, state.adts, lanes)
     return _finalize_batch(corpus, upgrade_config(cfg), metric, node_mask,
                            state.queries, lanes)
+
+
+# ---------------------------------------------------------------------------
+# Reference traversal (direct Algorithm-1 transliteration) — the oracle
+# ---------------------------------------------------------------------------
+
+def search_reference(adjacency, degrees, codes, base, centroids, entry: int,
+                     query, cfg: SearchConfig, metric: str = "l2",
+                     hot_count: int = 0, trace=None, node_mask=None):
+    """Single-query Python loop of Algorithm 1 with an exact visited set (no
+    Bloom false positives) — port of the reference's ``search_reference``
+    (``src/repro/core/search.py:633-788``).  Returns (ids, dists, counters)
+    as numpy arrays and a dict.
+
+    The graph (``adjacency``, ``degrees``) is walked on the host; the
+    distances run on the device of ``base`` (``codes``, ``centroids`` and
+    ``query`` are moved there): the ADT from ``compute_adt`` on the CPU and
+    the ``pq_adt`` kernel on CUDA, as ``graph_search`` builds it; each
+    round's PQ distances from ``ops.pq_lookup_gather`` and every exact
+    distance from ``ops.l2_rerank_masked``.  Angular: ``base`` rows must be
+    unit-normalized (the reference normalizes each fetched slice, which is
+    idempotent on such rows); the query is normalized here.
+
+    Honours ``cfg.beam_width``: each round pops the E best unevaluated
+    candidates and expands them together, deduplicating the combined
+    neighbour set in beam order (first occurrence wins).  ``trace`` (an
+    (N,) int64 numpy array), if given, accumulates expansion counts (the
+    visit-frequency histogram of the reordering, §IV-E).  ``node_mask``
+    (N,) bool: non-passing nodes route but are excluded from the reranked
+    top-k, the beta-margin anchor (T-th passing candidate) and the
+    results."""
+    adjacency = np.asarray(adjacency)
+    degrees = np.asarray(degrees)
+    base = torch.as_tensor(base)
+    dev = base.device
+    codes = torch.as_tensor(codes, device=dev)
+    centroids = torch.as_tensor(centroids, device=dev)
+    q = torch.as_tensor(query, dtype=torch.float32, device=dev).reshape(1, -1)
+    if metric == "angular":
+        q = l2_normalize(q)
+    cfg = upgrade_config(cfg)
+    if cfg.use_pq:
+        adt = ops.pq_adt(q, centroids, metric) if q.is_cuda \
+            else compute_adt(q, centroids, metric)
+
+    def _ids(ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids, np.int32), device=dev)[None]
+
+    def adist(ids) -> list:
+        t = _ids(ids)
+        return ops.l2_rerank_masked(
+            q, t, base, torch.full(t.shape, INF, device=dev),
+            torch.ones(t.shape, dtype=torch.bool, device=dev),
+            metric)[0].tolist()
+
+    def tdist(ids) -> list:
+        if cfg.use_pq:
+            return ops.pq_lookup_gather(_ids(ids), codes, adt)[0].tolist()
+        return adist(ids)
+
+    L, k = cfg.list_size, cfg.k
+    E = max(int(cfg.beam_width), 1)
+
+    def _pass(u: int) -> bool:
+        return node_mask is None or bool(node_mask[u])
+
+    counters = {"hops": 0, "pq": 0, "acc": 0, "hot": 0, "free": 0, "rounds": 0}
+    d0 = tdist([entry])[0]
+    counters["pq" if cfg.use_pq else "acc"] += 1
+    lst = [(d0, int(entry))]        # sorted (dist, id)
+    visited = {int(entry)}
+    evaluated = set()
+    acc_cache = {}
+    t = cfg.t_init if cfg.early_termination else L
+    t_step = cfg.t_step if cfg.early_termination else L
+    prev_topk = None
+    stable = 0
+    while counters["rounds"] < cfg.max_rounds:
+        counters["rounds"] += 1
+        unev = [(d, v) for d, v in lst if v not in evaluated]
+        if not unev:
+            break
+        beam = [v for _, v in unev[:E]]           # E best unevaluated
+        fresh: list = []                          # beam-order, deduped
+        fresh_owner_hot: list = []
+        for v in beam:
+            evaluated.add(v)
+            counters["hops"] += 1
+            if trace is not None:
+                trace[v] += 1
+            is_hot = v < hot_count
+            if is_hot:
+                counters["hot"] += 1
+            neigh = [int(u) for u in adjacency[v, : degrees[v]]]
+            for u in dict.fromkeys(neigh):
+                if u not in visited:
+                    visited.add(u)                # first occurrence owns u
+                    fresh.append(u)
+                    fresh_owner_hot.append(is_hot)
+        if fresh:
+            nd = tdist(fresh)
+            counters["pq" if cfg.use_pq else "acc"] += len(fresh)
+            counters["free"] += sum(fresh_owner_hot)
+            for u, du in zip(fresh, nd):
+                lst.append((du, u))
+            lst.sort(key=lambda x: (x[0], ))
+            lst = lst[:L]
+        top_t = lst[: min(t, len(lst))]
+        if top_t and all(v2 in evaluated for _, v2 in top_t):
+            # only mask-passing candidates are admitted to the reranked
+            # top-k (non-passing ones still route the traversal)
+            ids_t = [v2 for _, v2 in top_t if _pass(v2)]
+            new = [u for u in ids_t if u not in acc_cache]
+            if cfg.use_pq and new:
+                for u, du in zip(new, adist(new)):
+                    acc_cache[u] = du
+                counters["acc"] += len(new)
+            if not cfg.use_pq:
+                for dd, u in top_t:
+                    if _pass(u):
+                        acc_cache[u] = dd
+            topk = tuple(sorted(sorted(ids_t, key=lambda u: acc_cache[u])[:k]))
+            if topk == prev_topk:
+                stable += 1
+            else:
+                stable = 1
+            prev_topk = topk
+            if cfg.early_termination and stable >= cfg.repetition_rate:
+                break
+            t += t_step
+            if t > L:
+                break
+    # final beta rerank (filtered: margin anchored at the T-th PASSING entry)
+    if node_mask is None:
+        t_idx = min(max(t, 1), len(lst)) - 1
+        d_t = lst[t_idx][0]
+        thr = d_t + (cfg.beta - 1.0) * abs(d_t)
+    else:
+        pass_list = [d for d, u in lst if _pass(u)]
+        tt = max(t, 1)
+        d_t = pass_list[tt - 1] if len(pass_list) >= tt else np.inf
+        # the beta == 1.0 NaN guard of the masked anchor
+        thr = np.inf if np.isinf(d_t) else d_t + (cfg.beta - 1.0) * abs(d_t)
+    if cfg.use_pq and cfg.rerank:
+        need = [u for d, u in lst
+                if d <= thr and _pass(u) and u not in acc_cache]
+        if need:
+            for u, du in zip(need, adist(need)):
+                acc_cache[u] = du
+            counters["acc"] += len(need)
+        scored = sorted(((u, d) for u, d in acc_cache.items() if _pass(u)),
+                        key=lambda kv: kv[1])
+    else:
+        scored = sorted(((u, d) for d, u in lst if _pass(u)),
+                        key=lambda kv: kv[1])
+    ids = np.asarray([u for u, _ in scored[:k]], dtype=np.int32)
+    ds = np.asarray([d for _, d in scored[:k]], dtype=np.float32)
+    if len(ids) < k:
+        ids = np.pad(ids, (0, k - len(ids)), constant_values=-1)
+        ds = np.pad(ds, (0, k - len(ds)), constant_values=np.inf)
+    return ids, ds, counters

@@ -1,14 +1,14 @@
 """Port of ``repro.filter``: the attribute store, ``FilterSpec`` predicates
 and the selectivity-adaptive filtered search kernels (masked traversal and
-the bitmap PQ scan).  ``tile_node_masks`` waits for the shard layer (ROADMAP
-Queue 1 item 11)."""
+the bitmap PQ scan), and ``tile_node_masks``, the shard layer's per-tile
+mask slices."""
 from repro_torch.filter.attributes import (
     AttributeStore, bitmap_popcount, encode_categorical, pack_bitmap,
     random_attributes, unpack_bitmap,
 )
 from repro_torch.filter.spec import ALL, Eq, FilterSpec, In, Range
 from repro_torch.filter.traversal import (
-    FilteredSearchResult, adapt_search_cfg, scan_search,
+    FilteredSearchResult, adapt_search_cfg, scan_search, tile_node_masks,
 )
 
 
@@ -28,5 +28,5 @@ __all__ = [
     "ALL", "AttributeStore", "Eq", "FilterSpec", "FilteredSearchResult",
     "In", "Range", "adapt_search_cfg", "attach_attributes",
     "bitmap_popcount", "encode_categorical", "pack_bitmap",
-    "random_attributes", "scan_search", "unpack_bitmap",
+    "random_attributes", "scan_search", "tile_node_masks", "unpack_bitmap",
 ]

@@ -19,8 +19,8 @@ it composes:
     lower position), their exact distances (``ops.l2_rerank_masked``, only
     rows with a finite PQ distance read), then the top-k.
 
-``tile_node_masks`` (per-tile mask slices) waits for the shard layer,
-ROADMAP Queue 1 item 11.
+``tile_node_masks`` slices a global pass mask into the shard layer's
+per-tile masks (numpy, the reference's).
 """
 from __future__ import annotations
 
@@ -66,6 +66,17 @@ def adapt_search_cfg(cfg: SearchConfig, selectivity: float,
         t_step=cfg.t_step * inflate,
         repetition_rate=cfg.repetition_rate + filter_cfg.relax_repetition,
     )
+
+
+def tile_node_masks(tile_ids, mask: np.ndarray) -> np.ndarray:
+    """Slice a global pass mask into per-tile local masks: (P, Nt) bool over
+    ``TiledCorpus.tile_ids`` (a tensor or array; padding rows never pass) —
+    the per-channel bitmap slices of the shard layer; a tile whose slice is
+    all-False skips the query (zero-pass tile skipping)."""
+    tid = tile_ids.cpu().numpy() if isinstance(tile_ids, torch.Tensor) \
+        else np.asarray(tile_ids)
+    m = np.asarray(mask, bool)
+    return (tid >= 0) & m[np.clip(tid, 0, None)]
 
 
 # ---------------------------------------------------------------------------

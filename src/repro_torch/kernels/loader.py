@@ -9,9 +9,11 @@ until its source changes.  The first use builds all four at once, one
 ``nvcc`` process per source, started together.  A failed build raises with
 the compiler's output; nothing falls back.
 
-``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds one
-where it launches its kernel and nowhere else; ``reset_launch_counts`` zeroes
-them, so a caller can show that a run went through the kernels.
+``LAUNCHES`` counts kernel launches by kernel name, and ``ENTRY_LAUNCHES``
+the same launches by C entry point (a kernel's entries: the bitonic kernel's
+sort and merge, for instance).  Each wrapper adds one where it launches its
+kernel and nowhere else; ``reset_launch_counts`` zeroes both, so a caller
+can show that a run went through the kernels.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {name: 0 for name in ("pq_adt", "pq_lookup", "bitonic_sort_pairs",
                                  "l2_rerank")}
+ENTRY_LAUNCHES: dict = {}
 
 _libs: dict = {}
 
@@ -36,6 +39,7 @@ _libs: dict = {}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ENTRY_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -110,6 +114,7 @@ def launch(lib_name: str, entry: str, counter: str, device, *args) -> None:
         msg = lib.kernel_error_string(err).decode()
         raise RuntimeError(f"{entry} failed to launch: {msg} (error {err})")
     LAUNCHES[counter] += 1
+    ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
 
 
 def check(t, name: str, dtype, ndim: int) -> None:

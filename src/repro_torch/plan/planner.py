@@ -1,13 +1,18 @@
 """QueryPlanner — request + index capabilities -> executable ``QueryPlan``;
-port of ``src/repro/plan/planner.py`` for flat targets.
+port of ``src/repro/plan/planner.py`` for flat and tiled targets.
 
-A flat plan's ``strategy`` says where the filter runs: ``none``, ``masked``
-traversal (inflated frontier, ``filter.adapt_search_cfg``), bitmap PQ
-``scan``, or the ``empty`` short-circuit — the selectivity regime switch of
-``_filter_strategy``.  ``round_session`` gives the steppable form of the
-flat ``none`` and ``masked`` plans (``plan.rounds.RoundSession``), which the
-continuous engine runs one round at a time.  Tiled, merged and distributed
-plans raise, naming the ROADMAP item that ports them.  The plan cache,
+A plan's ``kind`` is its execution spine: ``flat`` (one traversal) or
+``tiled`` (per-channel fan-out + cross-tile merge, ``shard.
+sharded_search_kernel``).  Its ``strategy`` says where the filter runs:
+``none``, ``masked`` traversal (inflated frontier, ``filter.
+adapt_search_cfg``; on tiles with per-tile node masks, ``filter.
+tile_node_masks``), bitmap PQ ``scan``, or the ``empty`` short-circuit — the
+flat selectivity regime switch of ``_filter_strategy``.  ``round_session``
+gives the steppable form of the flat ``none`` and ``masked`` plans
+(``plan.rounds.RoundSession``), which the continuous engine runs one round
+at a time; tiled plans have none (``None``, as in the reference), so the
+engine flushes them through the batch path.  Merged and distributed plans
+raise, naming the ROADMAP item that ports them.  The plan cache,
 ``QueryPlan.cache_key`` (the serving layer's batching identity) and the
 per-plan artifact cache (compiled pass masks) are the reference's.
 Observability is not ported yet (ROADMAP Queue 1 item 12), so nothing is
@@ -31,7 +36,8 @@ from repro_torch.plan.request import SearchRequest, SearchStats
 @dataclasses.dataclass(frozen=True)
 class IndexCapabilities:
     """What the opened index supports (derived once by ``Searcher.open``)."""
-    kind: str                        # flat (the only kind ported)
+    kind: str                        # flat | tiled (the kinds ported)
+    tiled: bool = False
     num_tiles: int = 1
 
 
@@ -70,18 +76,22 @@ class Execution(NamedTuple):
 
 def _mean_counters(res) -> dict:
     """Per-query mean counters of a core ``SearchResult``, read to the host
-    in one copy."""
+    in one copy (a sharded result's (P, Q) counters are summed over the
+    tiles first: the total cross-channel work per query)."""
     if res is None:
         return {}
-    fields = (res.n_hops, res.n_pq, res.n_acc, res.n_hot_hops, res.n_free_pq,
-              res.rounds)
-    means = torch.stack(fields).double().mean(1).tolist()
+    per = res.per_tile if hasattr(res, "per_tile") else res
+    fields = torch.stack((per.n_hops, per.n_pq, per.n_acc, per.n_hot_hops,
+                          per.n_free_pq, per.rounds)).double()
+    if fields.dim() > 2:         # (6, P, Q): total cross-tile work per query
+        fields = fields.sum(1)
+    means = fields.mean(1).tolist()
     return dict(zip(("hops", "pq", "acc", "hot_hops", "free_pq", "rounds"),
                     means))
 
 
 def _unported_kind(kind: str) -> NotImplementedError:
-    item = {"merged": "item 10 (stream/)", "tiled": "item 11 (shard/)",
+    item = {"merged": "item 10 (stream/)",
             "distributed": "item 15 (distributed)"}.get(kind, "items 10-15")
     return NotImplementedError(
         f"{kind} plans are not ported yet: ROADMAP Queue 1 {item}")
@@ -104,19 +114,22 @@ def flat_filtered_search(corpus, queries, mask, cfg: SearchConfig,
 
 class QueryPlanner:
     """Compiles ``SearchRequest`` -> ``QueryPlan`` and executes plans over
-    one opened flat corpus.  Owns the plan cache and the per-plan artifact
-    cache (compiled masks)."""
+    one opened flat corpus or tiled corpus.  Owns the plan cache and the
+    per-plan artifact cache (compiled masks, per-tile mask slices)."""
 
     def __init__(self, *, capabilities: IndexCapabilities, cfg: SearchConfig,
                  metric: str, filter_cfg: FilterConfig, plan_cfg: PlanConfig,
-                 corpus=None, attributes=None):
+                 corpus=None, tiled=None, attributes=None,
+                 probe_tiles: int = 0):
         self.capabilities = capabilities
         self.cfg = cfg
         self.metric = metric
         self.filter_cfg = filter_cfg
         self.plan_cfg = plan_cfg
         self.corpus = corpus
+        self.tiled = tiled
         self.attributes = attributes
+        self.probe_tiles = int(probe_tiles or 0)
         self._plan_cache: Dict[tuple, QueryPlan] = {}
         self._mask_cache: Dict[FilterSpec, np.ndarray] = {}
         self._artifacts: Dict[tuple, dict] = {}
@@ -129,8 +142,6 @@ class QueryPlanner:
         """Compile (or fetch from the plan cache) the plan serving
         ``request``.  Mask requests are compiled fresh — the mask has no
         hashable identity."""
-        if request.probe_tiles:
-            raise _unported_kind("tiled")
         if request.node_mask is not None:
             return self._plan_for_mask(request)
         spec = request.filter
@@ -155,6 +166,11 @@ class QueryPlanner:
         if items:
             cfg = dataclasses.replace(cfg, **dict(items))
         return cfg
+
+    def _resolved_probe(self, request: SearchRequest) -> int:
+        p = self.probe_tiles if request.probe_tiles is None \
+            else int(request.probe_tiles)
+        return int(p or 0)
 
     def _mask_for(self, spec: FilterSpec) -> np.ndarray:
         mask = self._mask_cache.get(spec)
@@ -202,18 +218,36 @@ class QueryPlanner:
 
     def _common(self, request: SearchRequest) -> dict:
         return dict(metric=self.metric,
+                    probe_tiles=self._resolved_probe(request),
                     num_tiles=self.capabilities.num_tiles,
                     tenant=request.tenant,
                     pushdown=bool(self.filter_cfg.pushdown))
 
     def _compile(self, spec: Optional[FilterSpec],
                  request: SearchRequest) -> QueryPlan:
+        from repro_torch.filter.traversal import (
+            adapt_search_cfg, tile_node_masks,
+        )
+
         cfg = self._effective_cfg(request)
+        kind = "tiled" if self.capabilities.tiled else "flat"
         if spec is None:
-            return QueryPlan(kind="flat", strategy="none", cfg=cfg,
+            return QueryPlan(kind=kind, strategy="none", cfg=cfg,
                              **self._common(request))
-        return self._flat_plan(self._mask_for(spec), cfg, spec=spec,
-                               **self._common(request))
+        mask = self._mask_for(spec)
+        if kind == "flat":
+            return self._flat_plan(mask, cfg, spec=spec,
+                                   **self._common(request))
+        sel = float(mask.mean())
+        plan = QueryPlan(kind="tiled", strategy="masked",
+                         cfg=adapt_search_cfg(cfg, sel, self.filter_cfg),
+                         spec=spec, selectivity=sel,
+                         attr_bits=self._attr_bits(), **self._common(request))
+        self._artifacts[plan.cache_key] = {
+            "mask": mask,
+            "node_masks": tile_node_masks(self.tiled.tile_ids, mask),
+        }
+        return plan
 
     def _plan_for_mask(self, request: SearchRequest) -> QueryPlan:
         """Plans for caller-compiled masks.  ``adaptive`` selects the
@@ -223,6 +257,14 @@ class QueryPlanner:
         self._mask_tokens += 1
         common = dict(self._common(request), mask_token=self._mask_tokens)
         mask = np.asarray(request.node_mask, bool)
+        if self.capabilities.tiled:
+            # per-tile slices, applied verbatim (the caller adapts the
+            # config, as the reference's tiled entry point leaves it to)
+            plan = QueryPlan(kind="tiled", strategy="masked", cfg=cfg,
+                             selectivity=float(mask.mean()),
+                             attr_bits=self._attr_bits(), **common)
+            self._artifacts[plan.cache_key] = {"node_masks": mask}
+            return plan
         if request.adaptive:
             return self._flat_plan(mask, cfg, **common)
         plan = QueryPlan(kind="flat", strategy="masked", cfg=cfg,
@@ -235,10 +277,13 @@ class QueryPlanner:
     def round_session(self, plan: QueryPlan):
         """The round-steppable form of ``plan`` (a ``plan.rounds.
         RoundSession``), or ``None`` when the plan has no per-round spine —
-        bitmap scans, empty short-circuits, one-shot mask-token plans — in
-        which case callers fall back to whole-batch ``execute``."""
+        tiled fan-outs, bitmap scans, empty short-circuits, one-shot
+        mask-token plans — in which case callers fall back to whole-batch
+        ``execute``."""
         from repro_torch.plan.rounds import RoundSession
 
+        if plan.kind == "tiled":
+            return None
         if plan.kind != "flat":
             raise _unported_kind(plan.kind)
         if plan.mask_token or plan.strategy not in ("none", "masked"):
@@ -278,10 +323,12 @@ class QueryPlanner:
             FilteredSearchResult, scan_search,
         )
 
-        if plan.kind != "flat":
-            raise _unported_kind(plan.kind)
         pc = self.plan_cfg
         q_np = np.atleast_2d(np.asarray(queries, np.float32))
+        if plan.kind == "tiled":
+            return self._execute_tiled(plan, q_np)
+        if plan.kind != "flat":
+            raise _unported_kind(plan.kind)
         if plan.strategy == "none":
             res = graph_search(self.corpus, q_np, plan.cfg, self.metric,
                                pc.bloom_bits, pc.num_hashes)
@@ -310,6 +357,29 @@ class QueryPlanner:
                 effective=plan.cfg)
         return Execution(ids=fres.ids, dists=fres.dists, raw=fres,
                          counters=fres.result, selectivity=fres.selectivity,
+                         delta_candidates=0.0)
+
+    def _execute_tiled(self, plan: QueryPlan, q_np: np.ndarray) -> Execution:
+        """Fan-out over the tiles + cross-tile merge; a masked plan's
+        per-tile node masks go to the tiles' device once per spec-keyed
+        plan."""
+        from repro_torch.shard.search import sharded_search_kernel
+
+        node_masks = None
+        if plan.strategy == "masked":
+            art = self._artifacts_for(plan)
+            node_masks = art.get("node_masks_on_device")
+            if node_masks is None:
+                node_masks = torch.as_tensor(art["node_masks"],
+                                             device=self.tiled.base.device)
+                if not plan.mask_token:
+                    art["node_masks_on_device"] = node_masks
+        res = sharded_search_kernel(
+            self.tiled, q_np, plan.cfg, self.metric,
+            probe_tiles=plan.probe_tiles or None, node_masks=node_masks)
+        return Execution(ids=res.ids.cpu().numpy(),
+                         dists=res.dists.cpu().numpy(), raw=res,
+                         counters=res, selectivity=plan.selectivity,
                          delta_candidates=0.0)
 
     # ----------------------------------------------------------------- stats

@@ -1,6 +1,6 @@
 """Batched ANN-search serving engine — port of ``src/repro/serve/engine.py``
-for frozen flat indexes: batch-flush and continuous (iteration-level)
-scheduling, unfiltered and filtered requests.
+for frozen indexes, flat or tiled: batch-flush and continuous
+(iteration-level) scheduling, unfiltered and filtered requests.
 
 Batch-flush mode: each ``submit`` compiles (or plan-cache-hits) a
 ``QueryPlan``, and a flush packs queued requests sharing the head request's
@@ -16,8 +16,8 @@ traversal round per ``step()`` (a tick, through the plan layer's
 once — the retire decision — and retires every lane that quiesced (beta
 rerank over the gathered retiring lanes only), so no query waits on
 another's last round; freed slots refill from the queue on the next tick.
-Plans without a round-steppable spine (bitmap ``scan``, ``empty``, a
-request whose planning failed) go through the batch-flush path: the
+Plans without a round-steppable spine (tiled fan-outs, bitmap ``scan``,
+``empty``, a request whose planning failed) go through the batch-flush path: the
 reference's scheduling, on the card through the same kernels.  Per-lane
 arithmetic does not depend on the batch a lane runs in, so both modes
 return the same ids and distances.
@@ -31,10 +31,14 @@ no compile cache to bound) and ``_quiet_free_lanes``.  A pool's state is
 stepped exactly once per tick and replaced by the result, since a step
 updates the Bloom bits in place.
 
+Tiled serving (``num_tiles``, ``shard_policy``, ``probe_tiles``, or a
+segment-built index) runs every batch through the fan-out over the tiles
+and the cross-tile merge (``shard.sharded_search_kernel``).
+
 All timing is ``time.perf_counter()``.  Not ported yet, and refused:
-streaming/mutable targets (ROADMAP Queue 1 item 10), tiled serving (item
-11), observability and SLO tracking (``obs=``, ``slo=``, item 12) and NAND
-billing (``nand=``, ``nand_queues=``, item 13).
+streaming/mutable targets (ROADMAP Queue 1 item 10), observability and SLO
+tracking (``obs=``, ``slo=``, item 12) and NAND billing (``nand=``,
+``nand_queues=``, item 13).
 """
 from __future__ import annotations
 
@@ -139,6 +143,9 @@ class ServingEngine:
         batch_size: int = 32,
         cfg: Optional[SearchConfig] = None,
         flush_us: float = 2000.0,
+        num_tiles: Optional[int] = None,
+        shard_policy: Optional[str] = None,
+        probe_tiles: Optional[int] = None,
         beam_width: Optional[int] = None,
         attributes=None,
         plan: Optional[PlanConfig] = None,
@@ -156,7 +163,9 @@ class ServingEngine:
             raise _unported("item 13 (nand/)",
                             "NAND billing (nand=, nand_queues=)")
         pcfg = plan or PlanConfig()
-        legacy = dict(search=cfg, beam_width=beam_width)
+        legacy = dict(search=cfg, num_tiles=num_tiles,
+                      shard_policy=shard_policy, probe_tiles=probe_tiles,
+                      beam_width=beam_width)
         pcfg = dataclasses.replace(
             pcfg, **{k: v for k, v in legacy.items() if v is not None})
         self.searcher = Searcher.open(index, pcfg, attributes=attributes)
@@ -174,14 +183,16 @@ class ServingEngine:
         # refill stops scanning the queue once nothing more can be admitted
         self._waiting: Counter = Counter()
         # warm the full-batch bucket (kernel builds, allocator pools)
-        dummy = np.zeros((batch_size, index.dataset.dim), np.float32)
+        dummy = np.zeros((batch_size, self.index.dataset.dim), np.float32)
         self.searcher.search(SearchRequest(queries=dummy))
         if self.continuous:
-            # and the round step at the slot-pool shape
+            # and the round step at the slot-pool shape (a tiled default
+            # plan has no round step)
             sess0 = self._session_for(
                 self.searcher.plan(SearchRequest(queries=dummy[:1])))
-            z = np.zeros((self.slots, dummy.shape[1]), np.float32)
-            sess0.finalize(sess0.step(sess0.init(z)))
+            if sess0 is not None:
+                z = np.zeros((self.slots, dummy.shape[1]), np.float32)
+                sess0.finalize(sess0.step(sess0.init(z)))
 
     def _bucket(self, n: int) -> int:
         """Smallest power-of-two >= n, capped at batch_size."""
@@ -208,6 +219,26 @@ class ServingEngine:
         return self.searcher.attributes
 
     @property
+    def tiled(self):
+        return self.searcher.tiled
+
+    @property
+    def corpus(self):
+        return self.searcher.corpus
+
+    @property
+    def num_tiles(self) -> int:
+        return self.searcher.num_tiles
+
+    @property
+    def shard_policy(self):
+        return self.searcher.shard_policy
+
+    @property
+    def probe_tiles(self) -> int:
+        return self.searcher.probe_tiles
+
+    @property
     def stats(self) -> dict:
         d = self._stats.as_dict()
         d.update(self.searcher.plan_cache_stats())
@@ -224,7 +255,7 @@ class ServingEngine:
         self._next += 1
         if filter is not None and filter.is_all:
             filter = None                 # all-pass spec == unfiltered batch
-        q = np.asarray(query, np.float32)
+        q = np.array(query, np.float32)    # a copy: the caller keeps theirs
         try:
             plan = self.searcher.plan(SearchRequest(queries=q, filter=filter,
                                                     tenant=tenant))

@@ -270,6 +270,42 @@ def test_state_helpers(tiny_port):
     assert torch.equal(q.lanes.done[:2], a.lanes.done[:2])
 
 
+def test_port_leaves_caller_arrays_untouched(tiny_index):
+    """The port never writes into its caller's arrays: init, step and the
+    slot-pool scatter on queries taken straight from the reference fixture
+    leave every reference array bit-identical, and so do a search, a
+    filtered search and the engines over an index from
+    ``index_from_arrays`` (which copies what it is given)."""
+    ref_arrays = {
+        "queries": tiny_index.dataset.queries, "base": tiny_index.dataset.base,
+        "gt": tiny_index.dataset.gt, "adjacency": tiny_index.graph.adjacency,
+        "degrees": tiny_index.graph.degrees, "codes": tiny_index.codes,
+        "centroids": tiny_index.codebook.centroids,
+        "perm": tiny_index.reordering.perm, "inv": tiny_index.reordering.inv,
+    }
+    before = {k: np.array(v, copy=True) for k, v in ref_arrays.items()}
+    port = port_index(tiny_index)
+    port_before = np.array(port.dataset.queries, copy=True)
+    for src in (tiny_index.dataset.queries, port.dataset.queries):
+        s = Searcher.open(port)
+        sess = s.round_session(s.plan(SearchRequest(queries=src[:1])))
+        pool = sess.step(sess.init(src[:4]))
+        _scatter_rows(pool, torch.tensor([2, 0]), sess.init(src[4:6]))
+        pool = sess.step(pool)
+        s.search(SearchRequest(queries=src[:4]))
+        for eng in (ServingEngine(port, batch_size=4),
+                    ServingEngine(port, batch_size=4, continuous=True,
+                                  slots=4)):
+            for v in src[:6]:
+                eng.submit(v)
+            eng.drain()
+    for k, v in ref_arrays.items():
+        np.testing.assert_array_equal(v, before[k], err_msg=k)
+    np.testing.assert_array_equal(port.dataset.queries, port_before)
+    assert not np.shares_memory(port.dataset.queries,
+                                tiny_index.dataset.queries)
+
+
 def test_unported_paths_raise_naming_their_items(tiny_port, tiny_store):
     with pytest.raises(NotImplementedError, match="item 12"):
         ServingEngine(tiny_port, batch_size=4, obs=object())
@@ -286,9 +322,12 @@ def test_unported_paths_raise_naming_their_items(tiny_port, tiny_store):
         s.round_session(merged)
     with pytest.raises(NotImplementedError, match="item 10"):
         s.execute(merged, tiny_port.dataset.queries[:1])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        s.execute(dataclasses.replace(plan, kind="tiled"),
-                  tiny_port.dataset.queries[:1])
+    # tiled plans run (item 11), through the batch path: no round session
+    tiled = Searcher.open(tiny_port, num_tiles=2, attributes=tiny_store)
+    tplan = tiled.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))
+    assert tplan.kind == "tiled" and tiled.round_session(tplan) is None
+    assert tiled.execute(tplan, tiny_port.dataset.queries[:3]).ids.shape \
+        == (3, 10)
     with pytest.raises(NotImplementedError, match="item 12"):
         s.round_session(plan).record_round(None, [0], None)
     assert isinstance(s.round_session(plan), RoundSession)

@@ -393,3 +393,139 @@ def test_cuda_continuous_engine_equals_batch_engine(cuda):
     for rid, r in batch.done.items():
         np.testing.assert_array_equal(cont.done[rid].ids, r.ids)
         np.testing.assert_array_equal(cont.done[rid].dists, r.dists)
+
+
+@pytest.mark.parametrize("q,c,k", [(16, 20, 10), (256, 40, 10), (7, 33, 5),
+                                   (5, 100, 10)])
+def test_cross_tile_merge_kernel_equals_plain(cuda, q, c, k):
+    """The cross-tile merge on the card (one sort-entry launch) equals its
+    CPU run (the plain sort) bit for bit, with duplicate ids, -1 ids and
+    ties."""
+    from repro_torch.kernels import loader
+    from repro_torch.shard import cross_tile_merge
+
+    rng = np.random.default_rng(c)
+    ids = rng.integers(0, c // 2, (q, c)).astype(np.int32)
+    ids[rng.random((q, c)) < 0.2] = -1
+    d = rng.integers(0, 6, (q, c)).astype(np.float32)
+    loader.reset_launch_counts()
+    got = cross_tile_merge(_t(ids, cuda), _t(d, cuda), k)
+    torch.cuda.synchronize()
+    assert loader.ENTRY_LAUNCHES == {"bitonic_sort_launch": 1}
+    want = cross_tile_merge(torch.tensor(ids), torch.tensor(d), k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def _default_cuda_index():
+    """The small index with the paper's defaults: hot nodes 3%, gap on."""
+    idx = _small_cuda_index()
+    from repro_torch.core.index import build_index
+
+    cfg = dataclasses.replace(idx.config, hot_node_fraction=0.03,
+                              gap_encode=True)
+    return build_index(cfg, device="cuda", reorder_samples=24,
+                       calibrate=True)
+
+
+def test_cuda_default_index_matches_cpu(cuda):
+    """The default index built on the card (the reorder trace and
+    calibrate_beta on the kernels): 45 hot nodes, the entry point at 0, gap
+    bits that decode to the rows; its search and search_reference on the
+    card against the CPU port over the same arrays (>= 95% identical rows,
+    as the other cross-device tests)."""
+    from repro_torch.core.gap_encoding import gap_decode
+    from repro_torch.core.search import graph_search, search_reference
+    from repro_torch.kernels import loader
+
+    idx = _default_cuda_index()
+    assert idx.hot_count == 45 and idx.graph.entry_point == 0
+    assert idx.calibrated_beta > 1.0
+    np.testing.assert_array_equal(gap_decode(idx.gap),
+                                  np.sort(idx.graph.adjacency, axis=1))
+    q = idx.dataset.queries
+    gpu = graph_search(idx.corpus(), q, idx.config.search)
+    cpu_idx = dataclasses.replace(idx, device="cpu")
+    cpu = graph_search(cpu_idx.corpus(), q, idx.config.search)
+    assert (gpu.ids.cpu() == cpu.ids).all(1).float().mean().item() >= 0.95
+    assert int(gpu.n_hot_hops.sum()) > 0
+    gc, cc = idx.corpus(), cpu_idx.corpus()
+    same = []
+    loader.reset_launch_counts()
+    for v in q:
+        a = search_reference(idx.graph.adjacency, idx.graph.degrees, gc.codes,
+                             gc.base, gc.centroids, 0, v, idx.config.search,
+                             hot_count=idx.hot_count)
+        b = search_reference(idx.graph.adjacency, idx.graph.degrees, cc.codes,
+                             cc.base, cc.centroids, 0, v, idx.config.search,
+                             hot_count=idx.hot_count)
+        same.append(bool((a[0] == b[0]).all()))
+    assert np.mean(same) >= 0.95
+    assert loader.LAUNCHES["pq_adt"] == len(q)
+    assert loader.LAUNCHES["pq_lookup"] > len(q)
+    assert loader.LAUNCHES["l2_rerank"] > len(q)
+
+
+def test_cuda_tiled_and_segmented_serving_match_cpu(cuda):
+    """Tiled serving on the card (per-tile graphs rebuilt on the card,
+    cluster policy, full fan-out and routed) and a three-segment build
+    (tiled through its segments, flat through the stitched graph): the
+    engine's ids equal ``Searcher.search``'s, one cross-tile merge a batch,
+    and >= 95% of rows equal the CPU port's over the same tiles."""
+    from repro_torch.core.segmented import build_segmented
+    from repro_torch.kernels import loader
+    from repro_torch.plan import Searcher, SearchRequest
+    from repro_torch.serve import ServingEngine
+    from repro_torch.shard import TiledCorpus
+
+    idx = _default_cuda_index()
+    q = idx.dataset.queries
+    seg = build_segmented(idx.config, dataset=dataclasses.replace(
+        idx.dataset), segment_size=500, reorder_samples=24, device="cuda")
+    targets = [(idx, dict(num_tiles=2, shard_policy="cluster")),
+               (idx, dict(num_tiles=2, shard_policy="cluster",
+                          probe_tiles=1)),
+               (seg, {})]
+    for target, kw in targets:
+        eng = ServingEngine(target, batch_size=8, **kw)
+        loader.reset_launch_counts()
+        rids = [eng.submit(v) for v in q]
+        eng.drain()
+        assert loader.ENTRY_LAUNCHES["bitonic_sort_launch"] \
+            == eng.stats["batches"]
+        got = np.stack([eng.done[r].ids for r in rids])
+        s = Searcher.open(target, **kw)
+        np.testing.assert_array_equal(
+            s.search(SearchRequest(queries=q)).ids, got)
+        cpu = Searcher.open(TiledCorpus(*(t.cpu() for t in s.tiled)),
+                            cfg=s.cfg, probe_tiles=s.probe_tiles)
+        ids = cpu.search(SearchRequest(queries=q)).ids
+        assert (ids == got).all(1).mean() >= 0.95
+    flat = seg.to_flat()
+    gpu = Searcher.open(flat).search(SearchRequest(queries=q)).ids
+    cpu = Searcher.open(dataclasses.replace(flat, device="cpu")).search(
+        SearchRequest(queries=q)).ids
+    assert (gpu == cpu).all(1).mean() >= 0.95
+
+
+def test_windowed_knn_prune_equals_whole_lists_on_the_card(cuda, monkeypatch):
+    """On the card, the windowed kNN + prune (long build lists: segments and
+    tiles) keeps what the prune over the whole sorted lists keeps, on a
+    clustered corpus with a 512-long build list: >= 99% of rows identical
+    (the two compute pair distances in different products, so a near-tie
+    may resolve the other way)."""
+    from repro_torch.configs.base import GraphConfig
+    from repro_torch.core import graph as graph_mod
+
+    rng = np.random.default_rng(3)
+    cents = rng.standard_normal((100, 128))
+    base = (cents[rng.integers(0, 100, 6000)]
+            + 0.5 * rng.standard_normal((6000, 128))).astype(np.float32)
+    cfg = GraphConfig(max_degree=64, build_list_size=512)
+    monkeypatch.setattr(graph_mod, "_LONG_LIST", 4096)
+    whole = graph_mod.build_knn_prune(base, cfg, "l2", device="cuda")
+    monkeypatch.setattr(graph_mod, "_LONG_LIST", 256)
+    windowed = graph_mod.build_knn_prune(base, cfg, "l2", device="cuda")
+    same = (windowed.adjacency == whole.adjacency).all(1).mean()
+    assert same >= 0.99, same
+    assert windowed.entry_point == whole.entry_point

@@ -84,14 +84,17 @@ def test_engine_beam_width_and_plan_config(tiny_index, tiny_port):
 
 
 def test_unported_serving_modes_raise(tiny_port):
-    """What the port still refuses names its ROADMAP item: tiles (item 11),
-    merged plans (item 10), observability and SLOs (item 12), NAND billing
-    (item 13); targets other than a flat index or corpus raise too."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Searcher.open(tiny_port, PlanConfig(num_tiles=2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Searcher.open(tiny_port).search(SearchRequest(
-            queries=tiny_port.dataset.queries[:1], probe_tiles=2))
+    """What the port still refuses names its ROADMAP item: merged plans
+    (item 10), observability and SLOs (item 12), NAND billing (item 13);
+    targets other than an index, a corpus or tiles raise too.  Tiled plans
+    (item 11) now run: a tiled Searcher serves a request, and a flat one
+    takes a request's probe_tiles as the plan's fan-in."""
+    tiled = Searcher.open(tiny_port, PlanConfig(num_tiles=2))
+    res = tiled.search(SearchRequest(queries=tiny_port.dataset.queries[:2]))
+    assert res.plan.kind == "tiled" and res.ids.shape == (2, 10)
+    res = Searcher.open(tiny_port).search(SearchRequest(
+        queries=tiny_port.dataset.queries[:1], probe_tiles=2))
+    assert res.plan.kind == "flat" and res.plan.probe_tiles == 2
     with pytest.raises(NotImplementedError):
         Searcher.open(dataclasses.replace(tiny_port.dataset))
     with pytest.raises(NotImplementedError, match="item 12"):
