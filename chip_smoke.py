@@ -52,6 +52,26 @@ not printed):
    stitch seconds, patched rows), 2,048
    queries served tiled through the segments (the checks above) and flat
    through ``to_flat()``; recall@10 >= 0.5 for both.
+   Observability phase (``repro_torch.obs``, ``repro_torch.nand``): 2,048
+   queries through the batch engine with ``Observability.on(quality=True,
+   quality_sample_rate=1.0)`` and again with obs off; the continuous
+   engine with ``convergence=True``; the cluster tiles (the tiled phase's)
+   at full fan-out with obs on, and one batch's channel traces through
+   ``simulate_sharded``; the segmented index's ``build_trace()`` through
+   ``simulate_build``; then ``Observability.on()`` against obs off, 3
+   alternating pairs on the same engines.  Fails unless obs-on ids and
+   distances equal obs-off's bit for bit, ``kernel_calls`` equals the
+   launches and every kernel has in-search ``kernel_wall_ms`` samples,
+   every query of each run is billed (no unbilled batch, no shadow error),
+   the shadow recall is within 0.002 of recall@10 against the exact ground
+   truth, the convergence log holds one record per lane-round (and the
+   continuous ids equal the batch engine's), every (tile, query) lane is
+   served, ``simulate_sharded`` reports 4 channels and the build trace's
+   stitched rows are the stitch's patched rows.  Prints the NAND model's
+   medians per plan kind (model QPS, latency, pJ per query, core
+   utilisation: output of ``nand/simulator.py`` fed with this run's
+   counters, not times of any device), the in-search ``kernel_wall_ms``
+   medians per kernel and the QPS pairs.
    Every kernel must launch on each path (launches zeroed before each).
 3. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
    M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
@@ -923,14 +943,14 @@ def _tiled_record(name, engine, searcher, queries, gt, log) -> dict:
     return rec
 
 
-def tiled_phase(torch, idx, flat_ids, log) -> dict:
+def tiled_phase(torch, idx, flat_ids, log) -> tuple:
     """The main path's index served in NUM_TILES channel tiles through
     ``ServingEngine(num_tiles=, shard_policy=, probe_tiles=)``: cluster
     tiles at full fan-out and routed to 2 tiles, hash tiles at full
     fan-out, SHARD_QUERIES queries each.  Each policy's tiles are built
     once (per-tile graphs rebuilt on the card; the seconds of the
     assignment and of the tile graphs) and reused by its engines and
-    Searchers."""
+    Searchers.  Returns (the record, {(num_tiles, policy): tiles})."""
     from repro_torch.core import index as index_mod
     from repro_torch.plan import Searcher
     from repro_torch.serve import ServingEngine
@@ -975,15 +995,15 @@ def tiled_phase(torch, idx, flat_ids, log) -> dict:
                 name, engine, searcher, queries, gt, log)
     finally:
         index_mod.ProximaIndex.sharded_corpus = real
-    return out
+    return out, built
 
 
-def segmented_phase(torch, cfg, ds, dev, log) -> dict:
+def segmented_phase(torch, cfg, ds, dev, log) -> tuple:
     """``build_segmented`` of the main path's corpus in SEGMENT_SIZE
     segments on the card (stage seconds summed over the segments, the
     stitch's seconds and patched rows), then SHARD_QUERIES queries served
     tiled through its segments and flat through ``to_flat()`` (the
-    stitched graph)."""
+    stitched graph).  Returns (the record, the segmented index)."""
     from repro_torch.core.dataset import recall_at_k
     from repro_torch.core.segmented import build_segmented
     from repro_torch.plan import Searcher
@@ -1028,7 +1048,245 @@ def segmented_phase(torch, cfg, ds, dev, log) -> dict:
         f"launches={json.dumps(launches)}")
     out["launches"] = {k: out["tiled"]["launches"][k] + launches[k]
                        for k in launches}
+    return out, seg
+
+
+OBS_PAIRS = 3                    # obs on / off QPS pairs, alternating
+NAND_FIGURES = ("nand_model_qps", "nand_latency_us", "nand_pj_per_query",
+                "nand_core_utilization")
+
+
+def _hist_medians(metrics, name: str) -> dict:
+    """{label string: p50} of one histogram of an obs registry."""
+    cells = metrics.snapshot()["histograms"].get(name, {})
+    return {label or "-": cell["p50"] for label, cell in cells.items()}
+
+
+def _nand_medians(metrics) -> dict:
+    """The NAND model's per-batch figures (``nand/simulator.py`` fed with
+    the run's traversal counters), median over the billed batches, per
+    plan label."""
+    return {f: _hist_medians(metrics, f) for f in NAND_FIGURES}
+
+
+def _serve_ids(engine, queries, continuous=False) -> tuple:
+    """Submit ``queries``, serve them all; (ids, dists, wall seconds,
+    lanes stepped per tick in continuous mode)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rids = [engine.submit(v) for v in queries]
+    occupied = _served(engine) if continuous else engine.drain()
+    wall = time.perf_counter() - t0
+    done = [engine.done[r] for r in rids]
+    return (np.stack([r.ids for r in done]), np.stack([r.dists for r in done]),
+            wall, occupied)
+
+
+def obs_phase(torch, idx, tiles, seg, log) -> dict:
+    """Observability and NAND billing on the 1M index (``repro_torch.obs``,
+    ``repro_torch.nand``): SHARD_QUERIES queries through the batch engine
+    with ``Observability.on(quality=True, quality_sample_rate=1.0)`` and
+    with obs off (ids and distances must be equal, the kernel hooks' calls
+    equal the launches, every query billed, the shadow recall within 0.002
+    of recall@10 against the exact ground truth); the continuous engine
+    with ``convergence=True`` (one record per lane-round); the cluster
+    tiles at full fan-out with obs on (and one execution's channel traces
+    through ``simulate_sharded``); the segmented index's ``build_trace()``
+    through ``simulate_build``; then the QPS of ``Observability.on()``
+    (metrics, tracing, billing) against obs off, OBS_PAIRS alternating
+    pairs on the same engines."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import index as index_mod
+    from repro_torch.core.dataset import recall_at_k
+    from repro_torch.kernels import loader
+    from repro_torch.nand import (
+        simulate_build, simulate_sharded, traces_from_plan_execution,
+    )
+    from repro_torch.obs import NULL_OBS, Observability
+    from repro_torch.plan import Searcher, SearchRequest
+    from repro_torch.serve import ServingEngine
+
+    t_phase = time.perf_counter()
+    queries = idx.dataset.queries[:SHARD_QUERIES]
+    gt = idx.dataset.gt[:SHARD_QUERIES]
+    out = {"queries": len(queries)}
+
+    # batch engine, obs on with shadow recall on every request, then off
+    obs = Observability.on(quality=True, quality_sample_rate=1.0)
+    engine = ServingEngine(idx, batch_size=256, obs=obs)
+    m = obs.metrics
+    calls0 = {k: m.counter_value("kernel_calls", kernel=k)
+              for k in loader.LAUNCHES}
+    loader.reset_launch_counts()
+    ids_on, dists_on, wall, _ = _serve_ids(engine, queries)
+    launches = dict(loader.LAUNCHES)
+    calls = {k: m.counter_value("kernel_calls", kernel=k) - calls0[k]
+             for k in launches}
+    NULL_OBS.install_kernel_hooks()
+    ids_off, dists_off, _, _ = _serve_ids(
+        ServingEngine(idx, batch_size=256), queries)
+    recall = recall_at_k(ids_off, gt, 10)
+    shadow = obs.quality.overall()
+    out["batch"] = {
+        "wall_s": wall, "launches": launches, "kernel_calls": calls,
+        "bit_equal": bool(np.array_equal(ids_on, ids_off)
+                          and np.array_equal(dists_on, dists_off)),
+        "billed_queries": m.counter_total("nand_billed_queries"),
+        "unbilled_batches": m.counter_total("nand_unbilled_batches"),
+        "shadow_errors": m.counter_total("shadow_errors"),
+        "shadow_samples": shadow["samples"],
+        "shadow_recall": shadow["estimate"], "recall_at_10": recall,
+        "nand": _nand_medians(m),
+        "kernel_wall_ms": _hist_medians(m, "kernel_wall_ms"),
+        "kernel_wall_count": {
+            k: getattr(m.histogram("kernel_wall_ms", kernel=k), "count", 0)
+            for k in launches},
+        "kernel_execute_ms": _hist_medians(m, "kernel_execute_ms"),
+    }
+    log(f"obs batch: bit_equal={out['batch']['bit_equal']} "
+        f"shadow_recall={shadow['estimate']:.4f} recall@10={recall:.4f} "
+        f"billed={out['batch']['billed_queries']} launches="
+        f"{json.dumps(launches)} kernel_calls={json.dumps(calls)}")
+    log(f"in-search kernel_wall_ms medians (CUDA events around each launch, "
+        f"L2 warm): {json.dumps(out['batch']['kernel_wall_ms'])}")
+    log(f"NAND model medians, flat batch: {json.dumps(out['batch']['nand'])}")
+
+    # continuous engine with the convergence log
+    obs = Observability.on(convergence=True, convergence_capacity=1 << 20)
+    engine = ServingEngine(idx, batch_size=256, continuous=True, slots=256,
+                           obs=obs)
+    ids_c, dists_c, wall, occupied = _serve_ids(engine, queries, True)
+    NULL_OBS.install_kernel_hooks()
+    conv = obs.convergence
+    out["continuous"] = {
+        "wall_s": wall, "lane_rounds": int(sum(occupied)),
+        "records": conv.count, "dropped": conv.dropped,
+        "label_rounds": int(sum(conv.labels.values())),
+        "labels": len(conv.labels),
+        "equals_batch": bool(np.array_equal(ids_c, ids_off)
+                             and np.array_equal(dists_c, dists_off)),
+        "billed_queries": obs.metrics.counter_total("nand_billed_queries"),
+        "unbilled_batches": obs.metrics.counter_total(
+            "nand_unbilled_batches"),
+        "nand": _nand_medians(obs.metrics),
+    }
+    log(f"obs continuous: records={conv.count} lane_rounds="
+        f"{out['continuous']['lane_rounds']} labels={len(conv.labels)} "
+        f"equals_batch={out['continuous']['equals_batch']} NAND medians "
+        f"{json.dumps(out['continuous']['nand'])}")
+
+    # cluster tiles at full fan-out, the tiled phase's tiles reused
+    real = index_mod.ProximaIndex.sharded_corpus
+    index_mod.ProximaIndex.sharded_corpus = \
+        lambda self, num_tiles=None, policy=None, replicate_hot=None: \
+        tiles[num_tiles, policy]
+    try:
+        obs = Observability.on()
+        kw = dict(num_tiles=NUM_TILES, shard_policy="cluster", probe_tiles=0)
+        engine = ServingEngine(idx, batch_size=256, obs=obs, **kw)
+        served0 = obs.metrics.counter_total("tile_lanes_served")
+        ids_t, _, wall, _ = _serve_ids(engine, queries)
+        NULL_OBS.install_kernel_hooks()
+        res = Searcher.open(idx, **kw).search(
+            SearchRequest(queries=queries[:256]))
+    finally:
+        index_mod.ProximaIndex.sharded_corpus = real
+    sharded = simulate_sharded(traces_from_plan_execution(res, index=idx))
+    tm = obs.metrics
+    out["tiled"] = {
+        "wall_s": wall, "recall_at_10": recall_at_k(ids_t, gt, 10),
+        "billed_queries": tm.counter_total("nand_billed_queries"),
+        "unbilled_batches": tm.counter_total("nand_unbilled_batches"),
+        "tile_lanes_served": tm.counter_total("tile_lanes_served") - served0,
+        "tile_load_imbalance": tm.gauge_value("tile_load_imbalance"),
+        "nand": _nand_medians(tm),
+        "sharded": {"channels": len(sharded.per_channel),
+                    "qps": sharded.qps, "latency_us": sharded.latency_us,
+                    "qps_per_watt": sharded.qps_per_watt,
+                    "load_imbalance": sharded.load_imbalance,
+                    "channel_utilization": sharded.channel_utilization},
+    }
+    log(f"obs tiled (cluster, full fan-out): recall@10="
+        f"{out['tiled']['recall_at_10']:.4f} billed="
+        f"{out['tiled']['billed_queries']} tile_lanes_served="
+        f"{out['tiled']['tile_lanes_served']} NAND medians "
+        f"{json.dumps(out['tiled']['nand'])}; simulate_sharded over one "
+        f"batch's channel traces: {json.dumps(out['tiled']['sharded'])}")
+
+    # the segmented build's NAND program/erase cost
+    bt = seg.build_trace(index_bits=seg.segments[0].gap.bit_width
+                         if seg.segments[0].gap else 32)
+    build = simulate_build(bt)
+    out["build"] = {"trace": dataclasses.asdict(bt),
+                    "patched_rows": seg.stitch.patched_rows,
+                    "sim": build.to_dict()}
+    log(f"NAND build model: trace {json.dumps(out['build']['trace'])} -> "
+        f"{json.dumps(out['build']['sim'])}")
+
+    # QPS with metrics + tracing + billing on, against off, alternating
+    obs = Observability.on()
+    engines = {"on": ServingEngine(idx, batch_size=256, obs=obs),
+               "off": ServingEngine(idx, batch_size=256)}
+    qps = {"on": [], "off": []}
+    for i in range(OBS_PAIRS):
+        for mode in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            (obs if mode == "on" else NULL_OBS).install_kernel_hooks()
+            torch.cuda.synchronize()
+            qps[mode].append(SHARD_QUERIES
+                             / _serve_ids(engines[mode], queries)[2])
+    NULL_OBS.install_kernel_hooks()
+    out["qps_pairs"] = qps
+    out["pair_kernel_wall_ms"] = _hist_medians(obs.metrics, "kernel_wall_ms")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"QPS with Observability.on() / off, {OBS_PAIRS} alternating pairs "
+        f"of {SHARD_QUERIES} queries: {json.dumps(qps)}; in-search "
+        f"kernel_wall_ms medians over the pairs' obs-on runs "
+        f"{json.dumps(out['pair_kernel_wall_ms'])}; observability phase "
+        f"{out['phase_s']:.1f} s")
     return out
+
+
+def obs_failures(rec: dict) -> list:
+    """The observability phase's checks."""
+    fails = []
+    b, c, t = rec["batch"], rec["continuous"], rec["tiled"]
+    n = rec["queries"]
+    if not b["bit_equal"]:
+        fails.append("obs on changed ids or distances")
+    if b["kernel_calls"] != b["launches"] or min(b["launches"].values()) <= 0:
+        fails.append(f"kernel_calls {b['kernel_calls']} != launches "
+                     f"{b['launches']}")
+    if min(b["kernel_wall_count"].values()) <= 0:
+        fails.append(f"a kernel has no in-search time: "
+                     f"{b['kernel_wall_count']}")
+    for name, r in (("batch", b), ("continuous", c), ("tiled", t)):
+        if r["billed_queries"] != n or r["unbilled_batches"]:
+            fails.append(f"obs {name}: billed {r['billed_queries']} of {n}, "
+                         f"{r['unbilled_batches']} unbilled batches")
+    if b["shadow_errors"] or b["shadow_samples"] != n:
+        fails.append(f"shadow: {b['shadow_errors']} errors, "
+                     f"{b['shadow_samples']} samples of {n}")
+    elif abs(b["shadow_recall"] - b["recall_at_10"]) > 0.002:
+        fails.append(f"shadow recall {b['shadow_recall']:.4f} vs recall@10 "
+                     f"{b['recall_at_10']:.4f}")
+    if not (c["records"] == c["lane_rounds"] == c["label_rounds"]
+            and c["labels"] == n and not c["dropped"]):
+        fails.append(f"convergence log: {c['records']} records, "
+                     f"{c['lane_rounds']} lane-rounds, {c['label_rounds']} "
+                     f"label rounds, {c['labels']} labels")
+    if not c["equals_batch"]:
+        fails.append("obs continuous ids differ from the batch engine's")
+    if t["tile_lanes_served"] != NUM_TILES * n:
+        fails.append(f"tile lanes served {t['tile_lanes_served']}")
+    if t["sharded"]["channels"] != NUM_TILES:
+        fails.append(f"simulate_sharded: {t['sharded']['channels']} channels")
+    if rec["build"]["trace"]["stitched_rows"] != rec["build"]["patched_rows"]:
+        fails.append("build trace's stitched rows differ from the stitch's")
+    return fails
 
 
 def cross_device(torch, idx, gpu_ids, n: int = 64) -> float:
@@ -1096,11 +1354,19 @@ def rerank_density(torch, idx) -> dict:
             "rounds": len(rounds), "margin": shares[-1]}
 
 
+# each kernel's device function on the main path, by the TPU kernel it ports
+IN_SEARCH_SYMBOLS = {"pq_adt": "pq_adt_kernel",
+                     "pq_lookup": "pq_lookup_gather_kernel",
+                     "bitonic_sort_pairs": "warp_merge_kernel",
+                     "l2_rerank": "l2_rerank_kernel"}
+
+
 def profile_batch(torch, idx, out_dir) -> dict:
     """One 256-query ``graph_search`` under ``torch.profiler``: the device's
     busy share (kernel time over wall time, both under the profiler), the
-    rounds the batch ran, and the ops by host and device time (full tables
-    in ``<out-dir>/profile.txt``)."""
+    rounds the batch ran, the ops by host and device time (full tables in
+    ``<out-dir>/profile.txt``), and each hand kernel's own device duration
+    inside the search (CUPTI, L2 warm: median and launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.search import graph_search
@@ -1135,6 +1401,13 @@ def profile_batch(torch, idx, out_dir) -> dict:
         + ev.table(sort_by="self_device_time_total", row_limit=25))
     top = sorted((e for e in ev if e.device_type != cuda),
                  key=lambda e: -e.self_device_time_total)[:6]
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    in_search = {}
+    for kernel, symbol in IN_SEARCH_SYMBOLS.items():
+        ms = [e.time_range.elapsed_us() / 1e3 for e in kernels
+              if symbol in e.name]
+        in_search[kernel] = {"launches": len(ms),
+                             "median_ms": _median(ms) if ms else None}
     rounds = res.rounds.cpu()
     launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
     return {
@@ -1147,6 +1420,7 @@ def profile_batch(torch, idx, out_dir) -> dict:
         "rounds_max": int(rounds.max()), "rounds_mean": float(
             rounds.double().mean()),
         "top_device_ops_us": {e.key: e.self_device_time_total for e in top},
+        "in_search_cupti": in_search,
     }
 
 
@@ -1293,9 +1567,11 @@ def main(argv=None) -> int:
     log(f"exact-distance mask density, masked search: "
         f"{json.dumps(filt['masked_density'])}")
 
-    tiled = tiled_phase(torch, idx, gpu_ids, log)
-    segmented = segmented_phase(torch, idx.config, ds, dev, log)
+    tiled, tiles = tiled_phase(torch, idx, gpu_ids, log)
+    segmented, seg = segmented_phase(torch, idx.config, ds, dev, log)
     del ds
+    observed = obs_phase(torch, idx, tiles, seg, log)
+    del tiles, seg
 
     scan_pass = int(store.mask(_specs()["range_price_0_9"]).sum())
     kernels = kernel_phase(torch, dev, args.num_base, res["rerank_density"],
@@ -1306,7 +1582,8 @@ def main(argv=None) -> int:
     paths = {"batch": res["launches"], "continuous": cont["launches"],
              "filtered_continuous": filt["continuous"]["launches"],
              "filtered_batch": filt["batch"]["launches"],
-             "tiled": tiled_launches, "segmented": segmented["launches"]}
+             "tiled": tiled_launches, "segmented": segmented["launches"],
+             "obs": observed["batch"]["launches"]}
     for k in kernels:
         k["launches"] = res["launches"][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -1339,7 +1616,8 @@ def main(argv=None) -> int:
         f"{json.dumps(cont['profile'])}")
 
     detail.update(card=card, kernels=kernels, main=res, continuous=cont,
-                  filtered=filt, tiled=tiled, segmented=segmented)
+                  filtered=filt, tiled=tiled, segmented=segmented,
+                  observability=observed)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     failures = []
@@ -1409,6 +1687,7 @@ def main(argv=None) -> int:
     if segmented["flat"]["recall_at_10"] < 0.5:
         failures.append(f"segmented flat: recall@10 "
                         f"{segmented['flat']['recall_at_10']:.4f} < 0.5")
+    failures.extend(obs_failures(observed))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

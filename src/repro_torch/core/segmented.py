@@ -18,7 +18,7 @@ The corpus is consumed as a stream of fixed-size segments:
 A single-segment build is the monolithic pipeline (``core.index.
 build_index_monolithic``) step for step; ``build_index`` is
 ``build_segmented(...).to_flat()``.  ``SegmentedIndex.build_trace`` feeds the
-NAND build model, which waits for ROADMAP Queue 1 item 13, and raises.
+NAND build model (``nand.simulate_build``).
 """
 from __future__ import annotations
 
@@ -181,9 +181,19 @@ class SegmentedIndex:
         return totals
 
     def build_trace(self, index_bits: int = 32):
-        raise NotImplementedError(
-            "the NAND build trace (nand.simulator.BuildTrace) is not ported "
-            "yet: ROADMAP Queue 1 item 13 (nand/)")
+        """Build-time NAND workload: per-segment program volume plus the
+        adjacency rows stitching re-programmed (the build-side write
+        amplification) — feed to ``nand.simulate_build``."""
+        from repro_torch.nand.simulator import BuildTrace
+
+        return BuildTrace(
+            segment_sizes=tuple(s.num_vertices for s in self.segments),
+            stitched_rows=self.stitch.patched_rows if self.stitch else 0,
+            dim=self.segments[0].base.shape[1],
+            r_degree=self.config.graph.max_degree,
+            index_bits=index_bits,
+            pq_bits=8 * self.segments[0].codes.shape[1],
+        )
 
 
 def reservoir_sample(source, cap: int, seed: int = 0) -> np.ndarray:

@@ -13,7 +13,16 @@ the compiler's output; nothing falls back.
 the same launches by C entry point (a kernel's entries: the bitonic kernel's
 sort and merge, for instance).  Each wrapper adds one where it launches its
 kernel and nowhere else; ``reset_launch_counts`` zeroes both, so a caller
-can show that a run went through the kernels.
+can show that a run went through the kernels.  ``BUILDS`` counts the
+libraries ``build_all`` compiled, by source (the rebuild detector's input,
+``obs.KernelWatch``).
+
+``TIMING`` is the observability hook (``kernels.ops.set_observability``):
+``None`` when observability is off, when it is on a list that each launch
+appends ``(kernel, entry, start, end)`` to — two CUDA events recorded on
+the launch's stream right before and right after the C call, so the launch
+gains no synchronisation.  ``kernels.ops.flush_kernel_timings`` reads the
+pairs once the device has passed them.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {name: 0 for name in ("pq_adt", "pq_lookup", "bitonic_sort_pairs",
                                  "l2_rerank")}
 ENTRY_LAUNCHES: dict = {}
+BUILDS = {name: 0 for name in KERNELS}
+TIMING = None            # None, or [(kernel, entry, start, end)] (see above)
 
 _libs: dict = {}
 
@@ -79,6 +90,7 @@ def build_all() -> dict:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
         else:
             os.replace(tmp, _lib_path(name))
+            BUILDS[name] += 1
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return reports
@@ -108,11 +120,22 @@ def launch(lib_name: str, entry: str, counter: str, device, *args) -> None:
     fn = getattr(lib, entry)
     fn.argtypes = [type(a) for a in args]
     fn.restype = ctypes.c_int
+    timing = TIMING
     with torch.cuda.device(device):
-        err = fn(*args)
+        if timing is None:
+            err = fn(*args)
+        else:
+            s = torch.cuda.current_stream()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(s)
+            err = fn(*args)
+            end.record(s)
     if err:
         msg = lib.kernel_error_string(err).decode()
         raise RuntimeError(f"{entry} failed to launch: {msg} (error {err})")
+    if timing is not None:
+        timing.append((counter, entry, start, end))
     LAUNCHES[counter] += 1
     ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
 

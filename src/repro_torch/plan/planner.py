@@ -14,13 +14,15 @@ at a time; tiled plans have none (``None``, as in the reference), so the
 engine flushes them through the batch path.  Merged and distributed plans
 raise, naming the ROADMAP item that ports them.  The plan cache,
 ``QueryPlan.cache_key`` (the serving layer's batching identity) and the
-per-plan artifact cache (compiled pass masks) are the reference's.
-Observability is not ported yet (ROADMAP Queue 1 item 12), so nothing is
-billed or traced.
+per-plan artifact cache (compiled pass masks) are the reference's.  With an
+enabled ``obs=`` bundle the planner counts plan-cache hits, misses and
+compiled plans and wraps each execution in a ``kernel-execute`` span and
+the ``kernel_execute_ms`` histogram, as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -30,6 +32,8 @@ from repro_torch.configs.base import (
     FilterConfig, PlanConfig, SearchConfig, upgrade_config,
 )
 from repro_torch.filter.spec import FilterSpec
+from repro_torch.kernels import ops
+from repro_torch.obs import NULL_OBS, Observability
 from repro_torch.plan.request import SearchRequest, SearchStats
 
 
@@ -120,7 +124,7 @@ class QueryPlanner:
     def __init__(self, *, capabilities: IndexCapabilities, cfg: SearchConfig,
                  metric: str, filter_cfg: FilterConfig, plan_cfg: PlanConfig,
                  corpus=None, tiled=None, attributes=None,
-                 probe_tiles: int = 0):
+                 probe_tiles: int = 0, obs: Optional[Observability] = None):
         self.capabilities = capabilities
         self.cfg = cfg
         self.metric = metric
@@ -136,6 +140,7 @@ class QueryPlanner:
         self._mask_tokens = 0
         self.plan_cache_hits = 0
         self.plan_cache_misses = 0
+        self.obs = obs or NULL_OBS
 
     # ------------------------------------------------------------- planning
     def plan(self, request: SearchRequest) -> QueryPlan:
@@ -152,10 +157,19 @@ class QueryPlanner:
         cached = self._plan_cache.get(key)
         if cached is not None:
             self.plan_cache_hits += 1
+            if self.obs.enabled:
+                self.obs.metrics.counter("plan_cache_hits",
+                                         tenant=request.tenant)
             return cached
         self.plan_cache_misses += 1
         plan = self._compile(spec, request)
         self._plan_cache[key] = plan
+        if self.obs.enabled:
+            self.obs.metrics.counter("plan_cache_misses",
+                                     tenant=request.tenant)
+            self.obs.metrics.counter("plans_compiled", kind=plan.kind,
+                                     strategy=plan.strategy,
+                                     tenant=request.tenant)
         return plan
 
     def _effective_cfg(self, request: SearchRequest) -> SearchConfig:
@@ -317,7 +331,33 @@ class QueryPlanner:
 
     # ------------------------------------------------------------ execution
     def execute(self, plan: QueryPlan, queries) -> Execution:
-        """Run one plan over a query batch on the corpus's device."""
+        """Run one plan over a query batch on the corpus's device.
+
+        With observability enabled the dispatch is wrapped in a
+        ``kernel-execute`` span and billed into ``kernel_execute_ms``
+        (labelled by plan kind / filter strategy / tenant); once the ids
+        are on the host the launches' event pairs are read
+        (``ops.flush_kernel_timings``)."""
+        obs = self.obs
+        if not obs.enabled:
+            ex = self._execute_plan(plan, queries)
+            ops.flush_kernel_timings()   # hooks another bundle installed
+            return ex
+        t0 = time.perf_counter()
+        with obs.tracer.span("kernel-execute", kind=plan.kind,
+                             strategy=plan.strategy) as sp:
+            ex = self._execute_plan(plan, queries)
+            sp.set(queries=int(np.atleast_2d(ex.ids).shape[0]))
+        obs.metrics.observe(
+            "kernel_execute_ms", (time.perf_counter() - t0) * 1e3,
+            kind=plan.kind, strategy=plan.strategy, tenant=plan.tenant,
+        )
+        obs.metrics.counter("kernel_executions", kind=plan.kind,
+                            strategy=plan.strategy, tenant=plan.tenant)
+        ops.flush_kernel_timings()
+        return ex
+
+    def _execute_plan(self, plan: QueryPlan, queries) -> Execution:
         from repro_torch.core.search import empty_search_result, graph_search
         from repro_torch.filter.traversal import (
             FilteredSearchResult, scan_search,

@@ -12,8 +12,8 @@ for the same queries.
 Sessions exist for flat ``none`` (the plain traversal) and flat ``masked``
 (masked traversal with the planner-cached mask, held on the corpus's
 device).  Merged sessions (the streaming base + delta segment) wait for
-ROADMAP Queue 1 item 10 and per-round telemetry (``record_round``) for item
-12; both raise.
+ROADMAP Queue 1 item 10 and raise.  ``record_round`` appends per-round
+telemetry to an ``obs.ConvergenceLog``.
 """
 from __future__ import annotations
 
@@ -83,9 +83,12 @@ class RoundSession:
                                self._mask)
 
     def record_round(self, log, qids, state, select=None) -> None:
-        raise NotImplementedError(
-            "per-round convergence telemetry is not ported yet: ROADMAP "
-            "Queue 1 item 12 (obs/)")
+        """Append one per-round telemetry record per (selected) lane to an
+        ``obs.convergence.ConvergenceLog`` — the engine's tick path and the
+        off-line collector (``obs.convergence.trace_session``) share this, so
+        the feature extraction has one owner (the session knows the
+        effective k).  The lanes come to the host in one copy."""
+        log.record_lanes(qids, state, int(self.cfg.k), select=select)
 
     # -------------------------------------------------------------- retire
     def complete(self, queries, core_res):

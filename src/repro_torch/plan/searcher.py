@@ -13,8 +13,13 @@ index, a ``Corpus`` or a ``TiledCorpus``; ``search``, ``plan``,
 The search runs on the device of the opened corpus.  ``num_tiles > 1`` on a
 flat index partitions it (``ProximaIndex.sharded_corpus``, per-tile graphs
 rebuilt on the device); a ``core.segmented.SegmentedIndex`` is served
-through its segments as tiles.  Mutable and distributed targets are not
-ported yet and raise (ROADMAP Queue 1 items 10 and 15).
+through its segments as tiles.  ``obs=`` takes an ``obs.Observability``
+bundle (or an ``ObsConfig``): the planner then bills plan-cache traffic and
+kernel execution, and with a quality monitor ``search`` feeds the
+shadow-recall oracle (``shadow_ground_truth``, an exact kNN on the
+searcher's device).  Mutable and distributed targets, the vmapped tile
+fan-out and the mesh keywords are not ported yet and raise (ROADMAP Queue 1
+items 10, 15 and 19).
 """
 from __future__ import annotations
 
@@ -22,10 +27,14 @@ import dataclasses
 import warnings
 from typing import Optional
 
+import numpy as np
+import torch
+
 from repro_torch.configs.base import (
     FilterConfig, PlanConfig, SearchConfig, upgrade_config,
 )
 from repro_torch.core.search import Corpus
+from repro_torch.obs import Observability
 from repro_torch.plan.planner import (
     Execution, IndexCapabilities, QueryPlan, QueryPlanner,
 )
@@ -54,6 +63,7 @@ class Searcher:
         self._index = index
         self.num_tiles = num_tiles
         self.shard_policy = shard_policy
+        self._oracle = None          # the oracle's base on the device
 
     @classmethod
     def open(cls, index, plan: Optional[PlanConfig] = None, *,
@@ -66,13 +76,35 @@ class Searcher:
              beam_width: Optional[int] = None,
              filter_cfg: Optional[FilterConfig] = None,
              bloom_bits: Optional[int] = None,
-             num_hashes: Optional[int] = None) -> "Searcher":
+             num_hashes: Optional[int] = None,
+             use_vmap: Optional[bool] = None,
+             mesh=None,
+             mode: Optional[str] = None,
+             data_axis: Optional[str] = None,
+             queue_axis: Optional[str] = None,
+             obs=None) -> "Searcher":
         """Open a ``ProximaIndex``, a ``SegmentedIndex``, a ``Corpus`` or a
         ``TiledCorpus``.  Keyword arguments override the matching
         ``PlanConfig`` fields; unset fields defer to the index's own config
         (its ``search``/``shard``/``filter`` sections).  ``attributes`` (a
         ``filter.AttributeStore`` keyed by internal id) serves filtered
-        requests; an index's own ``attributes`` is the default."""
+        requests; an index's own ``attributes`` is the default.  ``obs``
+        takes an ``obs.Observability`` bundle or an ``ObsConfig`` (None:
+        the shared no-op bundle).  The reference's ``use_vmap`` and its
+        mesh keywords (``mesh``, ``mode``, ``data_axis``, ``queue_axis``)
+        are accepted and raise, naming the ROADMAP item that ports them."""
+        if use_vmap is not None:
+            raise NotImplementedError(
+                "the vmapped tile fan-out (use_vmap=) is not ported yet: "
+                "ROADMAP Queue 1 item 19")
+        given = [n for n, v in (("mesh", mesh), ("mode", mode),
+                                ("data_axis", data_axis),
+                                ("queue_axis", queue_axis)) if v is not None]
+        if given:
+            raise NotImplementedError(
+                f"distributed search ({', '.join(given)}=) is not ported "
+                "yet: ROADMAP Queue 1 item 15")
+        obs = Observability.resolve(obs)
         pc = plan or PlanConfig()
         kw = dict(search=cfg, num_tiles=num_tiles, shard_policy=shard_policy,
                   probe_tiles=probe_tiles, beam_width=beam_width,
@@ -81,17 +113,17 @@ class Searcher:
         pc = dataclasses.replace(
             pc, **{k: v for k, v in kw.items() if v is not None})
         if isinstance(index, Corpus):
-            return cls._open_corpus(index, pc, metric, attributes)
+            return cls._open_corpus(index, pc, metric, attributes, obs)
         if _is_tiled(index):
-            return cls._open_tiled(index, pc, metric, attributes)
+            return cls._open_tiled(index, pc, metric, attributes, obs)
         if _is_segmented(index):
-            return cls._open_segmented(index, pc, metric, attributes)
+            return cls._open_segmented(index, pc, metric, attributes, obs)
         if not hasattr(index, "graph"):
             raise NotImplementedError(
                 f"{type(index).__name__} targets are not ported yet: mutable "
                 "indexes wait for ROADMAP Queue 1 item 10, device meshes for "
                 "item 15")
-        return cls._open_index(index, pc, metric, attributes)
+        return cls._open_index(index, pc, metric, attributes, obs)
 
     @classmethod
     def _resolve_cfg(cls, pc: PlanConfig, default: SearchConfig):
@@ -110,7 +142,7 @@ class Searcher:
                 "collapses", stacklevel=3)
 
     @classmethod
-    def _open_index(cls, index, pc, metric, attributes):
+    def _open_index(cls, index, pc, metric, attributes, obs):
         cfg_full = upgrade_config(index.config)
         scfg = cls._resolve_cfg(pc, cfg_full.search)
         shard_cfg = cfg_full.shard
@@ -135,12 +167,12 @@ class Searcher:
             metric=metric or index.dataset.metric,
             filter_cfg=pc.filter or cfg_full.filter, plan_cfg=pc,
             corpus=corpus, tiled=tiled, attributes=attributes,
-            probe_tiles=probe)
+            probe_tiles=probe, obs=obs)
         return cls(planner=planner, plan_cfg=pc, index=index,
                    num_tiles=n_tiles, shard_policy=policy)
 
     @classmethod
-    def _open_corpus(cls, corpus, pc, metric, attributes):
+    def _open_corpus(cls, corpus, pc, metric, attributes, obs):
         if (pc.num_tiles or 1) > 1:
             raise ValueError("a Corpus is one tile; partition a ProximaIndex "
                              "(num_tiles=) or open a TiledCorpus")
@@ -149,11 +181,11 @@ class Searcher:
         planner = QueryPlanner(
             capabilities=IndexCapabilities(kind="flat"), cfg=scfg,
             metric=metric or "l2", filter_cfg=pc.filter or FilterConfig(),
-            plan_cfg=pc, corpus=corpus, attributes=attributes)
+            plan_cfg=pc, corpus=corpus, attributes=attributes, obs=obs)
         return cls(planner=planner, plan_cfg=pc)
 
     @classmethod
-    def _open_tiled(cls, tiled, pc, metric, attributes):
+    def _open_tiled(cls, tiled, pc, metric, attributes, obs):
         scfg = cls._resolve_cfg(pc, pc.search or SearchConfig())
         caps = IndexCapabilities(kind="tiled", tiled=True,
                                  num_tiles=tiled.num_tiles)
@@ -161,11 +193,11 @@ class Searcher:
             capabilities=caps, cfg=scfg, metric=metric or "l2",
             filter_cfg=pc.filter or FilterConfig(), plan_cfg=pc,
             tiled=tiled, attributes=attributes,
-            probe_tiles=pc.probe_tiles or 0)
+            probe_tiles=pc.probe_tiles or 0, obs=obs)
         return cls(planner=planner, plan_cfg=pc, num_tiles=tiled.num_tiles)
 
     @classmethod
-    def _open_segmented(cls, seg_index, pc, metric, attributes):
+    def _open_segmented(cls, seg_index, pc, metric, attributes, obs):
         """A segment-built index is tiled by construction: its segments are
         emitted as tiles directly (``shard.tiles_from_segments``, no
         repartition, no graph rebuild) and its segment centroids are the
@@ -183,7 +215,7 @@ class Searcher:
         planner = QueryPlanner(
             capabilities=caps, cfg=scfg, metric=metric or seg_index.metric,
             filter_cfg=pc.filter or cfg_full.filter, plan_cfg=pc,
-            tiled=tiled, attributes=attributes, probe_tiles=probe)
+            tiled=tiled, attributes=attributes, probe_tiles=probe, obs=obs)
         return cls(planner=planner, plan_cfg=pc, index=seg_index,
                    num_tiles=n_segments, shard_policy="segments")
 
@@ -200,16 +232,86 @@ class Searcher:
         """Plan + execute one request."""
         plan = self.planner.plan(request)
         ex = self.planner.execute(plan, request.queries)
-        return SearchResult(ids=ex.ids, dists=ex.dists,
-                            stats=self.planner.stats_for(plan, ex),
-                            plan=plan, raw=ex.raw)
+        res = SearchResult(ids=ex.ids, dists=ex.dists,
+                           stats=self.planner.stats_for(plan, ex),
+                           plan=plan, raw=ex.raw)
+        qm = self.obs.quality
+        if qm is not None:
+            # shadow-recall sampling (off-path exact-oracle replay); the
+            # engine's flush/retire paths feed the monitor themselves
+            qm.observe(self, plan, request.queries, res.ids)
+        return res
 
     def round_session(self, plan: QueryPlan):
         """Steppable session for a plan (``None`` when the plan has no
         round-steppable spine) — the continuous engine's entry point."""
         return self.planner.round_session(plan)
 
+    # ------------------------------------------------------- quality oracle
+    def shadow_ground_truth(self, plan: QueryPlan, queries):
+        """Exact-oracle neighbour ids for a query batch under ``plan``, in
+        the plan's own result-id space — the shadow-recall estimator's
+        ground truth (``obs.quality.QualityMonitor``).  The population is
+        what the plan searched: the attribute-passing subset of the base
+        for a filtered plan, otherwise the whole base.  The exact kNN runs
+        on the searcher's device (``core.dataset.exact_knn``).  Returns
+        ``(Q, k')`` int64 with ``k' = min(plan.cfg.k, population)``, or
+        ``None`` for one-shot caller-mask plans and targets with no raw
+        vectors."""
+        from repro_torch.core.dataset import exact_knn
+
+        if plan.kind not in ("flat", "tiled"):
+            raise NotImplementedError(
+                f"the shadow oracle of {plan.kind} plans is not ported yet: "
+                "ROADMAP Queue 1 item 10 (stream/)")
+        if plan.mask_token:
+            return None
+        base = self._oracle_base()
+        if base is None:
+            return None
+        q = np.atleast_2d(np.asarray(queries, np.float32))
+        k = int(plan.cfg.k)
+        dev = self._device
+        if plan.spec is not None:
+            mask = np.asarray(self.planner._mask_for(plan.spec), bool)
+            pids = np.nonzero(mask)[0]
+            if pids.size == 0:
+                return np.empty((q.shape[0], 0), np.int64)
+            rows = base[torch.as_tensor(pids, device=base.device)] \
+                if torch.is_tensor(base) else base[pids]
+            nn = exact_knn(q, rows, k, self.metric, device=dev)
+            return pids[nn].astype(np.int64)
+        return exact_knn(q, base, k, self.metric, device=dev).astype(np.int64)
+
+    @property
+    def _device(self) -> torch.device:
+        t = self.planner.corpus if self.planner.corpus is not None \
+            else self.planner.tiled
+        return t.base.device
+
+    def _oracle_base(self):
+        """Base vectors in the target's internal (reordered) id space — host
+        numpy on the CPU, a copy on the device, made once, on a card — or
+        ``None`` when the opened target carries no raw vectors."""
+        idx = self._index
+        ds = getattr(idx, "dataset", None) if idx is not None else None
+        if ds is not None:
+            base = np.asarray(ds.base, np.float32)
+        elif self.planner.corpus is not None:
+            base = self.planner.corpus.base
+        else:
+            return None
+        if self._device.type == "cpu":
+            return base.numpy() if torch.is_tensor(base) else base
+        if self._oracle is None:
+            self._oracle = torch.as_tensor(base, device=self._device)
+        return self._oracle
+
     # ------------------------------------------------------------ inspection
+    @property
+    def obs(self) -> Observability:
+        return self.planner.obs
+
     @property
     def cfg(self) -> SearchConfig:
         return self.planner.cfg

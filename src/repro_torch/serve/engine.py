@@ -35,13 +35,26 @@ Tiled serving (``num_tiles``, ``shard_policy``, ``probe_tiles``, or a
 segment-built index) runs every batch through the fan-out over the tiles
 and the cross-tile merge (``shard.sharded_search_kernel``).
 
+Observability (``repro_torch.obs``): pass ``obs=Observability.on()`` (or an
+``ObsConfig``) and the engine records queue-wait and end-to-end latency
+histograms and batch/slot occupancy labelled by plan kind / filter strategy
+/ tenant, emits ``queue-wait`` async spans and ``batch`` > ``batch-assembly``
+/ ``kernel-execute`` / ``post-process`` / ``nand-billing`` spans (``tick``
+and ``retire`` in continuous mode), installs the kernel hooks (calls and
+CUDA-event launch times, read after each batch's ids reached the host),
+watches the kernel libraries for rebuilds, samples shadow recall
+(``quality=True``), logs per-round convergence (``convergence=True``) and —
+with ``nand_billing`` — bills every flushed batch and every retired set of
+lanes through the NAND model (``nand=`` a ``NandConfig``, ``nand_queues=``
+the modelled queue count).  ``slo=`` takes ``{tenant: obs.SLOTarget}``.
+The default is the shared no-op bundle: one branch per call site.
+
 All timing is ``time.perf_counter()``.  Not ported yet, and refused:
-streaming/mutable targets (ROADMAP Queue 1 item 10), observability and SLO
-tracking (``obs=``, ``slo=``, item 12) and NAND billing (``nand=``,
-``nand_queues=``, item 13).
+streaming/mutable targets (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import Counter, deque
@@ -53,7 +66,12 @@ import torch
 from repro_torch.configs.base import PlanConfig, SearchConfig
 from repro_torch.core.search import SearchState, next_pow2
 from repro_torch.filter.spec import FilterSpec
+from repro_torch.kernels import ops
+from repro_torch.obs import (
+    KernelWatch, Observability, SLOTracker, record_plan_execution,
+)
 from repro_torch.plan import QueryPlan, Searcher, SearchRequest
+from repro_torch.plan.request import SearchResult as PlanSearchResult
 
 
 @dataclasses.dataclass
@@ -85,6 +103,7 @@ class EngineStats:
     retired: int = 0                 # continuous mode: lanes retired
     fallback_batches: int = 0        # continuous mode: non-steppable plans
                                      # served through the batch-flush path
+    slo_violations: int = 0          # rolling-window SLO breaches observed
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -131,11 +150,6 @@ def _quiet_free_lanes(state: SearchState,
     return state._replace(lanes=lanes)
 
 
-def _unported(item: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue 1 {item}")
-
-
 class ServingEngine:
     def __init__(
         self,
@@ -156,19 +170,20 @@ class ServingEngine:
         nand_queues: Optional[int] = None,
         slo=None,
     ):
-        if obs is not None or slo is not None:
-            raise _unported("item 12 (obs/)",
-                            "observability and SLO tracking (obs=, slo=)")
-        if nand is not None or nand_queues is not None:
-            raise _unported("item 13 (nand/)",
-                            "NAND billing (nand=, nand_queues=)")
+        """``slo`` takes a ``{tenant: obs.SLOTarget}`` mapping (key ``None``
+        covers untenanted traffic); completed requests then feed per-tenant
+        rolling latency windows — and, with quality monitoring on,
+        shadow-recall windows — whose breaches count into
+        ``EngineStats.slo_violations``."""
         pcfg = plan or PlanConfig()
         legacy = dict(search=cfg, num_tiles=num_tiles,
                       shard_policy=shard_policy, probe_tiles=probe_tiles,
                       beam_width=beam_width)
         pcfg = dataclasses.replace(
             pcfg, **{k: v for k, v in legacy.items() if v is not None})
-        self.searcher = Searcher.open(index, pcfg, attributes=attributes)
+        self.obs = Observability.resolve(obs)
+        self.searcher = Searcher.open(index, pcfg, attributes=attributes,
+                                      obs=self.obs)
         self.batch_size = batch_size
         self.flush_us = flush_us
         self.continuous = bool(continuous)
@@ -182,9 +197,21 @@ class ServingEngine:
         # continuous mode: queued requests per steppable plan key, so a
         # refill stops scanning the queue once nothing more can be admitted
         self._waiting: Counter = Counter()
-        # warm the full-batch bucket (kernel builds, allocator pools)
+        self.nand = nand                     # NandConfig override for billing
+        self.nand_queues = nand_queues       # modelled scheduler queue count
+        self._slo = SLOTracker(self.obs.metrics, slo) if slo else None
+        if self.obs.quality is not None and self._slo is not None:
+            # shadow-recall samples are the only recall observations the
+            # SLO windows can get
+            self.obs.quality.slo = self._slo
+        if self.obs.enabled:
+            self.obs.install_kernel_hooks()
+        # warm the full-batch bucket (kernel builds, allocator pools); the
+        # synthetic queries stay out of the shadow-recall sampling stream
         dummy = np.zeros((batch_size, self.index.dataset.dim), np.float32)
-        self.searcher.search(SearchRequest(queries=dummy))
+        qm = self.obs.quality
+        with (qm.paused() if qm is not None else contextlib.nullcontext()):
+            self.searcher.search(SearchRequest(queries=dummy))
         if self.continuous:
             # and the round step at the slot-pool shape (a tiled default
             # plan has no round step)
@@ -193,6 +220,10 @@ class ServingEngine:
             if sess0 is not None:
                 z = np.zeros((self.slots, dummy.shape[1]), np.float32)
                 sess0.finalize(sess0.step(sess0.init(z)))
+        # rebuild watch baselined after warm-up: any kernel library built
+        # while serving is a rebuild
+        self._watch = KernelWatch(self.obs.metrics) \
+            if self.obs.metrics.enabled else None
 
     def _bucket(self, n: int) -> int:
         """Smallest power-of-two >= n, capped at batch_size."""
@@ -244,6 +275,10 @@ class ServingEngine:
         d.update(self.searcher.plan_cache_stats())
         return d
 
+    def slo_status(self) -> dict:
+        """Per-tenant rolling-window SLO state (empty without ``slo=``)."""
+        return self._slo.status() if self._slo is not None else {}
+
     # --------------------------------------------------------------- requests
     def submit(self, query: np.ndarray, filter: Optional[FilterSpec] = None,
                tenant: Optional[str] = None) -> int:
@@ -256,15 +291,21 @@ class ServingEngine:
         if filter is not None and filter.is_all:
             filter = None                 # all-pass spec == unfiltered batch
         q = np.array(query, np.float32)    # a copy: the caller keeps theirs
-        try:
-            plan = self.searcher.plan(SearchRequest(queries=q, filter=filter,
-                                                    tenant=tenant))
-        except RuntimeError:
-            plan = None
+        obs = self.obs
+        with obs.tracer.span("plan-lookup", rid=rid):
+            try:
+                plan = self.searcher.plan(SearchRequest(
+                    queries=q, filter=filter, tenant=tenant))
+            except RuntimeError:
+                plan = None
         self.queue.append(Request(rid=rid, query=q,
                                   t_submit=time.perf_counter(),
                                   filter=filter, tenant=tenant, plan=plan))
         self._count_waiting(plan, 1)
+        if obs.enabled:
+            # queue residency is an async span: requests overlap
+            obs.tracer.async_begin("queue-wait", rid)
+            obs.metrics.gauge("queue_depth", float(len(self.queue)))
         return rid
 
     def _count_waiting(self, plan: Optional[QueryPlan], n: int) -> None:
@@ -310,34 +351,79 @@ class ServingEngine:
                     r.plan = plan
                     self._count_waiting(plan, 1)
         key = plan.cache_key
-        batch: List[Request] = []
-        skipped: List[Request] = []
-        while self.queue and len(batch) < self.batch_size:
-            r = self.queue.popleft()
-            same = r.plan is not None and r.plan.cache_key == key
-            (batch if same else skipped).append(r)
-        self.queue.extendleft(reversed(skipped))
-        self._count_waiting(plan, -len(batch))
-        n = len(batch)
-        q = np.stack([r.query for r in batch])
-        bucket = self._bucket(n)
-        if n < bucket:  # pad to the bucket's shape
-            q = np.concatenate(
-                [q, np.zeros((bucket - n, q.shape[1]), np.float32)])
-        ex = self.searcher.execute(plan, q)
-        now = time.perf_counter()
-        if plan.spec is not None:
-            self._stats.filtered_queries += n
-        if plan.strategy == "scan":
-            self._stats.filter_scan_batches += 1
-        for i, r in enumerate(batch):
-            r.ids, r.dists, r.t_done = ex.ids[i], ex.dists[i], now
-            self.done[r.rid] = r
+        obs = self.obs
+        labels = dict(kind=plan.kind, strategy=plan.strategy,
+                      tenant=plan.tenant)
+        with obs.tracer.span("batch", kind=plan.kind,
+                             strategy=plan.strategy) as bsp:
+            with obs.tracer.span("batch-assembly"):
+                batch: List[Request] = []
+                skipped: List[Request] = []
+                while self.queue and len(batch) < self.batch_size:
+                    r = self.queue.popleft()
+                    same = r.plan is not None and r.plan.cache_key == key
+                    (batch if same else skipped).append(r)
+                self.queue.extendleft(reversed(skipped))
+                self._count_waiting(plan, -len(batch))
+                n = len(batch)
+                if obs.enabled:
+                    t_assembled = time.perf_counter()
+                    for r in batch:
+                        # the request leaves the queue here
+                        obs.tracer.async_end("queue-wait", r.rid)
+                        obs.metrics.observe(
+                            "queue_wait_ms",
+                            (t_assembled - r.t_submit) * 1e3, **labels)
+                q = np.stack([r.query for r in batch])
+                bucket = self._bucket(n)
+                if n < bucket:  # pad to the bucket's shape
+                    q = np.concatenate(
+                        [q, np.zeros((bucket - n, q.shape[1]), np.float32)])
+            ex = self.searcher.execute(plan, q)   # kernel-execute span inside
+            now = time.perf_counter()
+            with obs.tracer.span("post-process"):
+                if plan.spec is not None:
+                    self._stats.filtered_queries += n
+                if plan.strategy == "scan":
+                    self._stats.filter_scan_batches += 1
+                for i, r in enumerate(batch):
+                    r.ids, r.dists, r.t_done = ex.ids[i], ex.dists[i], now
+                    self.done[r.rid] = r
+                    if obs.enabled:
+                        obs.metrics.observe("request_latency_ms",
+                                            r.latency_ms, **labels)
+                    if self._slo is not None:
+                        self._slo.record_latency(plan.tenant, r.latency_ms)
+                if obs.quality is not None:
+                    # off-path shadow-recall sampling over the batch's
+                    # unpadded rows (also feeds the SLO recall windows)
+                    obs.quality.observe(self.searcher, plan, q[:n],
+                                        ex.ids[:n])
+                if self._slo is not None:
+                    self._stats.slo_violations = self._slo.total_violations
+            if obs.enabled:
+                bsp.set(queries=n, bucket=bucket)
+                obs.metrics.gauge("batch_occupancy", n / bucket)
+                obs.metrics.observe("batch_occupancy_hist", n / bucket,
+                                    kind=plan.kind)
+                obs.metrics.gauge("queue_depth", float(len(self.queue)))
+            if obs.nand_billing:
+                with obs.tracer.span("nand-billing"):
+                    pres = PlanSearchResult(
+                        ids=ex.ids, dists=ex.dists,
+                        stats=self.searcher.planner.stats_for(plan, ex),
+                        plan=plan, raw=ex.raw)
+                    record_plan_execution(
+                        obs.metrics, pres, index=self.index,
+                        nand=self.nand, batch_queries=n,
+                        n_queues=self.nand_queues)
         b = self._stats.batches
         self._stats.pad_fraction = (
             self._stats.pad_fraction * b + (bucket - n) / bucket) / (b + 1)
         self._stats.batches = b + 1
         self._stats.queries += n
+        if self._watch is not None:
+            self._watch.check(0)
         return batch
 
     # ----------------------------------------------- continuous (tick) mode
@@ -413,25 +499,49 @@ class ServingEngine:
             self._waiting[key] -= 1
             todo -= 1
         self.queue.extendleft(reversed(skipped))
+        obs = self.obs
+        if obs.enabled and admitted:
+            now = time.perf_counter()
+            for admissions in admitted.values():
+                for _, r in admissions:
+                    obs.tracer.async_end("queue-wait", r.rid)
+                    obs.metrics.observe(
+                        "queue_wait_ms", (now - r.t_submit) * 1e3,
+                        kind=r.plan.kind, strategy=r.plan.strategy,
+                        tenant=r.plan.tenant)
         for key, admissions in admitted.items():
             self._admit(self._pools[key], admissions)
 
     def _step_pool(self, pool: _SlotPool) -> List[Request]:
         """ONE round over a pool's lanes; finalize and hand back every lane
         that quiesced.  The host reads the pool's active flags once."""
+        obs = self.obs
         session = pool.session
         plan = session.plan
         pool.state = session.step(pool.state)
+        if obs.convergence is not None:
+            # per-round telemetry for every occupied lane (one host copy)
+            occ = [i for i, r in enumerate(pool.requests) if r is not None]
+            if occ:
+                session.record_round(obs.convergence,
+                                     [pool.requests[i].rid for i in occ],
+                                     pool.state, select=occ)
         active = session.active(pool.state)
         rows = [i for i, r in enumerate(pool.requests)
                 if r is not None and not active[i]]
         if not rows:
             return []
+        # rounds per retiring lane, read while the stream is idle
+        rounds = session.rounds(pool.state)[rows] \
+            if obs.enabled or obs.convergence is not None else None
         dev = pool.state.queries.device
         core = session.finalize(_gather_rows(
             pool.state, torch.as_tensor(rows, dtype=torch.int64, device=dev)))
         qrows = np.stack([pool.requests[i].query for i in rows])
-        pres = session.complete(qrows, core)
+        with obs.tracer.span("retire", kind=plan.kind,
+                             strategy=plan.strategy, lanes=len(rows)):
+            pres = session.complete(qrows, core)
+        ops.flush_kernel_timings()           # the ids are on the host
         now = time.perf_counter()
         completed: List[Request] = []
         for j, i in enumerate(rows):
@@ -440,10 +550,31 @@ class ServingEngine:
             self.done[r.rid] = r
             pool.requests[i] = None
             completed.append(r)
+            if obs.enabled:
+                obs.metrics.observe(
+                    "request_latency_ms", r.latency_ms, kind=plan.kind,
+                    strategy=plan.strategy, tenant=plan.tenant)
+                obs.metrics.observe("rounds_in_flight", float(rounds[j]),
+                                    kind=plan.kind, strategy=plan.strategy)
+            if self._slo is not None:
+                self._slo.record_latency(plan.tenant, r.latency_ms)
+            if obs.convergence is not None:
+                obs.convergence.finalize_lane(r.rid, int(rounds[j]))
+        if obs.quality is not None:
+            obs.quality.observe(self.searcher, plan, qrows, pres.ids)
+        if self._slo is not None:
+            self._stats.slo_violations = self._slo.total_violations
         if plan.spec is not None:
             self._stats.filtered_queries += len(rows)
         self._stats.retired += len(rows)
         self._stats.queries += len(rows)
+        if obs.nand_billing:
+            # retired lanes bill exactly like a flushed batch
+            with obs.tracer.span("nand-billing"):
+                record_plan_execution(
+                    obs.metrics, pres, index=self.index,
+                    nand=self.nand, batch_queries=len(rows),
+                    n_queues=self.nand_queues)
         return completed
 
     def _tick(self, force: bool = False) -> List[Request]:
@@ -451,17 +582,29 @@ class ServingEngine:
         every occupied pool one traversal round, retire quiesced lanes.  A
         non-steppable head request flushes through the batch path when due
         (or on ``force``)."""
-        self._refill()
+        obs = self.obs
         completed: List[Request] = []
-        for pool in self._pools.values():
-            if pool.occupied:
+        with obs.tracer.span("tick"):
+            self._refill()
+            for pool in self._pools.values():
+                if not pool.occupied:
+                    continue
                 completed.extend(self._step_pool(pool))
+                if obs.enabled:
+                    obs.metrics.gauge("slot_occupancy",
+                                      pool.occupied / len(pool.requests),
+                                      kind=pool.session.plan.kind,
+                                      strategy=pool.session.plan.strategy)
         self._stats.ticks += 1
+        if obs.enabled:
+            obs.metrics.gauge("queue_depth", float(len(self.queue)))
         if self.queue and self._session_for(self.queue[0].plan) is None \
                 and (force or self._flush_due()):
             n0 = self._stats.batches
             completed.extend(self._step_batch(force=force))
             self._stats.fallback_batches += self._stats.batches - n0
+        elif self._watch is not None:
+            self._watch.check(0)
         return completed
 
     def drain(self, max_steps: Optional[int] = None) -> List[Request]:

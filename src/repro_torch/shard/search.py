@@ -17,8 +17,9 @@ That sort is stable on (key, position), so ties resolve as the reference's
 Replicated hot nodes surface from several tiles with identical distances;
 the merge masks those duplicates before ranking.  Per-tile traversal
 counters keep their tile axis in ``ShardedSearchResult.per_tile``.  The
-channel-observability hook (``set_observability``: tile load imbalance,
-skipped lanes) waits for ROADMAP Queue 1 item 12.
+channel-observability hook (``set_observability``) records the tile load
+imbalance and the served and skipped lanes of every fan-out, from one host
+read, and only when it is installed.
 """
 from __future__ import annotations
 
@@ -36,6 +37,35 @@ from repro_torch.kernels import ops
 from repro_torch.shard.partition import TiledCorpus
 
 _COUNTERS = ("n_hops", "n_pq", "n_acc", "n_hot_hops", "n_free_pq", "rounds")
+
+_obs = None     # Observability bundle (repro_torch.obs) or None
+
+
+def set_observability(obs) -> None:
+    """Install (or clear) the channel-observability sink — per-flush tile
+    load imbalance and skipped-lane counts (``Observability.
+    install_kernel_hooks`` wires this alongside the kernel hooks)."""
+    global _obs
+    _obs = obs if obs is not None and getattr(obs, "enabled", False) \
+        else None
+
+
+def _record_channel_stats(res: "ShardedSearchResult") -> None:
+    """Per-tile work distribution into the registry (straggler accounting —
+    the host-side twin of ``nand.simulate_sharded``'s load_imbalance).  The
+    per-tile hop totals and the served-lane count come to the host in one
+    copy, queued behind the merge (the caller reads the ids right after)."""
+    per_tile_hops = res.per_tile.n_hops.to(torch.int64).sum(1)   # (P,)
+    served = res.probed.sum().reshape(1)
+    host = torch.cat([per_tile_hops, served]).cpu().numpy()
+    per_tile = host[:-1].astype(float)       # total work per channel
+    mean = per_tile.mean()
+    m = _obs.metrics
+    m.gauge("tile_load_imbalance",
+            float(per_tile.max() / mean) if mean > 0 else 1.0)
+    served = float(host[-1])
+    m.counter("tile_lanes_skipped", float(res.probed.numel()) - served)
+    m.counter("tile_lanes_served", served)
 
 
 class ShardedSearchResult(NamedTuple):
@@ -166,8 +196,11 @@ def sharded_search_kernel(tiled: TiledCorpus, queries, cfg: SearchConfig,
     cand_d = per.dists.permute(1, 0, 2).reshape(nq, p * k)
     cand_d = torch.where(cand_ids >= 0, cand_d, INF)
     out_ids, out_d = cross_tile_merge(cand_ids, cand_d, cfg.k)
-    return ShardedSearchResult(ids=out_ids, dists=out_d, per_tile=per,
-                               probed=probed)
+    res = ShardedSearchResult(ids=out_ids, dists=out_d, per_tile=per,
+                              probed=probed)
+    if _obs is not None:
+        _record_channel_stats(res)
+    return res
 
 
 def sharded_search(tiled: TiledCorpus, queries, cfg: SearchConfig,

@@ -254,7 +254,8 @@ def test_reservoir_and_sources_match_reference(tiny_index):
 def test_build_segmented_three_segments_matches_reference(segmented_pair):
     """Three segments: recall@10 through to_flat() (the stitched graph) and
     through the tiles within 0.01 of the reference's; the per-segment hot
-    counts, stitch accounting and byte totals are the reference's."""
+    counts, stitch accounting and byte totals are the reference's, and
+    its NAND build trace carries its segment sizes and patched rows."""
     from repro.plan import Searcher as RefSearcher
     from repro.plan import SearchRequest as RefRequest
 
@@ -281,8 +282,12 @@ def test_build_segmented_three_segments_matches_reference(segmented_pair):
     bp, br = port.index_bytes(), ref.index_bytes()
     assert bp["raw_bytes"] == br["raw_bytes"] and len(bp["per_segment"]) == 3
     assert port.segment_centroids().shape == ref.segment_centroids().shape
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port.build_trace()
+    bt, bt_ref = port.build_trace(), ref.build_trace()
+    assert bt.segment_sizes == tuple(g.num_vertices for g in port.segments)
+    assert bt.stitched_rows == port.stitch.patched_rows
+    assert (bt.dim, bt.r_degree, bt.index_bits, bt.pq_bits) == (
+        bt_ref.dim, bt_ref.r_degree, bt_ref.index_bits, bt_ref.pq_bits)
+    assert bt.segment_sizes == bt_ref.segment_sizes
 
 
 @pytest.mark.parametrize("metric", ["l2", "angular"])

@@ -307,14 +307,19 @@ def test_port_leaves_caller_arrays_untouched(tiny_index):
 
 
 def test_unported_paths_raise_naming_their_items(tiny_port, tiny_store):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """Merged plans still raise naming item 10.  Observability, SLOs and
+    NAND billing (items 12 and 13) are ported: the engine takes them, and
+    ``record_round`` appends one convergence record per lane."""
+    from repro_torch.nand import NandConfig
+    from repro_torch.obs import ConvergenceLog, SLOTarget
+
+    with pytest.raises(TypeError, match="obs= takes"):
         ServingEngine(tiny_port, batch_size=4, obs=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ServingEngine(tiny_port, batch_size=4, slo={None: object()})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ServingEngine(tiny_port, batch_size=4, nand=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ServingEngine(tiny_port, batch_size=4, nand_queues=4)
+    eng = ServingEngine(tiny_port, batch_size=4, continuous=True,
+                        slo={None: SLOTarget(p99_latency_ms=1e9)},
+                        nand=NandConfig(double_buffer=True), nand_queues=4)
+    assert eng.nand.double_buffer and eng.nand_queues == 4
+    assert eng.slo_status()[None]["latency_samples"] == 0
     s = Searcher.open(tiny_port, attributes=tiny_store)
     plan = s.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))
     merged = dataclasses.replace(plan, kind="merged")
@@ -328,7 +333,9 @@ def test_unported_paths_raise_naming_their_items(tiny_port, tiny_store):
     assert tplan.kind == "tiled" and tiled.round_session(tplan) is None
     assert tiled.execute(tplan, tiny_port.dataset.queries[:3]).ids.shape \
         == (3, 10)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        s.round_session(plan).record_round(None, [0], None)
+    sess, log = s.round_session(plan), ConvergenceLog(64)
+    state = sess.step(sess.init(tiny_port.dataset.queries[:3]))
+    sess.record_round(log, [7, 8], state, select=[0, 2])
+    assert log.count == 2 and log.to_arrays()["qid"].tolist() == [7, 8]
     assert isinstance(s.round_session(plan), RoundSession)
     assert isinstance(plan, QueryPlan)

@@ -529,3 +529,109 @@ def test_windowed_knn_prune_equals_whole_lists_on_the_card(cuda, monkeypatch):
     same = (windowed.adjacency == whole.adjacency).all(1).mean()
     assert same >= 0.99, same
     assert windowed.entry_point == whole.entry_point
+
+
+def _serve_small(idx, store, obs=None, **kw):
+    """Serve the small index's queries twice over, every third request
+    filtered (~25%, masked); returns the engine."""
+    from repro_torch.filter import FilterSpec
+    from repro_torch.serve import ServingEngine
+
+    eng = ServingEngine(idx, batch_size=8, flush_us=0.0, slots=6,
+                        attributes=store, obs=obs, **kw)
+    spec = FilterSpec.isin("category", [0, 1])
+    for i, v in enumerate(np.tile(idx.dataset.queries, (2, 1))):
+        eng.submit(v, filter=spec if i % 3 == 0 and "num_tiles" not in kw
+                   else None)
+    eng.drain()
+    return eng
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(continuous=True),
+                                dict(num_tiles=2, shard_policy="cluster")],
+                         ids=["batch", "continuous", "tiled"])
+def test_cuda_obs_on_leaves_ids_bit_equal(cuda, kw):
+    """Observability on (quality at rate 1.0, convergence, NAND billing,
+    the kernel hooks) changes no id or distance on the card, bills every
+    query and meets no shadow error."""
+    from repro_torch.filter import random_attributes
+    from repro_torch.obs import NULL_OBS, Observability
+
+    idx = _small_cuda_index()
+    store = random_attributes(idx.dataset.num_base,
+                              {"category": 8, "price": 1000}, seed=5)
+    obs = Observability.on(quality=True, quality_sample_rate=1.0,
+                           convergence=True)
+    try:
+        on = _serve_small(idx, store, obs, **kw)
+    finally:
+        NULL_OBS.install_kernel_hooks()
+    off = _serve_small(idx, store, **kw)
+    assert sorted(on.done) == sorted(off.done)
+    for rid, r in off.done.items():
+        np.testing.assert_array_equal(on.done[rid].ids, r.ids)
+        np.testing.assert_array_equal(on.done[rid].dists, r.dists)
+    m = obs.metrics
+    assert m.counter_total("nand_billed_queries") == len(off.done)
+    assert m.counter_total("shadow_errors") == 0
+    assert m.counter_total("shadow_samples") == len(off.done)
+
+
+def test_cuda_kernel_hook_times_every_kernel(cuda):
+    """With the hook set, every kernel of the search has in-search
+    ``kernel_wall_ms`` samples (CUDA event pairs), and ``kernel_calls``
+    and ``kernel_launches`` equal the loader's launch counts over the same
+    window."""
+    from repro_torch.kernels import loader
+    from repro_torch.obs import NULL_OBS, Observability
+
+    idx = _small_cuda_index()
+    obs = Observability.on(tracing=False)
+    try:
+        eng = _serve_small(idx, None, obs, num_tiles=2,
+                           shard_policy="cluster")
+        m = obs.metrics
+        before = {k: m.counter_value("kernel_calls", kernel=k)
+                  for k in loader.LAUNCHES}
+        launched = {e: m.counter_value("kernel_launches", entry=e)
+                    for e in loader.ENTRY_LAUNCHES}
+        loader.reset_launch_counts()
+        for v in idx.dataset.queries:
+            eng.submit(v)
+        eng.drain()
+        assert not loader.TIMING           # every pair read after the ids
+        for k, n in loader.LAUNCHES.items():
+            assert n > 0, k
+            assert m.counter_value("kernel_calls", kernel=k) - before[k] \
+                == n, k
+            h = m.histogram("kernel_wall_ms", kernel=k)
+            assert h is not None and h.count > 0 and h.vmin > 0, k
+        for e, n in loader.ENTRY_LAUNCHES.items():
+            assert m.counter_value("kernel_launches", entry=e) \
+                - launched.get(e, 0) == n, e
+    finally:
+        NULL_OBS.install_kernel_hooks()
+
+
+def test_cuda_kernel_hook_off_creates_no_events(cuda, monkeypatch):
+    """With observability off the launch path creates no CUDA event."""
+    from repro_torch.kernels import loader
+    from repro_torch.obs import NULL_OBS
+    from repro_torch.plan import Searcher, SearchRequest
+
+    NULL_OBS.install_kernel_hooks()
+    idx = _small_cuda_index()
+    s = Searcher.open(idx)
+    s.search(SearchRequest(queries=idx.dataset.queries))   # build, warm up
+    made = []
+    real = torch.cuda.Event
+
+    def event(*a, **kw):
+        made.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    loader.reset_launch_counts()
+    s.search(SearchRequest(queries=idx.dataset.queries))
+    assert min(loader.LAUNCHES.values()) > 0 and not made
+    assert loader.TIMING is None

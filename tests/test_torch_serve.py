@@ -85,10 +85,12 @@ def test_engine_beam_width_and_plan_config(tiny_index, tiny_port):
 
 def test_unported_serving_modes_raise(tiny_port):
     """What the port still refuses names its ROADMAP item: merged plans
-    (item 10), observability and SLOs (item 12), NAND billing (item 13);
+    (item 10), the vmapped fan-out (item 19), the mesh keywords (item 15);
     targets other than an index, a corpus or tiles raise too.  Tiled plans
     (item 11) now run: a tiled Searcher serves a request, and a flat one
-    takes a request's probe_tiles as the plan's fan-in."""
+    takes a request's probe_tiles as the plan's fan-in.  Observability and
+    NAND billing (items 12 and 13) are ported: ``obs=`` refuses what
+    ``Observability.resolve`` refuses, with the reference's TypeError."""
     tiled = Searcher.open(tiny_port, PlanConfig(num_tiles=2))
     res = tiled.search(SearchRequest(queries=tiny_port.dataset.queries[:2]))
     assert res.plan.kind == "tiled" and res.ids.shape == (2, 10)
@@ -97,10 +99,12 @@ def test_unported_serving_modes_raise(tiny_port):
     assert res.plan.kind == "flat" and res.plan.probe_tiles == 2
     with pytest.raises(NotImplementedError):
         Searcher.open(dataclasses.replace(tiny_port.dataset))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="obs= takes"):
         ServingEngine(tiny_port, batch_size=4, continuous=True, obs=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ServingEngine(tiny_port, batch_size=4, nand=object())
+    with pytest.raises(NotImplementedError, match="item 19"):
+        Searcher.open(tiny_port, use_vmap=True)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        Searcher.open(tiny_port, mesh=object())
     s = Searcher.open(tiny_port)
     plan = s.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))
     with pytest.raises(NotImplementedError, match="item 10"):
