@@ -72,6 +72,30 @@ not printed):
    utilisation: output of ``nand/simulator.py`` fed with this run's
    counters, not times of any device), the in-search ``kernel_wall_ms``
    medians per kernel and the QPS pairs.
+   Streaming phase (``repro_torch.stream``): a ``MutableIndex`` over the
+   index at ``StreamConfig``'s defaults (delta capacity 4,096, list 32,
+   brute force below 64, over-fetch 16), served by ``ServingEngine(mutable,
+   batch_size=256)`` and the continuous engine (slots=256), both with
+   ``auto_consolidate=False``.  10,000 random base ids and each of the
+   first 2,048 queries' exact top-1 are deleted, 4,096 vectors (a random
+   base vector plus N(0, 0.1^2) noise) inserted through the continuous
+   engine, filling the delta; 512 queries and 256 of the inserted vectors
+   are served through both engines and ``merged_search_kernel``; then with
+   256 lanes in flight the 4,097th insert consolidates inside ``insert``
+   (the base rebuilt on the card) and the same sets are served again.
+   Prints inserts a second, merged QPS beside the flat engine's, the delta
+   search's share of the wall time, recall@10 against the exact kNN of
+   ``live_vectors()``, the consolidation's seconds by build stage, device
+   memory around it and the write amplification.  Fails if a tombstoned id
+   is returned, the engines differ from each other or from
+   ``merged_search_kernel``, recall@10 is below 0.5, the merge drops an
+   inserted vector that its segment's own search found, fewer than
+   STREAM_SELF_FLOOR of the inserted vectors find themselves, the engine's
+   stats are not 1 consolidation / 4,097 inserts / every delete, a lane in
+   flight was not retired before the rebuild, the old base's corpus is
+   still allocated when the rebuild starts, the rebuild's peak exceeds one
+   build's on top of what remains, device memory grew across it, or the
+   sort entry did not launch once per merged batch.
    Every kernel must launch on each path (launches zeroed before each).
 3. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
    M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
@@ -88,8 +112,9 @@ not printed):
    rows.  The new call sites of this index: ``pq_adt`` at Q=1 and the
    lookup at (1, 64) (the reorder trace), the lookup at (256, 512)
    (``calibrate_beta``), ``l2_rerank_masked`` at (1, 16) (the trace's exact
-   distances), and the sort entry at the cross-tile merge's (256, 64), with
-   ties, duplicate ids keyed +inf and -1 padding.  Each entry is timed over
+   distances), the sort entry at the cross-tile merge's (256, 64), with
+   ties, duplicate ids keyed +inf and -1 padding, and at the base/delta
+   merge's (256, 26 + 26 padded to 64).  Each entry is timed over
    30 launches, the 50 MB L2 cache flushed
    before each and the launch queued behind a spin: by CUDA events around
    each launch (``ms``) and, for the same launches, by the kernel's own
@@ -132,6 +157,17 @@ SEGMENT_SIZE = 250_000
 # H100, PERF.md)
 STITCH_SAMPLE = 16384
 FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+# the streaming phase: base ext ids deleted at random (each served query's
+# exact top-1 too), queries served before and after the consolidation, and
+# inserted vectors served as queries
+STREAM_DELETES = 10_000
+STREAM_QUERIES = 512             # of the 10,000: the host's delta search
+STREAM_SELF_QUERIES = 256
+# the share of inserted vectors that must find themselves: the reference's
+# delta search found 0.949-0.980 of 256 over seeds 1-5
+# (tests/_delta_self_recall.py on the CPU, PERF.md), a miss rate near 3.7%;
+# 0.9 is ~5 standard deviations of a 256-query share below that
+STREAM_SELF_FLOOR = 0.9
 
 
 def _card_line() -> str:
@@ -478,10 +514,38 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
         {"torch.sort+gather": sort_and_gather},
         16 * q * p_pad, network_ops(p_pad))
     cross["inf_share"] = float(torch.isinf(x_keys).float().mean())
+
+    # the base/delta merge's sort (stream/searcher.py merge_order): k_base =
+    # 26 base keys (ascending, ~1% tombstoned to +inf where they stand),
+    # 26 delta keys (ascending, ~1% tombstoned), +inf padding to 64;
+    # payload the column position
+    kb = kd = 26
+    b_keys = ints(0, 1 << 12, (q, kb)).float().sort(dim=1).values
+    d_keys = ints(0, 1 << 12, (q, kd)).float().sort(dim=1).values
+    m_keys = torch.nn.functional.pad(torch.cat([
+        torch.where(rand(q, kb) < 0.01, inf, b_keys),
+        torch.where(rand(q, kd) < 0.01, inf, d_keys)], 1),
+        (0, p_pad - kb - kd), value=inf)
+    m_pos = torch.arange(p_pad, dtype=torch.int32, device=dev).expand(
+        q, p_pad).contiguous()
+
+    def merge_sort_and_gather():
+        sk, order = torch.sort(m_keys, dim=1, stable=True)
+        return sk, m_pos.gather(1, order)
+
+    stream_merge = entry(
+        f"sort_stream_merge_Q{q}_P{p_pad}", "warp_sort_kernel",
+        ops.bitonic_sort_pairs(m_keys, m_pos),
+        ops.bitonic_sort_pairs_plain(m_keys, m_pos), 0.0, 0.0,
+        lambda: ops.bitonic_sort_pairs(m_keys, m_pos),
+        lambda: ops.bitonic_sort_pairs_plain(m_keys, m_pos),
+        {"torch.sort+gather": merge_sort_and_gather},
+        16 * q * p_pad, network_ops(p_pad))
+    stream_merge["inf_share"] = float(torch.isinf(m_keys).float().mean())
     record("bitonic_sort_pairs", "src/repro_torch/kernels/csrc/bitonic_topk.cu",
            "src/repro/kernels/bitonic_topk.py:57", merge_entry(r),
            merge_entry(4 * r), merge_entry(r, 4 * l), merge_entry(r, 8 * l),
-           cross, entry(
+           cross, stream_merge, entry(
                f"sort_P{p}", "warp_sort_kernel",
                ops.bitonic_sort_pairs(keys, pos),
                ops.bitonic_sort_pairs_plain(keys, pos), 0.0, 0.0,
@@ -589,8 +653,13 @@ def main_path(torch, dev, args, log) -> tuple:
     # the reorder trace (one search_reference per sampled base vector) and
     # calibrate_beta run the kernels during the build
     loader.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     idx = build_index(cfg, dataset=ds, device=dev, stage_times=stages,
                       reorder_samples=REORDER_SAMPLES, calibrate=True)
+    # what one build of the 1M index allocates at its peak, over what was
+    # allocated when it started (the streaming phase's rebuild is held to it)
+    res["build_peak_bytes"] = torch.cuda.max_memory_allocated() - mem0
     res["build_launches"] = dict(loader.LAUNCHES)
     res["build_s"] = stages
     log(f"build seconds by stage: {json.dumps(stages)}")
@@ -946,8 +1015,7 @@ def _tiled_record(name, engine, searcher, queries, gt, log) -> dict:
 def tiled_phase(torch, idx, flat_ids, log) -> tuple:
     """The main path's index served in NUM_TILES channel tiles through
     ``ServingEngine(num_tiles=, shard_policy=, probe_tiles=)``: cluster
-    tiles at full fan-out and routed to 2 tiles, hash tiles at full
-    fan-out, SHARD_QUERIES queries each.  Each policy's tiles are built
+    tiles at full fan-out and routed to 2 tiles, SHARD_QUERIES queries each.  Each policy's tiles are built
     once (per-tile graphs rebuilt on the card; the seconds of the
     assignment and of the tile graphs) and reused by its engines and
     Searchers.  Returns (the record, {(num_tiles, policy): tiles})."""
@@ -1250,6 +1318,333 @@ def obs_phase(torch, idx, tiles, seg, log) -> dict:
     return out
 
 
+def _stream_serve(engine, queries, continuous, counts) -> dict:
+    """One run of ``queries`` through a streaming engine, launch counts
+    zeroed just before: ids and distances, wall seconds, launches by kernel
+    and by C entry, the merged batches it fused (flushed batches, or
+    retired sets of lanes), and the seconds the host spent in the delta
+    segment's search (``counts`` is the phase's spy record)."""
+    from repro_torch.kernels import loader
+
+    b0 = engine.stats["batches"]
+    counts.update(merges=0, delta_s=0.0)
+    loader.reset_launch_counts()
+    ids, dists, wall, _ = _serve_ids(engine, queries, continuous)
+    batches = engine.stats["batches"] - b0
+    return {"ids": ids, "dists": dists, "wall_s": wall,
+            "qps": len(queries) / wall, "launches": dict(loader.LAUNCHES),
+            "entry_launches": dict(loader.ENTRY_LAUNCHES),
+            "merged_batches": batches + counts["merges"],
+            "delta_s": counts["delta_s"],
+            "delta_share": counts["delta_s"] / wall}
+
+
+def _corpus_bytes(corpus) -> int:
+    return sum(int(getattr(corpus, f).nbytes)
+               for f in ("base", "adjacency", "codes", "centroids"))
+
+
+def stream_phase(torch, idx, flat_qps: dict, build_peak: int, seed: int,
+                 out_dir, log) -> dict:
+    """The streaming target on the main path's index: a ``MutableIndex``
+    over it (the rebuilt base is the mutable's own; ``idx`` is untouched)
+    at ``StreamConfig``'s defaults, served by ``ServingEngine(mutable,
+    batch_size=256)`` and the continuous engine (slots=256), both with
+    ``auto_consolidate=False`` so that the full delta is served before the
+    capacity-forced consolidation.  Updates, from ``seed``: STREAM_DELETES
+    random base ext ids and each of the first 2,048 queries' exact top-1
+    base neighbour tombstoned; ``delta_capacity`` (4,096) inserts, each a
+    random base vector plus N(0, 0.1^2) noise, through the continuous
+    engine, filling the delta.  STREAM_QUERIES of the main path's queries and
+    STREAM_SELF_QUERIES of the inserted vectors are served through both
+    engines and ``merged_search_kernel``; then, with 256 continuous lanes in
+    flight, insert number 4,097 consolidates inside ``insert``, and the
+    same sets are served again.  Records inserts a second, QPS beside the
+    flat engine's, the delta search's share of the wall time, recall@10
+    against the exact kNN of ``live_vectors()`` (on the card), the
+    consolidation's seconds by build stage, device memory around it (at
+    its start, when the rebuild starts, at the rebuild's peak, after it;
+    ``build_peak`` is the main path's build's peak over its start) and
+    ``write_amplification()``; ``stream_failures`` checks them.  The
+    inserts, the self-queries' rows and the delta's search ids for them go
+    to ``out_dir/stream_inserts.npz``, for ``tests/_delta_self_recall.py``
+    to replay through the reference's delta segment."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.dataset import exact_knn, recall_at_k
+    from repro_torch.plan.rounds import RoundSession
+    import repro_torch.stream.mutable as mutable_mod
+    from repro_torch.serve import ServingEngine
+    from repro_torch.stream import MutableIndex, merged_search_kernel
+    from repro_torch.stream.delta import DeltaSegment
+
+    t_phase = time.perf_counter()
+    dev = idx.device
+    rng = np.random.default_rng(seed + 17)
+    n = idx.dataset.num_base
+    mutable = MutableIndex(idx)
+    cap = mutable.stream_cfg.delta_capacity
+    queries = idx.dataset.queries[:STREAM_QUERIES]
+    dead = np.union1d(rng.choice(n, STREAM_DELETES, replace=False),
+                      idx.dataset.gt[:2048, 0]).astype(np.int64)
+    picks = idx.dataset.base[rng.choice(n, cap + 1)]
+    inserts = (picks + 0.1 * rng.standard_normal(picks.shape)).astype(
+        np.float32)
+    self_rows = rng.choice(cap, STREAM_SELF_QUERIES, replace=False)
+    served = np.concatenate([queries, inserts[self_rows]])
+    kw = dict(batch_size=256, auto_consolidate=False)
+    cont = ServingEngine(mutable, continuous=True, slots=256, **kw)
+    batch = ServingEngine(mutable, **kw)
+    out = {"stream_cfg": dataclasses.asdict(mutable.stream_cfg),
+           "queries": len(queries), "self_queries": STREAM_SELF_QUERIES}
+
+    t0 = time.perf_counter()
+    for e in dead:
+        cont.delete(int(e))
+    out["delete_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ext_ins = np.array([cont.insert(v) for v in inserts[:cap]], np.int64)
+    out["insert_s"] = time.perf_counter() - t0
+    out["inserts_per_s"] = cap / out["insert_s"]
+    out["delta_full"] = bool(mutable.delta_full)
+    log(f"streaming: {len(dead)} deletes in {out['delete_s']:.2f} s, {cap} "
+        f"inserts in {out['insert_s']:.1f} s ({out['inserts_per_s']:.2f} "
+        f"inserts/s on the host), delta full {out['delta_full']}")
+
+    counts = {}
+    real_search, real_complete = DeltaSegment.search_batch, \
+        RoundSession.complete
+
+    def search_batch(self, q, k):
+        a = time.perf_counter()
+        res = real_search(self, q, k)
+        counts["delta_s"] += time.perf_counter() - a
+        return res
+
+    def complete(self, q, core):
+        counts["merges"] += self.plan.kind == "merged"
+        return real_complete(self, q, core)
+
+    def segment_found(rows, in_delta):
+        """Whether the search of the segment holding each of the inserted
+        vectors ``rows`` returns it among the merged kernel's candidates
+        from that segment (k + over-fetch): the delta's greedy search while
+        it is there, the base's graph search after the consolidation."""
+        k_seg = 10 + mutable.stream_cfg.base_overfetch
+        vecs = inserts[rows]
+        if in_delta:                # delta local id i is insert i
+            ids, _ = mutable.delta.search_batch(vecs, k_seg)
+            return [r in row for r, row in zip(rows, ids)]
+        from repro_torch.core.search import graph_search
+
+        cfg = dataclasses.replace(mutable.base.config.search, k=k_seg)
+        res = graph_search(mutable.corpus(), vecs, cfg, mutable.metric)
+        ext = mutable.ext_base[res.ids.clamp(min=0).cpu().numpy()]
+        return [e in row for e, row in zip(ext_ins[rows], ext)]
+
+    def check(name, runs, in_delta):
+        """Hold a before/after pair of runs: bit-equal engines, ids equal
+        merged_search_kernel's, no tombstoned id, recall, self hits."""
+        ext_ids, vecs = mutable.live_vectors()
+        gt = ext_ids[exact_knn(queries, vecs, 10, "l2", device=dev)]
+        b, c = runs["batch"], runs["continuous"]
+        kernel_ids = np.concatenate([
+            merged_search_kernel(mutable, served[s : s + 256]).ids
+            for s in range(0, len(served), 256)])
+        rec = {
+            "batch": {k: v for k, v in b.items() if k not in ("ids", "dists")},
+            "continuous": {k: v for k, v in c.items()
+                           if k not in ("ids", "dists")},
+            "engines_equal": bool(np.array_equal(b["ids"], c["ids"])
+                                  and np.array_equal(b["dists"], c["dists"])),
+            "equals_kernel": bool(np.array_equal(b["ids"], kernel_ids)),
+            "tombstones_returned": int(np.isin(b["ids"], dead).sum()
+                                       + np.isin(c["ids"], dead).sum()),
+            "recall_at_10": recall_at_k(b["ids"][: len(queries)], gt, 10),
+            "live": int(len(ext_ids)),
+        }
+        found = np.array([ext_ins[r] in row for r, row in
+                          zip(self_rows, b["ids"][len(queries):])])
+        missed = self_rows[~found]
+        rec["self_found"] = float(found.mean())
+        rec["self_missed"] = missed.tolist()
+        # a miss the segment's own search also makes is the algorithm's;
+        # one it does not make would be the merge's
+        rec["self_missed_by_segment"] = int(
+            len(missed) - sum(segment_found(missed, in_delta)))
+        log(f"streaming {name}: batch QPS={b['qps']:.1f} (flat "
+            f"{flat_qps['batch']:.1f}) continuous QPS={c['qps']:.1f} (flat "
+            f"{flat_qps['continuous']:.1f}); delta search share of the wall "
+            f"time batch {b['delta_share']:.3f} continuous "
+            f"{c['delta_share']:.3f}; recall@10={rec['recall_at_10']:.4f} "
+            f"over {rec['live']} live vectors; self-queries found "
+            f"{rec['self_found']:.4f} (missed {len(rec['self_missed'])}, the "
+            f"segment's own search missed {rec['self_missed_by_segment']} of "
+            f"them); engines equal {rec['engines_equal']}, "
+            f"== merged_search_kernel {rec['equals_kernel']}; tombstoned ids "
+            f"returned {rec['tombstones_returned']}; merged batches "
+            f"{b['merged_batches']} / {c['merged_batches']}, sort-entry "
+            f"launches {b['entry_launches'].get('bitonic_sort_launch', 0)} / "
+            f"{c['entry_launches'].get('bitonic_sort_launch', 0)}; launches "
+            f"{json.dumps(b['launches'])} / {json.dumps(c['launches'])}")
+        return rec
+
+    DeltaSegment.search_batch, RoundSession.complete = search_batch, complete
+    try:
+        before = {"batch": _stream_serve(batch, served, False, counts),
+                  "continuous": _stream_serve(cont, served, True, counts)}
+        out["before"] = check("before the consolidation", before, True)
+        # the delta's own search of the self-queries, as the merge calls it
+        seg_ids, _ = mutable.delta.search_batch(
+            inserts[self_rows], 10 + mutable.stream_cfg.base_overfetch)
+        seg_found = np.array([r in row for r, row in zip(self_rows, seg_ids)])
+        np.savez(out_dir / "stream_inserts.npz", inserts=inserts,
+                 self_rows=self_rows, centroids=mutable.delta.centroids,
+                 port_ids=seg_ids, port_missed=self_rows[~seg_found])
+        # 256 lanes in flight, then the capacity-forced consolidation
+        rids = [cont.submit(v) for v in served]
+        cont.step()
+        flying = [r.rid for p in cont._pools.values() for r in p.requests
+                  if r is not None]
+        real_consolidate = mutable.consolidate
+        real_build = mutable_mod.build_index
+        seen = {}
+
+        def consolidate(*a, **k):
+            seen["retired_first"] = all(r in cont.done for r in flying)
+            torch.cuda.synchronize()
+            seen["mem_before"] = torch.cuda.memory_allocated()
+            seen["old_corpus"] = _corpus_bytes(mutable.corpus())
+            torch.cuda.reset_peak_memory_stats()
+            return real_consolidate(*a, **k)
+
+        def build_index(*a, **k):
+            torch.cuda.synchronize()
+            seen["mem_rebuild_start"] = torch.cuda.memory_allocated()
+            return real_build(*a, **k)
+
+        mutable.consolidate, mutable_mod.build_index = \
+            consolidate, build_index
+        t0 = time.perf_counter()
+        try:
+            cont.insert(inserts[cap])
+        finally:
+            del mutable.consolidate
+            mutable_mod.build_index = real_build
+        torch.cuda.synchronize()
+        out["consolidate_insert_s"] = time.perf_counter() - t0
+        out.update(
+            lanes_in_flight=len(flying),
+            lanes_retired_before_rebuild=seen.get("retired_first", False),
+            consolidate_stage_s=mutable.consolidate_stage_s,
+            mem_before_bytes=seen.get("mem_before"),
+            old_corpus_bytes=seen.get("old_corpus"),
+            mem_rebuild_start_bytes=seen.get("mem_rebuild_start"),
+            mem_rebuild_peak_bytes=torch.cuda.max_memory_allocated(),
+            build_peak_bytes=build_peak,
+            mem_after_bytes=torch.cuda.memory_allocated())
+        cont.drain()
+        out["inflight_run_complete"] = all(r in cont.done for r in rids)
+        mutable.corpus()                     # the new base on the card
+        torch.cuda.synchronize()
+        after = {"batch": _stream_serve(batch, served, False, counts),
+                 "continuous": _stream_serve(cont, served, True, counts)}
+        out["after"] = check("after the consolidation", after, False)
+    finally:
+        DeltaSegment.search_batch, RoundSession.complete = \
+            real_search, real_complete
+    out["stats"] = {k: cont.stats[k]
+                    for k in ("inserts", "deletes", "consolidations")}
+    out["deletes_applied"] = len(dead)
+    out["write_amplification"] = mutable.write_amplification()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"streaming consolidation inside insert {cap + 1}: "
+        f"{out['consolidate_insert_s']:.1f} s, stages "
+        f"{json.dumps(out['consolidate_stage_s'])}; {len(flying)} lanes in "
+        f"flight retired before the rebuild: "
+        f"{out['lanes_retired_before_rebuild']}; device memory bytes: "
+        f"{out['mem_before_bytes']} at its start (the old corpus "
+        f"{out['old_corpus_bytes']}), {out['mem_rebuild_start_bytes']} when "
+        f"the rebuild starts, peak {out['mem_rebuild_peak_bytes']} (one "
+        f"build's peak over its start: {build_peak}), "
+        f"{out['mem_after_bytes']} after; "
+        f"engine stats {json.dumps(out['stats'])}; write amplification "
+        f"{out['write_amplification']:.4f}; streaming phase "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
+def stream_failures(rec: dict) -> list:
+    """The streaming phase's checks."""
+    fails = []
+    cap = rec["stream_cfg"]["delta_capacity"]
+    if not rec["delta_full"]:
+        fails.append("the delta was not full after the inserts")
+    for when in ("before", "after"):
+        r = rec[when]
+        if r["tombstones_returned"]:
+            fails.append(f"streaming {when}: {r['tombstones_returned']} "
+                         "tombstoned ids returned")
+        if not r["engines_equal"]:
+            fails.append(f"streaming {when}: batch and continuous differ")
+        if not r["equals_kernel"]:
+            fails.append(f"streaming {when}: engine ids differ from "
+                         "merged_search_kernel's")
+        if r["recall_at_10"] < 0.5:
+            fails.append(f"streaming {when}: recall@10 "
+                         f"{r['recall_at_10']:.4f} < 0.5")
+        if r["self_missed_by_segment"] != len(r["self_missed"]):
+            fails.append(f"streaming {when}: the merge dropped an inserted "
+                         f"vector its segment's search found")
+        if r["self_found"] < STREAM_SELF_FLOOR:
+            fails.append(f"streaming {when}: inserted vectors found "
+                         f"themselves in {r['self_found']:.4f} of queries "
+                         f"< {STREAM_SELF_FLOOR}")
+        for eng in ("batch", "continuous"):
+            e = r[eng]
+            sorts = e["entry_launches"].get("bitonic_sort_launch", 0)
+            if sorts != e["merged_batches"]:
+                fails.append(f"streaming {when} {eng}: {sorts} sort-entry "
+                             f"launches for {e['merged_batches']} merged "
+                             "batches")
+            if min(e["launches"].values()) <= 0:
+                fails.append(f"streaming {when} {eng}: a kernel never "
+                             f"launched: {e['launches']}")
+    s = rec["stats"]
+    if s["consolidations"] != 1 or s["inserts"] != cap + 1 \
+            or s["deletes"] != rec["deletes_applied"] \
+            or s["deletes"] < STREAM_DELETES:
+        fails.append(f"streaming engine stats {s}")
+    if not rec["lanes_in_flight"] or not rec["lanes_retired_before_rebuild"]:
+        fails.append(f"{rec['lanes_in_flight']} lanes in flight, retired "
+                     f"before the rebuild: "
+                     f"{rec['lanes_retired_before_rebuild']}")
+    if not rec["inflight_run_complete"]:
+        fails.append("the run in flight at the consolidation did not finish")
+    if rec["mem_before_bytes"] is None \
+            or rec["mem_rebuild_start_bytes"] is None:
+        fails.append("the consolidation's memory was not read")
+        return fails
+    # the old base's corpus is freed before the rebuild allocates the new
+    # one, and the rebuild's peak is one build's on top of what remains
+    freed = rec["mem_before_bytes"] - rec["old_corpus_bytes"]
+    if rec["mem_rebuild_start_bytes"] > freed + (64 << 20):
+        fails.append(f"the old corpus was held into the rebuild: "
+                     f"{rec['mem_rebuild_start_bytes']} bytes at its start, "
+                     f"{freed} without the old corpus")
+    if rec["mem_rebuild_peak_bytes"] > freed + rec["build_peak_bytes"] \
+            + (128 << 20):
+        fails.append(f"the rebuild's peak {rec['mem_rebuild_peak_bytes']} "
+                     f"bytes exceeds {freed} + one build's "
+                     f"{rec['build_peak_bytes']}")
+    if rec["mem_after_bytes"] > rec["mem_before_bytes"] + (64 << 20):
+        fails.append(f"device memory grew across the consolidation: "
+                     f"{rec['mem_before_bytes']} -> {rec['mem_after_bytes']}")
+    return fails
+
+
 def obs_failures(rec: dict) -> list:
     """The observability phase's checks."""
     fails = []
@@ -1546,6 +1941,14 @@ def main(argv=None) -> int:
     log(f"kernels built in {detail['kernel_build_s']:.1f} s "
         f"({', '.join(reports) or 'cached'})")
 
+    phase_s = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+
     res, ds, idx, gpu_ids, gpu_dists = main_path(torch, dev, args, log)
     log(f"launches on the main path: {json.dumps(res['launches'])}")
     log(f"served {args.num_queries} queries in {res['wall_s']:.3f} s: "
@@ -1560,22 +1963,33 @@ def main(argv=None) -> int:
         f"fetches covered by hot-node pages {res['mean_free_pq']:.2f}")
     res["rerank_density"] = rerank_density(torch, idx)
     log(f"exact-distance mask density: {json.dumps(res['rerank_density'])}")
+    mark("main")
 
     cont = continuous_phase(torch, idx, gpu_ids, gpu_dists, log)
+    mark("continuous")
     filt, store = filtered_phase(torch, idx, log)
     filt["masked_density"] = masked_density(torch, idx, store)
     log(f"exact-distance mask density, masked search: "
         f"{json.dumps(filt['masked_density'])}")
+    mark("filtered")
 
     tiled, tiles = tiled_phase(torch, idx, gpu_ids, log)
+    mark("tiled")
     segmented, seg = segmented_phase(torch, idx.config, ds, dev, log)
     del ds
+    mark("segmented")
     observed = obs_phase(torch, idx, tiles, seg, log)
     del tiles, seg
+    mark("observability")
+    streamed = stream_phase(torch, idx, {"batch": res["qps"],
+                                         "continuous": cont["qps"]},
+                            res["build_peak_bytes"], args.seed, out_dir, log)
+    mark("streaming")
 
     scan_pass = int(store.mask(_specs()["range_price_0_9"]).sum())
     kernels = kernel_phase(torch, dev, args.num_base, res["rerank_density"],
                            filt["masked_density"], scan_pass, args.seed)
+    mark("kernels")
     tiled_launches = {k: sum(v["launches"][k]
                              for v in tiled["variants"].values())
                       for k in res["launches"]}
@@ -1583,7 +1997,8 @@ def main(argv=None) -> int:
              "filtered_continuous": filt["continuous"]["launches"],
              "filtered_batch": filt["batch"]["launches"],
              "tiled": tiled_launches, "segmented": segmented["launches"],
-             "obs": observed["batch"]["launches"]}
+             "obs": observed["batch"]["launches"],
+             "stream": streamed["before"]["batch"]["launches"]}
     for k in kernels:
         k["launches"] = res["launches"][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -1614,10 +2029,13 @@ def main(argv=None) -> int:
     cont["profile"] = profile_ticks(torch, idx, out_dir)
     log(f"continuous ticks, timed and profiled: "
         f"{json.dumps(cont['profile'])}")
+    mark("cross_device_and_profiles")
+    detail["phase_s"] = phase_s
+    log(f"seconds by phase (the kernel build apart): {json.dumps(phase_s)}")
 
     detail.update(card=card, kernels=kernels, main=res, continuous=cont,
                   filtered=filt, tiled=tiled, segmented=segmented,
-                  observability=observed)
+                  observability=observed, streaming=streamed)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     failures = []
@@ -1688,6 +2106,7 @@ def main(argv=None) -> int:
         failures.append(f"segmented flat: recall@10 "
                         f"{segmented['flat']['recall_at_10']:.4f} < 0.5")
     failures.extend(obs_failures(observed))
+    failures.extend(stream_failures(streamed))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

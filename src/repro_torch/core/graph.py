@@ -27,7 +27,13 @@ time, keeps one node per step, and stops once r are kept — the same rule
 over the same order.  Distances round differently from
 numpy's, so a near-tie can resolve the other way; on the test corpus the
 rows agree (PERF.md).
-``build_incremental`` is not ported (ROADMAP).
+
+``build_incremental`` (the faithful Vamana: points inserted one at a time,
+greedy-searched from the medoid, the visited set robust-pruned, reverse
+edges re-pruned on overflow) and its two helpers, ``_greedy_search_np`` and
+the one-node ``robust_prune``, are the reference's numpy, copied as they
+are (``heapq`` order and stable sorts included): they run on the host for
+any device, and ``stream.delta`` builds on them.
 """
 from __future__ import annotations
 
@@ -103,6 +109,47 @@ def medoid(base: np.ndarray, metric: str, sample: int = 4096, seed: int = 0) -> 
     centroid = base.mean(0, keepdims=True)
     d = pairwise_dist(centroid, base[idx], metric)[0]
     return int(idx[np.argmin(d)])
+
+
+def robust_prune(cand_ids: np.ndarray, cand_dists: np.ndarray,
+                 base: np.ndarray, metric: str, r: int, alpha: float) -> list:
+    """Vamana RRND rule for one node (the reference's numpy): greedily keep
+    the closest candidate p, discard any remaining candidate x with
+    alpha * dist(p, x) <= dist(query, x)."""
+    order = np.argsort(cand_dists, kind="stable")
+    ids = cand_ids[order]
+    dists = cand_dists[order]
+    kept: list = []
+    alive = np.ones(len(ids), dtype=bool)
+    for i in range(len(ids)):
+        if not alive[i]:
+            continue
+        p = int(ids[i])
+        kept.append(p)
+        if len(kept) >= r:
+            break
+        rest = np.where(alive)[0]
+        rest = rest[rest > i]
+        if rest.size:
+            d_p = pairwise_dist(base[p : p + 1], base[ids[rest]], metric)[0]
+            alive[rest[alpha * d_p <= dists[rest]]] = False
+    return kept
+
+
+def _pad_rows_np(rows, r, n):
+    """The reference's row padding in numpy: rows deduplicated, self-loops
+    dropped, an empty row given node (i + 1) % n, padded with the last
+    entry."""
+    adj = np.empty((n, r), dtype=np.int32)
+    deg = np.empty((n,), dtype=np.int32)
+    for i, row in enumerate(rows):
+        row = list(dict.fromkeys(int(v) for v in row if v != i))[:r]
+        if not row:
+            row = [(i + 1) % n]
+        deg[i] = len(row)
+        adj[i, : len(row)] = row
+        adj[i, len(row):] = row[-1]
+    return adj, deg
 
 
 def _compact(rows: torch.Tensor, keep: torch.Tensor, width: int) -> torch.Tensor:
@@ -510,12 +557,77 @@ def add_stage_times(out: dict | None, times: dict, prefix: str) -> None:
             out[prefix + k] = out.get(prefix + k, 0.0) + v
 
 
+def _greedy_search_np(base, adj, deg, entry, query, metric, list_size):
+    """Plain best-first search (the HNSW/DiskANN inner loop) returning the
+    visited set with distances, ascending — the incremental builder's and
+    the delta segment's search (the reference's numpy)."""
+    import heapq
+
+    d0 = float(pairwise_dist(query[None], base[entry : entry + 1],
+                             metric)[0, 0])
+    cand = [(d0, entry)]           # min-heap of unexpanded
+    best: dict = {entry: d0}       # id -> dist of everything scored
+    expanded = set()
+    while cand:
+        d, v = heapq.heappop(cand)
+        topl = sorted(best.values())[: list_size]
+        if d > topl[-1] and len(best) >= list_size:
+            break
+        if v in expanded:
+            continue
+        expanded.add(v)
+        neigh = [int(u) for u in adj[v, : deg[v]] if int(u) not in best]
+        neigh = list(dict.fromkeys(neigh))
+        if not neigh:
+            continue
+        nd = pairwise_dist(query[None], base[neigh], metric)[0]
+        for u, du in zip(neigh, nd):
+            best[u] = float(du)
+            heapq.heappush(cand, (float(du), u))
+    order = sorted(best.items(), key=lambda kv: kv[1])
+    return order, expanded
+
+
+def build_incremental(base: np.ndarray, cfg: GraphConfig,
+                      metric: str) -> Graph:
+    """The faithful Vamana build on the host (the reference's numpy): random
+    bootstrap edges, then every point in a seeded random order is
+    greedy-searched from the medoid, its visited set robust-pruned into its
+    row, and reverse edges added with an overflow re-prune."""
+    n = base.shape[0]
+    r = cfg.max_degree
+    rng = np.random.default_rng(cfg.seed)
+    start = medoid(base, metric, seed=cfg.seed)
+    rows: list = [[] for _ in range(n)]
+    for i in range(n):           # bootstrap: random initial edges
+        rows[i] = [int(v) for v in rng.choice(n, size=min(4, n - 1),
+                                              replace=False) if v != i]
+    adj, deg = _pad_rows_np(rows, r, n)
+    order = rng.permutation(n)
+    for i in order:
+        scored, _ = _greedy_search_np(base, adj, deg, start, base[i], metric,
+                                      cfg.build_list_size)
+        cand = np.asarray([v for v, _ in scored if v != i], dtype=np.int64)
+        cd = np.asarray([d for v, d in scored if v != i], dtype=np.float32)
+        kept = robust_prune(cand, cd, base, metric, r, cfg.alpha)
+        rows[i] = kept
+        for j in kept:           # reverse edges with overflow re-prune
+            if i not in rows[j]:
+                rows[j].append(i)
+                if len(rows[j]) > r:
+                    cj = pairwise_dist(base[j : j + 1], base[rows[j]],
+                                       metric)[0]
+                    rows[j] = robust_prune(np.asarray(rows[j]), cj, base,
+                                           metric, r, cfg.alpha)
+        adj, deg = _pad_rows_np(rows, r, n)
+    return Graph(adjacency=adj, degrees=deg, entry_point=start, metric=metric)
+
+
 def build_graph(base: np.ndarray, cfg: GraphConfig, metric: str,
                 method: str = "knn_prune", device="cuda",
                 stage_times: dict | None = None) -> Graph:
     if method == "knn_prune":
         return build_knn_prune(base, cfg, metric, device, stage_times)
-    if method == "incremental":
-        raise NotImplementedError("build_incremental is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    if method == "incremental":          # the host's numpy, any device
+        return build_incremental(base, cfg, metric)
     raise ValueError(f"unknown graph build method {method!r}")

@@ -1,23 +1,28 @@
 """QueryPlanner — request + index capabilities -> executable ``QueryPlan``;
-port of ``src/repro/plan/planner.py`` for flat and tiled targets.
+port of ``src/repro/plan/planner.py`` for flat, tiled and mutable targets.
 
-A plan's ``kind`` is its execution spine: ``flat`` (one traversal) or
+A plan's ``kind`` is its execution spine: ``flat`` (one traversal),
 ``tiled`` (per-channel fan-out + cross-tile merge, ``shard.
-sharded_search_kernel``).  Its ``strategy`` says where the filter runs:
+sharded_search_kernel``) or ``merged`` (a mutable index: the base search
+plus the host delta segment, fused with the tombstones, ``stream.searcher.
+merged_search_kernel``).  Its ``strategy`` says where the filter runs:
 ``none``, ``masked`` traversal (inflated frontier, ``filter.
 adapt_search_cfg``; on tiles with per-tile node masks, ``filter.
-tile_node_masks``), bitmap PQ ``scan``, or the ``empty`` short-circuit — the
-flat selectivity regime switch of ``_filter_strategy``.  ``round_session``
-gives the steppable form of the flat ``none`` and ``masked`` plans
-(``plan.rounds.RoundSession``), which the continuous engine runs one round
-at a time; tiled plans have none (``None``, as in the reference), so the
-engine flushes them through the batch path.  Merged and distributed plans
-raise, naming the ROADMAP item that ports them.  The plan cache,
-``QueryPlan.cache_key`` (the serving layer's batching identity) and the
-per-plan artifact cache (compiled pass masks) are the reference's.  With an
-enabled ``obs=`` bundle the planner counts plan-cache hits, misses and
-compiled plans and wraps each execution in a ``kernel-execute`` span and
-the ``kernel_execute_ms`` histogram, as the reference does.
+tile_node_masks``), bitmap PQ ``scan``, the ``empty`` short-circuit — the
+flat selectivity regime switch of ``_filter_strategy`` — or ``adaptive``
+(merged plans: the admission mask depends on the live tombstone set, so the
+regime is decided at execute time).  ``round_session`` gives the steppable
+form of the flat ``none`` and ``masked`` plans and of merged plans over a
+flat base whose live regime is a traversal (``plan.rounds.RoundSession``),
+which the continuous engine runs one round at a time; tiled plans, scans
+and empty plans have none (``None``, as in the reference), so the engine
+flushes them through the batch path.  Distributed plans raise, naming the
+ROADMAP item that ports them.  The plan cache, ``QueryPlan.cache_key`` (the
+serving layer's batching identity) and the per-plan artifact cache
+(compiled pass masks) are the reference's.  With an enabled ``obs=`` bundle
+the planner counts plan-cache hits, misses and compiled plans and wraps
+each execution in a ``kernel-execute`` span and the ``kernel_execute_ms``
+histogram, as the reference does.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ from repro_torch.plan.request import SearchRequest, SearchStats
 @dataclasses.dataclass(frozen=True)
 class IndexCapabilities:
     """What the opened index supports (derived once by ``Searcher.open``)."""
-    kind: str                        # flat | tiled (the kinds ported)
+    kind: str                        # flat | tiled | merged
+    mutable: bool = False
     tiled: bool = False
     num_tiles: int = 1
 
@@ -49,8 +55,8 @@ class IndexCapabilities:
 class QueryPlan:
     """One executable strategy.  Frozen and hashable: ``cache_key`` is the
     serving layer's batching identity and the artifact-cache key."""
-    kind: str
-    strategy: str                    # none | masked | scan | empty
+    kind: str                        # flat | tiled | merged
+    strategy: str                    # none | masked | scan | empty | adaptive
     cfg: SearchConfig                # EFFECTIVE config executed (adapted)
     metric: str
     spec: Optional[FilterSpec] = None
@@ -95,10 +101,9 @@ def _mean_counters(res) -> dict:
 
 
 def _unported_kind(kind: str) -> NotImplementedError:
-    item = {"merged": "item 10 (stream/)",
-            "distributed": "item 15 (distributed)"}.get(kind, "items 10-15")
     return NotImplementedError(
-        f"{kind} plans are not ported yet: ROADMAP Queue 1 {item}")
+        f"{kind} plans are not ported yet: ROADMAP Queue 1 item 15 "
+        "(distributed)")
 
 
 def flat_filtered_search(corpus, queries, mask, cfg: SearchConfig,
@@ -118,12 +123,13 @@ def flat_filtered_search(corpus, queries, mask, cfg: SearchConfig,
 
 class QueryPlanner:
     """Compiles ``SearchRequest`` -> ``QueryPlan`` and executes plans over
-    one opened flat corpus or tiled corpus.  Owns the plan cache and the
-    per-plan artifact cache (compiled masks, per-tile mask slices)."""
+    one opened flat corpus, tiled corpus or mutable index.  Owns the plan
+    cache and the per-plan artifact cache (compiled masks, per-tile mask
+    slices)."""
 
     def __init__(self, *, capabilities: IndexCapabilities, cfg: SearchConfig,
                  metric: str, filter_cfg: FilterConfig, plan_cfg: PlanConfig,
-                 corpus=None, tiled=None, attributes=None,
+                 corpus=None, tiled=None, mutable=None, attributes=None,
                  probe_tiles: int = 0, obs: Optional[Observability] = None):
         self.capabilities = capabilities
         self.cfg = cfg
@@ -132,6 +138,7 @@ class QueryPlanner:
         self.plan_cfg = plan_cfg
         self.corpus = corpus
         self.tiled = tiled
+        self.mutable = mutable
         self.attributes = attributes
         self.probe_tiles = int(probe_tiles or 0)
         self._plan_cache: Dict[tuple, QueryPlan] = {}
@@ -244,6 +251,14 @@ class QueryPlanner:
         )
 
         cfg = self._effective_cfg(request)
+        if self.capabilities.mutable:
+            # the admission mask depends on the live tombstone set, so the
+            # regime is decided inside the merged kernel at execute time
+            return QueryPlan(kind="merged",
+                             strategy="none" if spec is None else "adaptive",
+                             cfg=cfg, spec=spec,
+                             attr_bits=self._attr_bits() if spec else 0,
+                             **self._common(request))
         kind = "tiled" if self.capabilities.tiled else "flat"
         if spec is None:
             return QueryPlan(kind=kind, strategy="none", cfg=cfg,
@@ -267,11 +282,16 @@ class QueryPlanner:
         """Plans for caller-compiled masks.  ``adaptive`` selects the
         regime switch + config adaptation vs the verbatim
         ``graph_search(node_mask=...)`` traversal."""
+        kind = self.capabilities.kind
+        if kind not in ("flat", "tiled"):
+            raise NotImplementedError(
+                "precompiled node masks apply to flat or tiled targets only "
+                f"(target is {kind}); use FilterSpec requests instead")
         cfg = self._effective_cfg(request)
         self._mask_tokens += 1
         common = dict(self._common(request), mask_token=self._mask_tokens)
         mask = np.asarray(request.node_mask, bool)
-        if self.capabilities.tiled:
+        if kind == "tiled":
             # per-tile slices, applied verbatim (the caller adapts the
             # config, as the reference's tiled entry point leaves it to)
             plan = QueryPlan(kind="tiled", strategy="masked", cfg=cfg,
@@ -293,14 +313,17 @@ class QueryPlanner:
         RoundSession``), or ``None`` when the plan has no per-round spine —
         tiled fan-outs, bitmap scans, empty short-circuits, one-shot
         mask-token plans — in which case callers fall back to whole-batch
-        ``execute``."""
+        ``execute``.  Merged plans decide the live filter regime here, as
+        the merged kernel does at execute time, and are steppable only when
+        it is a traversal of a single-tile base."""
         from repro_torch.plan.rounds import RoundSession
 
-        if plan.kind == "tiled":
-            return None
-        if plan.kind != "flat":
+        if plan.kind == "distributed":
             raise _unported_kind(plan.kind)
-        if plan.mask_token or plan.strategy not in ("none", "masked"):
+        if plan.kind == "merged":
+            return self._merged_session(plan)
+        if plan.kind != "flat" or plan.mask_token \
+                or plan.strategy not in ("none", "masked"):
             return None
         pc = self.plan_cfg
         common = dict(planner=self, plan=plan, corpus=self.corpus,
@@ -310,6 +333,41 @@ class QueryPlanner:
             return RoundSession(**common)
         return RoundSession(node_mask=self._device_mask(plan),
                             selectivity=plan.selectivity, **common)
+
+    def _merged_session(self, plan: QueryPlan):
+        """The merged plan's session over the mutable's current base: the
+        base over-fetch k, the merged kernel's own Bloom parameters (its
+        ``graph_search`` defaults, not the ``PlanConfig``'s: bit-identity),
+        and for a filtered plan the combined filter ∧ ¬tombstone admission
+        mask against the live tombstones, pinned for the session."""
+        from repro_torch.filter.traversal import adapt_search_cfg
+        from repro_torch.plan.rounds import RoundSession
+
+        mut = self.mutable
+        if mut is None or getattr(mut, "num_tiles", 1) > 1:
+            return None
+        k = plan.cfg.k
+        k_base = min(plan.cfg.list_size, k + mut.stream_cfg.base_overfetch)
+        base_cfg = dataclasses.replace(plan.cfg, k=k_base) \
+            if k_base != k else plan.cfg
+        common = dict(planner=self, plan=plan, metric=mut.metric,
+                      bloom_bits=1 << 17, num_hashes=8, mutable=mut)
+        if plan.strategy == "none":
+            return RoundSession(corpus=mut.corpus(), cfg=base_cfg, **common)
+        fcfg = upgrade_config(mut.base.config).filter
+        base_mask, ext_mask = mut.filter_masks(plan.spec)
+        base_mask = np.asarray(base_mask, bool)
+        n_pass = int(base_mask.sum())
+        sel = n_pass / max(base_mask.size, 1)
+        if n_pass == 0 or sel <= fcfg.brute_force_selectivity \
+                or n_pass <= base_cfg.k:
+            return None              # scan / empty regimes: not steppable
+        corpus = mut.corpus()
+        return RoundSession(
+            corpus=corpus, cfg=adapt_search_cfg(base_cfg, sel, fcfg),
+            node_mask=torch.as_tensor(base_mask, device=corpus.base.device),
+            ext_mask=ext_mask, selectivity=sel, base_mode="traversal",
+            **common)
 
     def _artifacts_for(self, plan: QueryPlan) -> dict:
         """Compiled artifacts for a plan.  Spec-keyed plans keep theirs
@@ -367,6 +425,16 @@ class QueryPlanner:
         q_np = np.atleast_2d(np.asarray(queries, np.float32))
         if plan.kind == "tiled":
             return self._execute_tiled(plan, q_np)
+        if plan.kind == "merged":
+            from repro_torch.stream.searcher import merged_search_kernel
+
+            res = merged_search_kernel(
+                self.mutable, q_np, plan.cfg,
+                probe_tiles=plan.probe_tiles or None, filter_spec=plan.spec)
+            return Execution(ids=res.ids, dists=res.dists, raw=res,
+                             counters=res.base, selectivity=res.selectivity,
+                             delta_candidates=float(
+                                 np.asarray(res.delta_candidates).mean()))
         if plan.kind != "flat":
             raise _unported_kind(plan.kind)
         if plan.strategy == "none":

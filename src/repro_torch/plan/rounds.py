@@ -1,23 +1,27 @@
 """Round-stepped plan execution — port of ``src/repro/plan/rounds.py``, the
 bridge between the plan layer and the ``core.search`` round-step API.
 
-A :class:`RoundSession` is the steppable form of one flat ``QueryPlan``:
-where ``QueryPlanner.execute`` runs the plan's whole traversal, a session
-exposes the same traversal one round at a time (``init`` / ``step`` /
-``active`` / ``finalize``) so the continuous engine can retire finished
-lanes and refill their slots between rounds.  ``complete`` wraps a retired
-lane batch into the plan-layer ``SearchResult`` the batch executor returns
-for the same queries.
+A :class:`RoundSession` is the steppable form of one ``QueryPlan``: where
+``QueryPlanner.execute`` runs the plan's whole traversal, a session exposes
+the same traversal one round at a time (``init`` / ``step`` / ``active`` /
+``finalize``) so the continuous engine can retire finished lanes and refill
+their slots between rounds.  ``complete`` applies the plan's
+post-processing to a retired lane batch — the filtered-result wrapping, or
+the merged path's delta and tombstone fusion — and returns the plan-layer
+``SearchResult`` the batch executor returns for the same queries.
 
-Sessions exist for flat ``none`` (the plain traversal) and flat ``masked``
+Sessions exist for flat ``none`` (the plain traversal), flat ``masked``
 (masked traversal with the planner-cached mask, held on the corpus's
-device).  Merged sessions (the streaming base + delta segment) wait for
-ROADMAP Queue 1 item 10 and raise.  ``record_round`` appends per-round
-telemetry to an ``obs.ConvergenceLog``.
+device), and merged ``none`` / ``adaptive`` over a single-tile base (the
+base traversal stepped; ``stream.searcher._merge_base_delta`` fuses the
+retired lanes with the delta and tombstones read LIVE at retire time, while
+the base corpus and a filtered plan's admission mask stay pinned at the
+session's creation).  ``record_round`` appends per-round telemetry to an
+``obs.ConvergenceLog``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -33,20 +37,21 @@ class RoundSession:
     def __init__(self, *, planner, plan, corpus, cfg: SearchConfig,
                  metric: str, bloom_bits: int, num_hashes: int,
                  node_mask: Optional[torch.Tensor] = None,
-                 selectivity: float = 1.0):
-        if plan.kind != "flat":
-            raise NotImplementedError(
-                f"{plan.kind} round sessions are not ported yet: ROADMAP "
-                "Queue 1 item 10 (stream/) brings merged sessions")
+                 mutable=None, ext_mask: Optional[np.ndarray] = None,
+                 selectivity: float = 1.0, base_mode: str = "none"):
         self.planner = planner
         self.plan = plan
         self.corpus = corpus
-        self.cfg = cfg                  # EFFECTIVE traversal config
+        self.cfg = cfg                  # EFFECTIVE traversal config (merged
+                                        # sessions: base over-fetch k applied)
         self.metric = metric
         self.bloom_bits = int(bloom_bits)
         self.num_hashes = int(num_hashes)
         self._mask = node_mask
+        self.mutable = mutable
+        self.ext_mask = ext_mask
         self.selectivity = float(selectivity)
+        self.base_mode = base_mode
 
     # ------------------------------------------------------------- stepping
     def init(self, queries):
@@ -92,23 +97,49 @@ class RoundSession:
 
     # -------------------------------------------------------------- retire
     def complete(self, queries, core_res):
-        """Wrap a finalized lane batch into the plan-layer ``SearchResult``
-        the batch executor would have returned for the same queries."""
+        """Post-process a finalized lane batch into the plan-layer
+        ``SearchResult`` the batch executor would have returned for the same
+        queries: wrap filtered results, or (merged plans) fuse the base
+        candidates with the LIVE delta segment and tombstone set."""
         from repro_torch.plan.planner import Execution
         from repro_torch.plan.request import SearchResult as PlanSearchResult
 
         plan = self.plan
-        ids, dists = core_res.ids.cpu().numpy(), core_res.dists.cpu().numpy()
-        if plan.strategy == "masked":
+        if plan.kind == "merged":
+            from repro_torch.stream.searcher import (
+                MergedResult, _merge_base_delta,
+            )
+
+            q_np = np.atleast_2d(np.asarray(queries, np.float32))
+            ext_mask = self.ext_mask
+            if plan.spec is not None:
+                # re-derived LIVE: inserts after the session's creation
+                # extend the id space and their attribute rows must filter
+                # the delta stream; only the base admission mask is pinned
+                _, ext_mask = self.mutable.filter_masks(plan.spec)
+            ids, dists, n_delta = _merge_base_delta(
+                self.mutable, q_np, core_res.ids, core_res.dists, ext_mask,
+                plan.cfg.k)
+            raw: Any = MergedResult(
+                ids=ids, dists=dists, base=core_res,
+                delta_candidates=n_delta, selectivity=self.selectivity,
+                base_mode=self.base_mode)
+            ex = Execution(ids=ids, dists=dists, raw=raw, counters=core_res,
+                           selectivity=self.selectivity,
+                           delta_candidates=float(np.asarray(n_delta).mean()))
+        elif plan.strategy == "masked":
             from repro_torch.filter.traversal import FilteredSearchResult
 
+            ids = core_res.ids.cpu().numpy()
+            dists = core_res.dists.cpu().numpy()
             raw = FilteredSearchResult(
                 ids=ids, dists=dists, result=core_res, mode="traversal",
                 selectivity=plan.selectivity, effective=plan.cfg)
             ex = Execution(ids=ids, dists=dists, raw=raw, counters=core_res,
                            selectivity=plan.selectivity, delta_candidates=0.0)
         else:
-            ex = Execution(ids=ids, dists=dists, raw=core_res,
+            ex = Execution(ids=core_res.ids.cpu().numpy(),
+                           dists=core_res.dists.cpu().numpy(), raw=core_res,
                            counters=core_res, selectivity=1.0,
                            delta_candidates=0.0)
         stats = self.planner.stats_for(plan, ex)

@@ -1,25 +1,26 @@
 """``Searcher`` — the host-side query API; port of
 ``src/repro/plan/searcher.py`` (``open`` on an index, a segment-built
-index, a ``Corpus`` or a ``TiledCorpus``; ``search``, ``plan``,
-``execute``, ``round_session``).
+index, a ``stream.MutableIndex``, a ``Corpus`` or a ``TiledCorpus``;
+``search``, ``plan``, ``execute``, ``round_session``).
 
     s = Searcher.open(index, num_tiles=4, shard_policy="cluster",
                       probe_tiles=2, attributes=store)
     res = s.search(SearchRequest(queries=q, k=10,
                                  filter=FilterSpec.eq("category", 3)))
     res.ids, res.dists                           # (Q, k) numpy
-    res.stats.as_dict(), res.plan.kind           # flat | tiled
+    res.stats.as_dict(), res.plan.kind           # flat | tiled | merged
 
-The search runs on the device of the opened corpus.  ``num_tiles > 1`` on a
-flat index partitions it (``ProximaIndex.sharded_corpus``, per-tile graphs
-rebuilt on the device); a ``core.segmented.SegmentedIndex`` is served
-through its segments as tiles.  ``obs=`` takes an ``obs.Observability``
-bundle (or an ``ObsConfig``): the planner then bills plan-cache traffic and
-kernel execution, and with a quality monitor ``search`` feeds the
-shadow-recall oracle (``shadow_ground_truth``, an exact kNN on the
-searcher's device).  Mutable and distributed targets, the vmapped tile
-fan-out and the mesh keywords are not ported yet and raise (ROADMAP Queue 1
-items 10, 15 and 19).
+The search runs on the device of the opened corpus (a mutable index's: its
+base index's).  ``num_tiles > 1`` on a flat index partitions it
+(``ProximaIndex.sharded_corpus``, per-tile graphs rebuilt on the device); a
+``core.segmented.SegmentedIndex`` is served through its segments as tiles;
+a ``MutableIndex`` plans ``merged`` (its base tiled when its own
+``num_tiles`` says so).  ``obs=`` takes an ``obs.Observability`` bundle (or
+an ``ObsConfig``): the planner then bills plan-cache traffic and kernel
+execution, and with a quality monitor ``search`` feeds the shadow-recall
+oracle (``shadow_ground_truth``, an exact kNN on the searcher's device).
+Distributed targets, the vmapped tile fan-out and the mesh keywords are not
+ported yet and raise (ROADMAP Queue 1 items 15 and 19).
 """
 from __future__ import annotations
 
@@ -64,6 +65,8 @@ class Searcher:
         self.num_tiles = num_tiles
         self.shard_policy = shard_policy
         self._oracle = None          # the oracle's base on the device
+        self._live_oracle = None     # (mutable's update counts, ext ids,
+                                     #  live vectors on the device)
 
     @classmethod
     def open(cls, index, plan: Optional[PlanConfig] = None, *,
@@ -83,9 +86,9 @@ class Searcher:
              data_axis: Optional[str] = None,
              queue_axis: Optional[str] = None,
              obs=None) -> "Searcher":
-        """Open a ``ProximaIndex``, a ``SegmentedIndex``, a ``Corpus`` or a
-        ``TiledCorpus``.  Keyword arguments override the matching
-        ``PlanConfig`` fields; unset fields defer to the index's own config
+        """Open a ``ProximaIndex``, a ``SegmentedIndex``, a
+        ``stream.MutableIndex``, a ``Corpus`` or a ``TiledCorpus``.  Keyword
+        arguments override the matching ``PlanConfig`` fields; unset fields defer to the index's own config
         (its ``search``/``shard``/``filter`` sections).  ``attributes`` (a
         ``filter.AttributeStore`` keyed by internal id) serves filtered
         requests; an index's own ``attributes`` is the default.  ``obs``
@@ -112,6 +115,8 @@ class Searcher:
                   num_hashes=num_hashes)
         pc = dataclasses.replace(
             pc, **{k: v for k, v in kw.items() if v is not None})
+        if _is_mutable(index):
+            return cls._open_mutable(index, pc, metric, attributes, obs)
         if isinstance(index, Corpus):
             return cls._open_corpus(index, pc, metric, attributes, obs)
         if _is_tiled(index):
@@ -120,8 +125,8 @@ class Searcher:
             return cls._open_segmented(index, pc, metric, attributes, obs)
         if not hasattr(index, "graph"):
             raise NotImplementedError(
-                f"{type(index).__name__} targets are not ported yet: mutable "
-                "indexes wait for ROADMAP Queue 1 item 10, device meshes for "
+                f"{type(index).__name__} targets are not ported yet: device "
+                "meshes and their sharded corpora wait for ROADMAP Queue 1 "
                 "item 15")
         return cls._open_index(index, pc, metric, attributes, obs)
 
@@ -169,6 +174,41 @@ class Searcher:
             corpus=corpus, tiled=tiled, attributes=attributes,
             probe_tiles=probe, obs=obs)
         return cls(planner=planner, plan_cfg=pc, index=index,
+                   num_tiles=n_tiles, shard_policy=policy)
+
+    @classmethod
+    def _open_mutable(cls, mutable, pc, metric, attributes, obs):
+        """A ``stream.MutableIndex``: merged plans over its base and delta.
+        An attribute store passed here is keyed by external id and must
+        cover every id allocated so far; the tiling defaults come from the
+        mutable index itself, which an explicit request re-tiles."""
+        base = mutable.base
+        cfg_full = upgrade_config(base.config)
+        scfg = cls._resolve_cfg(pc, cfg_full.search)
+        probe = cfg_full.shard.probe_tiles if pc.probe_tiles is None \
+            else pc.probe_tiles
+        if attributes is not None:
+            validate_attribute_store(
+                attributes, mutable.next_ext,
+                "mutable index (allocated external ids)")
+            mutable.attributes = attributes
+        n_tiles = mutable.num_tiles if pc.num_tiles is None else pc.num_tiles
+        policy = mutable.shard_policy if pc.shard_policy is None \
+            else pc.shard_policy
+        if (n_tiles, policy) != (mutable.num_tiles, mutable.shard_policy):
+            mutable.set_num_tiles(n_tiles, policy)
+        cls._probe_warning(probe, n_tiles, policy)
+        caps = IndexCapabilities(kind="merged", mutable=True,
+                                 tiled=n_tiles > 1, num_tiles=n_tiles)
+        planner = QueryPlanner(
+            capabilities=caps, cfg=scfg,
+            metric=metric or base.dataset.metric,
+            filter_cfg=pc.filter or cfg_full.filter, plan_cfg=pc,
+            mutable=mutable, attributes=mutable.attributes,
+            probe_tiles=probe, obs=obs)
+        if obs.enabled:
+            mutable.obs = obs        # insert / consolidate spans and counters
+        return cls(planner=planner, plan_cfg=pc, index=mutable,
                    num_tiles=n_tiles, shard_policy=policy)
 
     @classmethod
@@ -252,25 +292,29 @@ class Searcher:
         """Exact-oracle neighbour ids for a query batch under ``plan``, in
         the plan's own result-id space — the shadow-recall estimator's
         ground truth (``obs.quality.QualityMonitor``).  The population is
-        what the plan searched: the attribute-passing subset of the base
-        for a filtered plan, otherwise the whole base.  The exact kNN runs
-        on the searcher's device (``core.dataset.exact_knn``).  Returns
-        ``(Q, k')`` int64 with ``k' = min(plan.cfg.k, population)``, or
-        ``None`` for one-shot caller-mask plans and targets with no raw
-        vectors."""
+        what the plan searched: for a merged plan the LIVE corpus
+        (``MutableIndex.live_vectors``: tombstones out, delta inserts in;
+        filtered through the live external-id mask), for a filtered plan
+        the attribute-passing subset of the base, otherwise the whole base.
+        The exact kNN runs on the searcher's device (``core.dataset.
+        exact_knn``).  Returns ``(Q, k')`` int64 with ``k' = min(plan.cfg.k,
+        population)``, or ``None`` for one-shot caller-mask plans and
+        targets with no raw vectors."""
         from repro_torch.core.dataset import exact_knn
 
-        if plan.kind not in ("flat", "tiled"):
+        if plan.kind == "distributed":
             raise NotImplementedError(
-                f"the shadow oracle of {plan.kind} plans is not ported yet: "
-                "ROADMAP Queue 1 item 10 (stream/)")
+                "the shadow oracle of distributed plans is not ported yet: "
+                "ROADMAP Queue 1 item 15")
         if plan.mask_token:
-            return None
-        base = self._oracle_base()
-        if base is None:
             return None
         q = np.atleast_2d(np.asarray(queries, np.float32))
         k = int(plan.cfg.k)
+        if plan.kind == "merged":
+            return self._live_ground_truth(plan, q, k)
+        base = self._oracle_base()
+        if base is None:
+            return None
         dev = self._device
         if plan.spec is not None:
             mask = np.asarray(self.planner._mask_for(plan.spec), bool)
@@ -283,8 +327,44 @@ class Searcher:
             return pids[nn].astype(np.int64)
         return exact_knn(q, base, k, self.metric, device=dev).astype(np.int64)
 
+    def release_live_oracle(self) -> None:
+        """Drop the merged oracle's device copy of the live vectors (a
+        consolidation frees the old base before it builds the new one)."""
+        self._live_oracle = None
+
+    def _live_ground_truth(self, plan: QueryPlan, q: np.ndarray, k: int):
+        """The merged plan's oracle: exact kNN over the mutable's live
+        vectors, in external ids.  On a card the live vectors are copied
+        there once per state of the index (its insert, delete and
+        consolidation counts), not once a call: at 1M a copy is 512 MB."""
+        from repro_torch.core.dataset import exact_knn
+
+        mut = self.planner.mutable
+        dev = self._device
+        st = mut.stats
+        key = (st["inserts"], st["deletes"], st["consolidations"])
+        if self._live_oracle is None or self._live_oracle[0] != key:
+            self._live_oracle = None      # the old copy goes first
+            ext_ids, vecs = mut.live_vectors()
+            if dev.type != "cpu":
+                vecs = torch.as_tensor(vecs, device=dev)
+            self._live_oracle = (key, ext_ids, vecs)
+        _, ext_ids, vecs = self._live_oracle
+        if plan.spec is not None:
+            _, ext_mask = mut.filter_masks(plan.spec)
+            keep = np.nonzero(np.asarray(ext_mask, bool)[ext_ids])[0]
+            ext_ids = ext_ids[keep]
+            vecs = vecs[torch.as_tensor(keep, device=dev)] \
+                if torch.is_tensor(vecs) else vecs[keep]
+        if ext_ids.size == 0:
+            return np.empty((q.shape[0], 0), np.int64)
+        nn = exact_knn(q, vecs, k, mut.metric, device=dev)
+        return ext_ids[nn].astype(np.int64)
+
     @property
     def _device(self) -> torch.device:
+        if self.planner.mutable is not None:
+            return torch.device(self.planner.mutable.device)
         t = self.planner.corpus if self.planner.corpus is not None \
             else self.planner.tiled
         return t.base.device
@@ -345,12 +425,25 @@ class Searcher:
         return self.planner.probe_tiles
 
     @property
+    def mutable(self):
+        return self.planner.mutable
+
+    @property
     def index(self):
+        """The served base index — a mutable's latest after a
+        consolidation."""
+        if self.planner.mutable is not None:
+            return self.planner.mutable.base
         return self._index
 
     def plan_cache_stats(self) -> dict:
         return {"plan_cache_hits": self.planner.plan_cache_hits,
                 "plan_cache_misses": self.planner.plan_cache_misses}
+
+
+def _is_mutable(obj) -> bool:
+    return hasattr(obj, "delta") and hasattr(obj, "tombstones") \
+        and hasattr(obj, "base")
 
 
 def _is_tiled(obj) -> bool:

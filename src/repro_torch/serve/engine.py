@@ -1,6 +1,7 @@
-"""Batched ANN-search serving engine — port of ``src/repro/serve/engine.py``
-for frozen indexes, flat or tiled: batch-flush and continuous
-(iteration-level) scheduling, unfiltered and filtered requests.
+"""Batched ANN-search serving engine — port of ``src/repro/serve/engine.py``:
+batch-flush and continuous (iteration-level) scheduling, unfiltered and
+filtered requests, over a frozen index (flat, tiled or segment-built) or a
+streaming ``stream.MutableIndex``.
 
 Batch-flush mode: each ``submit`` compiles (or plan-cache-hits) a
 ``QueryPlan``, and a flush packs queued requests sharing the head request's
@@ -35,6 +36,23 @@ Tiled serving (``num_tiles``, ``shard_policy``, ``probe_tiles``, or a
 segment-built index) runs every batch through the fan-out over the tiles
 and the cross-tile merge (``shard.sharded_search_kernel``).
 
+Streaming (``ServingEngine(MutableIndex(index))``): ``insert`` / ``delete``
+interleave with ``submit``; updates apply at once (the delta segment is
+host memory), and every query flushed or retired after an update sees it.
+Merged plans run the base search on the device and fuse the delta and the
+tombstones on the host (``stream.searcher``).  With ``auto_consolidate``
+the delta folds into a rebuilt base between batches (and between ticks)
+once ``MutableIndex.needs_consolidation()``; a full delta consolidates
+inside ``insert``.  In continuous mode a lane traverses the base (and a
+filtered plan's admission mask) pinned at its session's creation, while
+tombstones and the delta are read live when it retires; a consolidation
+rebuilds the base's id space, so the engine first runs every in-flight
+merged lane to completion (``_complete_merged_pools``), the capacity-forced
+consolidation inside ``insert`` included, then drops the merged sessions
+and the shadow oracle's copy of the live vectors, which pin the old base's
+device arrays, before the rebuild allocates the new ones
+(``_drop_merged_sessions``); new sessions open on the new base.
+
 Observability (``repro_torch.obs``): pass ``obs=Observability.on()`` (or an
 ``ObsConfig``) and the engine records queue-wait and end-to-end latency
 histograms and batch/slot occupancy labelled by plan kind / filter strategy
@@ -49,8 +67,7 @@ lanes through the NAND model (``nand=`` a ``NandConfig``, ``nand_queues=``
 the modelled queue count).  ``slo=`` takes ``{tenant: obs.SLOTarget}``.
 The default is the shared no-op bundle: one branch per call site.
 
-All timing is ``time.perf_counter()``.  Not ported yet, and refused:
-streaming/mutable targets (ROADMAP Queue 1 item 10).
+All timing is ``time.perf_counter()``.
 """
 from __future__ import annotations
 
@@ -97,6 +114,9 @@ class EngineStats:
     batches: int = 0
     queries: int = 0
     pad_fraction: float = 0.0        # running MEAN pad share over batches
+    inserts: int = 0
+    deletes: int = 0
+    consolidations: int = 0
     filtered_queries: int = 0
     filter_scan_batches: int = 0
     ticks: int = 0                   # continuous mode: round-step ticks run
@@ -157,6 +177,7 @@ class ServingEngine:
         batch_size: int = 32,
         cfg: Optional[SearchConfig] = None,
         flush_us: float = 2000.0,
+        auto_consolidate: bool = True,
         num_tiles: Optional[int] = None,
         shard_policy: Optional[str] = None,
         probe_tiles: Optional[int] = None,
@@ -186,6 +207,7 @@ class ServingEngine:
                                       obs=self.obs)
         self.batch_size = batch_size
         self.flush_us = flush_us
+        self.auto_consolidate = auto_consolidate
         self.continuous = bool(continuous)
         self.slots = int(slots) if slots else batch_size
         self.queue: Deque[Request] = deque()
@@ -230,7 +252,14 @@ class ServingEngine:
         return min(next_pow2(max(n, 1)), self.batch_size)
 
     @property
+    def mutable(self):
+        return self.searcher.mutable
+
+    @property
     def index(self):
+        """The served base index — a mutable's latest after any
+        consolidation (the capacity-forced one inside ``insert`` too), so
+        NAND billing follows the rebuilt geometry."""
         return self.searcher.index
 
     @property
@@ -307,6 +336,40 @@ class ServingEngine:
             obs.tracer.async_begin("queue-wait", rid)
             obs.metrics.gauge("queue_depth", float(len(self.queue)))
         return rid
+
+    def insert(self, vector: np.ndarray, attrs=None) -> int:
+        """Streaming insert; returns the stable external id.  Visible to
+        every query flushed or retired after this call.  ``attrs`` is the
+        new vector's attribute row when the index carries an attribute
+        store."""
+        if self.mutable is None:
+            raise RuntimeError("engine serves a frozen index — wrap it in "
+                               "stream.MutableIndex for online updates")
+        if self.mutable.delta_full:
+            # this insert WILL consolidate: complete the in-flight merged
+            # lanes first, they traverse the base about to be rebuilt
+            if self.continuous:
+                self._complete_merged_pools()
+            self._drop_merged_sessions()
+        before = self.mutable.stats["consolidations"]
+        ext = self.mutable.insert(vector, attrs=attrs)  # may consolidate
+        consolidated = self.mutable.stats["consolidations"] - before
+        if consolidated:
+            self._recount_waiting()
+        self._stats.consolidations += consolidated
+        self._stats.inserts += 1
+        return ext
+
+    def delete(self, ext_id: int) -> bool:
+        """Streaming delete (tombstone), filtered from every later flush and
+        retire."""
+        if self.mutable is None:
+            raise RuntimeError("engine serves a frozen index — wrap it in "
+                               "stream.MutableIndex for online updates")
+        ok = self.mutable.delete(ext_id)
+        if ok:
+            self._stats.deletes += 1
+        return ok
 
     def _count_waiting(self, plan: Optional[QueryPlan], n: int) -> None:
         if self.continuous:
@@ -424,6 +487,7 @@ class ServingEngine:
         self._stats.queries += n
         if self._watch is not None:
             self._watch.check(0)
+        self._maybe_consolidate()
         return batch
 
     # ----------------------------------------------- continuous (tick) mode
@@ -605,7 +669,62 @@ class ServingEngine:
             self._stats.fallback_batches += self._stats.batches - n0
         elif self._watch is not None:
             self._watch.check(0)
+        self._maybe_consolidate()
         return completed
+
+    # ------------------------------------------------------------ streaming
+    def _maybe_consolidate(self) -> None:
+        """Between batches and ticks: consolidate once the mutable index
+        asks for it (with ``auto_consolidate``)."""
+        if self.auto_consolidate and self.mutable is not None \
+                and self.mutable.needs_consolidation():
+            self.consolidate()
+
+    def _complete_merged_pools(self) -> List[Request]:
+        """Run every in-flight MERGED lane to completion: they traverse the
+        base whose id space a consolidation is about to rebuild.  Retired
+        requests land in ``done`` as usual."""
+        out: List[Request] = []
+        for pool in self._pools.values():
+            if pool.session.plan.kind != "merged":
+                continue
+            guard = self.cfg.max_rounds + 2
+            while pool.occupied and guard:
+                out.extend(self._step_pool(pool))
+                guard -= 1
+        return out
+
+    def _drop_merged_sessions(self) -> None:
+        """Before a consolidation: drop the merged sessions and pools and
+        the shadow oracle's copy of the live vectors — they pin the old
+        base's corpus and masks, which must be freed before the rebuild
+        allocates the new ones.  New sessions open on the next admission,
+        on the new base."""
+        for key in [k for k, p in self._pools.items()
+                    if p.session.plan.kind == "merged"]:
+            del self._pools[key]
+        for key in [k for k, s in self._sessions.items()
+                    if s is not None and s.plan.kind == "merged"]:
+            del self._sessions[key]
+        self.searcher.release_live_oracle()
+
+    def _recount_waiting(self) -> None:
+        """After a consolidation: recount the per-plan queue counts
+        against sessions opened on the new base."""
+        self._waiting = Counter()
+        for r in self.queue:
+            self._count_waiting(r.plan, 1)
+
+    def consolidate(self) -> None:
+        """Fold the delta segment into a rebuilt base index.  In continuous
+        mode the in-flight merged lanes complete first."""
+        if self.mutable is None:
+            return
+        self._complete_merged_pools()
+        self._drop_merged_sessions()
+        self.mutable.consolidate()
+        self._recount_waiting()
+        self._stats.consolidations += 1
 
     def drain(self, max_steps: Optional[int] = None) -> List[Request]:
         """Force-run until the queue (and, in continuous mode, every

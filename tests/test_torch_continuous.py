@@ -4,8 +4,9 @@ plan sessions on the CPU, on ``tiny_index`` (carried across with
 bit for bit and the reference continuous engine's ids (distances within the
 search bar of ROADMAP: rtol 1e-5 plus 1e-6 of the largest), lanes retire
 across ticks, refill serves a backlog, the drain guard raises, non-steppable
-plans fall back to batch flushes, masked plans run in slot pools, and what
-is not ported yet raises naming its ROADMAP item.
+plans fall back to batch flushes, masked plans run in slot pools, a merged
+plan over a static index gets the reference's answers, and what is not
+ported yet raises naming its ROADMAP item.
 """
 import dataclasses
 
@@ -16,6 +17,8 @@ import torch
 from _torch_port import port_index
 from repro.filter import FilterSpec as RefSpec
 from repro.filter import random_attributes as ref_random_attributes
+from repro.plan import Searcher as RefSearcher
+from repro.plan import SearchRequest as RefRequest
 from repro.serve.engine import ServingEngine as RefEngine
 from repro_torch.filter import (
     FilterSpec, adapt_search_cfg, random_attributes,
@@ -306,9 +309,13 @@ def test_port_leaves_caller_arrays_untouched(tiny_index):
                                 tiny_index.dataset.queries)
 
 
-def test_unported_paths_raise_naming_their_items(tiny_port, tiny_store):
-    """Merged plans still raise naming item 10.  Observability, SLOs and
-    NAND billing (items 12 and 13) are ported: the engine takes them, and
+def test_unported_paths_raise_naming_their_items(tiny_index, tiny_port,
+                                                 tiny_store):
+    """Merged plans (item 10) are ported: over a static index a merged plan
+    gets the reference's answers on the same call (no round session; its
+    execution fails for want of a mutable index), and distributed plans
+    still raise naming item 15.  Observability, SLOs and NAND billing
+    (items 12 and 13) are ported: the engine takes them, and
     ``record_round`` appends one convergence record per lane."""
     from repro_torch.nand import NandConfig
     from repro_torch.obs import ConvergenceLog, SLOTarget
@@ -322,11 +329,21 @@ def test_unported_paths_raise_naming_their_items(tiny_port, tiny_store):
     assert eng.slo_status()[None]["latency_samples"] == 0
     s = Searcher.open(tiny_port, attributes=tiny_store)
     plan = s.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))
+    rs = RefSearcher.open(tiny_index)
     merged = dataclasses.replace(plan, kind="merged")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        s.round_session(merged)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        s.execute(merged, tiny_port.dataset.queries[:1])
+    ref_merged = dataclasses.replace(
+        rs.plan(RefRequest(queries=tiny_index.dataset.queries[:1])),
+        kind="merged")
+    assert s.round_session(merged) is None
+    assert rs.round_session(ref_merged) is None
+    for searcher, p in ((s, merged), (rs, ref_merged)):
+        with pytest.raises(AttributeError):
+            searcher.execute(p, tiny_index.dataset.queries[:1])
+    distributed = dataclasses.replace(plan, kind="distributed")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        s.round_session(distributed)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        s.execute(distributed, tiny_port.dataset.queries[:1])
     # tiled plans run (item 11), through the batch path: no round session
     tiled = Searcher.open(tiny_port, num_tiles=2, attributes=tiny_store)
     tplan = tiled.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))

@@ -635,3 +635,95 @@ def test_cuda_kernel_hook_off_creates_no_events(cuda, monkeypatch):
     s.search(SearchRequest(queries=idx.dataset.queries))
     assert min(loader.LAUNCHES.values()) > 0 and not made
     assert loader.TIMING is None
+
+
+@pytest.mark.parametrize("q,c,k", [(256, 52, 10), (16, 26, 10), (7, 10, 10),
+                                   (5, 100, 20), (3, 1, 1)])
+def test_merge_order_on_the_sort_entry_equals_plain(cuda, q, c, k):
+    """The base/delta merge's sort (``stream.searcher.merge_order``): one
+    sort-entry launch on the card, bit-equal to its plain version on the
+    CPU, with ties, +inf keys, -0.0 beside +0.0, and widths that are not a
+    power of two (one column: padded to the network's least width, 2)."""
+    from repro_torch.kernels import loader
+    from repro_torch.stream.searcher import merge_order
+
+    rng = np.random.default_rng(c)
+    keys = rng.integers(-3, 4, (q, c)).astype(np.float32)
+    keys[rng.random((q, c)) < 0.3] = np.inf
+    keys[keys == 0] = np.where(rng.random(int((keys == 0).sum())) < 0.5,
+                               -0.0, 0.0)
+    loader.reset_launch_counts()
+    got = merge_order(keys, k, cuda)
+    assert loader.ENTRY_LAUNCHES == {"bitonic_sort_launch": 1}
+    np.testing.assert_array_equal(got, merge_order(keys, k, "cpu"))
+
+
+def _stream_pair():
+    """The stream tests' 900 x 32 corpus built on the card, a MutableIndex
+    over it and one over the same arrays on the CPU, after the same
+    inserts (two exact copies of base vectors among them) and deletes."""
+    from repro_torch.configs.base import (
+        DatasetConfig, GraphConfig, PQConfig, ProximaConfig, SearchConfig,
+        StreamConfig,
+    )
+    from repro_torch.core.index import build_index
+    from repro_torch.stream import MutableIndex
+
+    cfg = ProximaConfig(
+        dataset=DatasetConfig(name="sift-like", num_base=900, num_queries=24,
+                              dim=32, num_clusters=10, cluster_std=0.25,
+                              seed=3),
+        pq=PQConfig(num_subvectors=8, num_centroids=64, kmeans_iters=6),
+        graph=GraphConfig(max_degree=16, build_list_size=32, alpha=1.2),
+        search=SearchConfig(k=10, list_size=64, t_init=16, t_step=8,
+                            repetition_rate=3, beta=1.06),
+        stream=StreamConfig(delta_capacity=512, consolidate_fraction=0.6,
+                            delta_list_size=32, brute_force_below=32,
+                            base_overfetch=16),
+        hot_node_fraction=0.03,
+    )
+    idx = build_index(cfg, device="cuda", reorder_samples=16)
+    gpu = MutableIndex(idx)
+    cpu = MutableIndex(dataclasses.replace(idx, device="cpu"))
+    rng = np.random.default_rng(7)
+    base = idx.dataset.base
+    picks = base[rng.choice(900, 60)]
+    vecs = (picks + 0.1 * rng.standard_normal(picks.shape)).astype(np.float32)
+    vecs[:2] = base[:2]
+    for m in (gpu, cpu):
+        for v in vecs:
+            m.insert(v)
+        for e in np.random.default_rng(8).choice(960, 45, replace=False):
+            m.delete(int(e))
+    return idx, gpu, cpu
+
+
+def test_cuda_merged_search_matches_cpu(cuda):
+    """``merged_search_kernel`` on the card: one sort-entry launch a call;
+    fused from the same base result, the card's merge equals the CPU's bit
+    for bit (-1 ids where tombstones were, ties); end to end its ids equal
+    the CPU port's on >= 95% of rows (the cross-device bar above) and its
+    delta candidates exactly."""
+    from repro_torch.core.search import graph_search
+    from repro_torch.kernels import loader
+    from repro_torch.stream import merged_search_kernel
+    from repro_torch.stream.searcher import _merge_base_delta
+
+    idx, gpu, cpu = _stream_pair()
+    q = idx.dataset.queries
+    cfg = dataclasses.replace(idx.config.search, k=26)
+    base = graph_search(gpu.corpus(), q, cfg)
+    loader.reset_launch_counts()
+    got = _merge_base_delta(gpu, q, base.ids, base.dists, None, 10)
+    assert loader.ENTRY_LAUNCHES == {"bitonic_sort_launch": 1}
+    want = _merge_base_delta(cpu, q, base.ids.cpu(), base.dists.cpu(), None,
+                             10)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    loader.reset_launch_counts()
+    g = merged_search_kernel(gpu, q)
+    assert loader.ENTRY_LAUNCHES["bitonic_sort_launch"] == 1
+    c = merged_search_kernel(cpu, q)
+    assert (g.ids == c.ids).all(1).mean() >= 0.95
+    np.testing.assert_array_equal(g.delta_candidates, c.delta_candidates)
+    assert not np.isin(g.ids, list(gpu.tombstones)).any()

@@ -35,6 +35,7 @@ from repro.obs import wilson_interval as ref_wilson
 from repro.plan import Searcher as RefSearcher
 from repro.plan import SearchRequest as RefRequest
 from repro.serve.engine import ServingEngine as RefEngine
+from repro.stream import MutableIndex as RefMutable
 from repro_torch.configs.base import ObsConfig
 from repro_torch.core.segmented import SegmentedIndex
 from repro_torch.filter import FilterSpec, random_attributes
@@ -48,6 +49,7 @@ from repro_torch.obs import (
 from repro_torch.plan import Searcher, SearchRequest
 from repro_torch.serve import ServingEngine
 from repro_torch.shard import search as shard_search
+from repro_torch.stream import MutableIndex
 
 SCHEMA = {"category": 8, "price": 1000}
 # names the port renames, and the port-only kernel hook metrics
@@ -369,8 +371,10 @@ def test_searcher_open_reference_keywords_name_their_item(tiny_port, keyword,
 def test_searcher_shadow_oracle_equals_reference(tiny_index, tiny_port,
                                                  stores):
     """``Searcher.open(obs=)`` samples shadow recall in ``search``; the
-    oracle's ids are the reference's (whole base and filtered subset), and
-    a merged plan's oracle names item 10."""
+    oracle's ids are the reference's (whole base and filtered subset); a
+    merged plan's oracle over a static index fails as the reference's does,
+    and over a MutableIndex (an insert and a delete applied) it equals the
+    reference's: exact kNN over the live vectors, in external ids."""
     q = tiny_index.dataset.queries
     for spec, ref_spec in ((None, None),
                            (FilterSpec.range("price", 0, 249),
@@ -387,9 +391,20 @@ def test_searcher_shadow_oracle_equals_reference(tiny_index, tiny_port,
             s.shadow_ground_truth(res.plan, q),
             rs.shadow_ground_truth(ref_res.plan, q))
         assert obs.quality.overall() == ref_obs.quality.overall()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        s.shadow_ground_truth(dataclasses.replace(res.plan, kind="merged"),
-                              q)
+    for searcher, r in ((s, res), (rs, ref_res)):
+        with pytest.raises(AttributeError):
+            searcher.shadow_ground_truth(
+                dataclasses.replace(r.plan, kind="merged"), q)
+    mut, ref_mut = MutableIndex(tiny_port), RefMutable(tiny_index)
+    for m in (mut, ref_mut):
+        m.insert(q[0] + 1e-3)
+        m.delete(int(tiny_index.dataset.gt[1, 0]))
+    ms, rms = Searcher.open(mut), RefSearcher.open(ref_mut)
+    plan = ms.plan(SearchRequest(queries=q))
+    ref_plan = rms.plan(RefRequest(queries=q))
+    assert plan.kind == ref_plan.kind == "merged"
+    np.testing.assert_array_equal(ms.shadow_ground_truth(plan, q),
+                                  rms.shadow_ground_truth(ref_plan, q))
 
 
 def test_unbillable_execution_counts_not_raises(tiny_index, tiny_port):

@@ -12,9 +12,11 @@ from _torch_port import port_index
 from repro.plan import Searcher as RefSearcher
 from repro.plan import SearchRequest as RefRequest
 from repro.serve.engine import ServingEngine as RefEngine
+from repro.stream import MutableIndex as RefMutable
 from repro_torch.configs.base import PlanConfig
 from repro_torch.plan import Searcher, SearchRequest
 from repro_torch.serve import ServingEngine
+from repro_torch.stream import MutableIndex
 
 
 @pytest.fixture(scope="module")
@@ -83,14 +85,18 @@ def test_engine_beam_width_and_plan_config(tiny_index, tiny_port):
         np.testing.assert_array_equal(eng.done[rid].ids, ref.done[rid].ids)
 
 
-def test_unported_serving_modes_raise(tiny_port):
-    """What the port still refuses names its ROADMAP item: merged plans
-    (item 10), the vmapped fan-out (item 19), the mesh keywords (item 15);
-    targets other than an index, a corpus or tiles raise too.  Tiled plans
-    (item 11) now run: a tiled Searcher serves a request, and a flat one
-    takes a request's probe_tiles as the plan's fan-in.  Observability and
-    NAND billing (items 12 and 13) are ported: ``obs=`` refuses what
-    ``Observability.resolve`` refuses, with the reference's TypeError."""
+def test_unported_serving_modes_raise(tiny_index, tiny_port):
+    """What the port still refuses names its ROADMAP item: the vmapped
+    fan-out (item 19), the mesh keywords (item 15); targets other than an
+    index, a mutable index, a corpus or tiles raise too.  Tiled plans (item
+    11) run: a tiled Searcher serves a request, and a flat one takes a
+    request's probe_tiles as the plan's fan-in.  Observability and NAND
+    billing (items 12 and 13) are ported: ``obs=`` refuses what
+    ``Observability.resolve`` refuses, with the reference's TypeError.
+    Streaming (item 10) is ported: a merged plan over a static index has
+    no round session, as in the reference; a frozen engine refuses updates
+    with the reference's error, and an engine over a MutableIndex takes
+    them and serves the reference's ids."""
     tiled = Searcher.open(tiny_port, PlanConfig(num_tiles=2))
     res = tiled.search(SearchRequest(queries=tiny_port.dataset.queries[:2]))
     assert res.plan.kind == "tiled" and res.ids.shape == (2, 10)
@@ -105,7 +111,28 @@ def test_unported_serving_modes_raise(tiny_port):
         Searcher.open(tiny_port, use_vmap=True)
     with pytest.raises(NotImplementedError, match="item 15"):
         Searcher.open(tiny_port, mesh=object())
-    s = Searcher.open(tiny_port)
-    plan = s.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        s.round_session(dataclasses.replace(plan, kind="merged"))
+    q = tiny_port.dataset.queries
+    s, rs = Searcher.open(tiny_port), RefSearcher.open(tiny_index)
+    plan = s.plan(SearchRequest(queries=q[:1]))
+    ref_plan = rs.plan(RefRequest(queries=q[:1]))
+    assert s.round_session(dataclasses.replace(plan, kind="merged")) is None
+    assert rs.round_session(dataclasses.replace(ref_plan,
+                                                kind="merged")) is None
+    for frozen in (ServingEngine(tiny_port, batch_size=4),
+                   RefEngine(tiny_index, batch_size=4)):
+        with pytest.raises(RuntimeError, match="frozen index"):
+            frozen.insert(q[0])
+        with pytest.raises(RuntimeError, match="frozen index"):
+            frozen.delete(0)
+    engines = (ServingEngine(MutableIndex(tiny_port), batch_size=4),
+               RefEngine(RefMutable(tiny_index), batch_size=4))
+    for e in engines:
+        ext = e.insert(q[0] + 1e-4)
+        assert e.delete(int(tiny_index.dataset.gt[1, 0]))
+        for v in q[:6]:
+            e.submit(v)
+        e.drain()
+    got, want = engines
+    assert got.done[0].ids[0] == want.done[0].ids[0] == ext
+    for rid, r in want.done.items():
+        np.testing.assert_array_equal(got.done[rid].ids, r.ids)
