@@ -42,11 +42,28 @@ not printed):
    Tiled phase: the same index in 4 channel tiles through
    ``ServingEngine(num_tiles=4, shard_policy=, probe_tiles=)`` — cluster
    tiles at full fan-out and routed to 2 tiles, hash tiles at full fan-out —
-   2,048 queries each: tile-build seconds (per-tile graphs rebuilt on the
-   card), QPS, recall@10, launches, cross-tile merges (one sort launch a
-   batch).  Fails unless recall@10 >= 0.5, the engine's ids equal
-   ``Searcher.search``'s, 64 queries on the CPU over the same tiles equal the
-   card's in >= 95% of rows, and the merges equal the batches.
+   2,048 queries each, through the batched fan-out (the default: one
+   traversal of the tiles' 4 x 256 lanes): tile-build seconds (per-tile
+   graphs rebuilt on the card), QPS, recall@10, launches and launches a
+   batch, cross-tile merges (one sort launch a batch).  Fails unless
+   recall@10 >= 0.5, the engine's ids equal ``Searcher.search``'s, 64
+   queries on the CPU over the same tiles equal the card's in >= 95% of
+   rows, and the merges equal the batches.  Then two A/B comparisons of
+   ten alternating pairs of 512 queries through ``Searcher.search``: the
+   cluster tiles at full fan-out unrolled (``use_vmap=False``) against
+   batched, and the flat index against the batched tiles (QPS of each
+   pair, medians and spread, launches and rounds a 256-query batch).
+   Fails unless unrolled and batched give the same ids, distances,
+   ``probed`` and per-tile counters, bit for bit.
+   IVF phase (``repro_torch.core.ivf``, the paper's Fig. 11 baseline, with
+   fig11's settings): ``build_ivf`` of the corpus on the card (nlist=64, PQ
+   32 x 256 with 8 k-means iterations, residual; seconds by stage, list
+   lengths), then 2,048 queries through ``search_ivf`` at nprobe 2, 8 and
+   16: recall@10 beside the flat graph's on the same queries, QPS, rows
+   scanned a query, launches.  Fails unless ``pq_adt`` and ``pq_lookup``
+   launched at every nprobe and 64 queries on the card give the ids and
+   scanned counts of the same index on the CPU (plain versions), with
+   distances at rtol 1e-4.
    Segmented phase: ``build_segmented`` of the corpus in 4 segments of
    250,000 on the card, 16,384 stitch anchors a joining segment (stage and
    stitch seconds, patched rows), 2,048
@@ -114,7 +131,11 @@ not printed):
    (``calibrate_beta``), ``l2_rerank_masked`` at (1, 16) (the trace's exact
    distances), the sort entry at the cross-tile merge's (256, 64), with
    ties, duplicate ids keyed +inf and -1 padding, and at the base/delta
-   merge's (256, 26 + 26 padded to 64).  Each entry is timed over
+   merge's (256, 26 + 26 padded to 64).  The batched tile fan-out's
+   round: the lookup, the merge (L=128, n=64) and the masked rerank at
+   4 x 256 = 1,024 lanes.  The IVF search's: ``pq_adt`` over one chunk's
+   (Q x nprobe) residuals and the lookup at that chunk's (Q x nprobe,
+   max_len), the IVF phase's own arguments.  Each entry is timed over
    30 launches, the 50 MB L2 cache flushed
    before each and the launch queued behind a spin: by CUDA events around
    each launch (``ms``) and, for the same launches, by the kernel's own
@@ -151,6 +172,11 @@ REORDER_SAMPLES = 128            # build_index's default trace sample
 SHARD_QUERIES = 2048             # of the 10,000, for the smoke's time
 NUM_TILES = 4
 TILED_VARIANTS = (("cluster", 0), ("cluster", 2), ("hash", 0))
+AB_PAIRS = 10                    # alternating A/B pairs of the fan-out
+AB_QUERIES = 512                 # queries an arm of a pair
+IVF_NLIST = 64                   # fig11's IVF-PQ baseline
+IVF_NPROBES = (2, 8, 16)
+IVF_CHECK_QUERIES = 64           # card against CPU, at nprobe 8
 SEGMENT_SIZE = 250_000
 # boundary anchors a joining segment stitches (BuildConfig's default is 32:
 # the stitched 1M graph then stays inside segment 0, recall@10 0.2339 on an
@@ -252,7 +278,8 @@ def _bound(nbytes: float, flops: float) -> tuple:
 
 
 def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
-                 filter_density: dict, scan_pass: int, seed: int = 0) -> list:
+                 filter_density: dict, scan_pass: int, ivf_inputs: dict,
+                 seed: int = 0) -> list:
     """Each kernel vs its plain version at the main path's shapes; raises
     on a disagreement.  Returns one record per kernel (launches filled in
     from the main path): the top-level numbers are those of the entry the
@@ -262,7 +289,10 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
     at K=1024 at the masked search's share (``filter_density``); the
     filtered paths' merges at L=512 and 1024 and the scan's lookup over
     the ``scan_pass`` passing rows, padded to a power of two as the scan
-    pads them, are entries too."""
+    pads them, are entries too; so are the batched tile fan-out's round
+    (the lookup, merge and masked rerank at NUM_TILES x Q lanes) and the
+    IVF search's launches (``ivf_inputs``: the arguments of one chunk's
+    ``pq_adt`` and lookup, as the IVF phase made them)."""
     from repro_torch.core.search import next_pow2
     from repro_torch.kernels import ops
 
@@ -338,10 +368,9 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
 
     # ---- pq_adt: the batch's (Q=256, also calibrate_beta's) and the
     # reorder trace's (one sampled base vector a search, Q=1) -------------
-    qs = queries.reshape(q, m, d // m).transpose(0, 1).contiguous()
-
-    def adt_entry(label, nq):
-        qq, qsub = queries[:nq], qs[:, :nq]
+    def adt_entry(label, qq, cents=cents):
+        nq = qq.shape[0]
+        qsub = qq.reshape(nq, m, d // m).transpose(0, 1).contiguous()
         return entry(
             label, "pq_adt_kernel", ops.pq_adt(qq, cents, "l2"),
             ops.pq_adt_plain(qq, cents, "l2"), 1e-4, 1e-4,
@@ -351,22 +380,52 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
             4 * (nq * d + m * c * (d // m) + nq * m * c),
             3 * nq * m * c * (d // m))
 
+    ivf_res, ivf_cents, _ = ivf_inputs["adt"]
     record("pq_adt", "src/repro_torch/kernels/csrc/pq_adt.cu",
-           "src/repro/kernels/pq_adt.py:38", adt_entry("pq_adt", q),
-           adt_entry("pq_adt_Q1_trace", 1))
+           "src/repro/kernels/pq_adt.py:38", adt_entry("pq_adt", queries),
+           adt_entry("pq_adt_Q1_trace", queries[:1]),
+           adt_entry(f"pq_adt_ivf_Q{ivf_res.shape[0]}", ivf_res, ivf_cents))
 
     # ---- pq_lookup (the search's gather entry, masked and not) -----------
     adts = ops.pq_adt(queries, cents, "l2")
     offs = torch.arange(m, device=dev) * c
     flat_idx = codes[nbr.long()].long() + offs                # (Q, R, M)
     adt_flat = adts.reshape(q, 1, m * c).expand(q, r, m * c)
-    lane_idx = flat_idx + torch.arange(q, device=dev)[:, None, None] * (m * c)
 
-    def lookup_bytes(rows):
-        """ids + mask + per scored row M code bytes + the ADT entries the
-        scored rows touch + the output, each once."""
-        touched = int(torch.unique(lane_idx[rows]).numel())
-        return 4 * q * r + q * r + int(rows.sum()) * m + 4 * touched + 4 * q * r
+    def touched(ids, table, mask):
+        """ADT entries the rows the mask asks for read, once a lane."""
+        total = 0
+        for s in range(0, ids.shape[0], 64):
+            idx = table[ids[s : s + 64].long()].long() + offs     # (b, n, M)
+            idx = torch.where(mask[s : s + 64, :, None], idx, m * c)
+            used = torch.zeros((idx.shape[0], m * c + 1), dtype=torch.bool,
+                               device=dev)
+            total += int(used.scatter_(1, idx.reshape(idx.shape[0], -1),
+                                       True)[:, :-1].sum())
+        return total
+
+    def lookup_bytes(ids, table, mask):
+        """ids + mask + M code bytes of each distinct row the mask asks for
+        + the ADT entries the scored rows touch + the output, each once (a
+        row that many lanes score, as IVF's probed lists are, is read once)."""
+        return (9 * ids.numel() + int(torch.unique(ids[mask]).numel()) * m
+                + 4 * touched(ids, table, mask))
+
+    def gather_entry(label, ids, table, lane_adts, mask):
+        """The masked gather entry at another call site's shape, with the
+        whole function in PyTorch calls as the library yardstick."""
+        nl, n = ids.shape
+        flat = lane_adts.reshape(nl, 1, m * c).expand(nl, n, m * c)
+        return entry(
+            label, "pq_lookup_gather_kernel",
+            ops.pq_lookup_gather(ids, table, lane_adts, mask),
+            ops.pq_lookup_gather_plain(ids, table, lane_adts, mask),
+            1e-4, 1e-4,
+            lambda: ops.pq_lookup_gather(ids, table, lane_adts, mask),
+            lambda: ops.pq_lookup_gather_plain(ids, table, lane_adts, mask),
+            {"codes_gather_sum": lambda: torch.where(mask, flat.gather(
+                2, table[ids.long()].long() + offs).sum(-1), inf)},
+            lookup_bytes(ids, table, mask), int(mask.sum()) * m)
 
     libraries = {
         # code rows gathered beforehand, outside the timed call
@@ -383,7 +442,7 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
         lambda: ops.pq_lookup_gather_plain(nbr, codes, adts, fresh),
         {k: (lambda f=f: torch.where(fresh, f(), inf))
          for k, f in libraries.items()},
-        lookup_bytes(fresh), int(fresh.sum()) * m)
+        lookup_bytes(nbr, codes, fresh), int(fresh.sum()) * m)
     masked["fresh_share"] = float(fresh.float().mean())
     everything = torch.ones_like(fresh)
     # the scan: every query scores the same S rows, n_pass of them real
@@ -411,7 +470,7 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
     scan["valid_share"] = n_pass / scan_rows
     # the reorder trace: one query's E*R = 64 fresh neighbours, unmasked
     nbr1, adt1 = nbr[:1].contiguous(), adts[:1].contiguous()
-    touched1 = int(torch.unique(lane_idx[:1]).numel())
+    touched1 = touched(nbr1, codes, torch.ones_like(fresh[:1]))
     trace = entry(
         "gather_Q1_n64_trace", "pq_lookup_gather_kernel",
         ops.pq_lookup_gather(nbr1, codes, adt1),
@@ -441,49 +500,58 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                ops.pq_lookup_gather_plain(nbr, codes, adts), 1e-4, 1e-4,
                lambda: ops.pq_lookup_gather(nbr, codes, adts),
                lambda: ops.pq_lookup_gather_plain(nbr, codes, adts),
-               libraries, lookup_bytes(everything) - q * r, q * r * m), scan,
-           trace, calib)
+               libraries, lookup_bytes(nbr, codes, everything) - q * r,
+               q * r * m), scan, trace, calib,
+           # the batched tile fan-out's round: NUM_TILES x Q lanes, each
+           # tile's lanes with the same Q ADTs
+           gather_entry(f"gather_masked_Q{NUM_TILES * q}_batched_tiles",
+                        ints(0, n_base, (NUM_TILES * q, r), torch.int32),
+                        codes, adts.repeat(NUM_TILES, 1, 1),
+                        rand(NUM_TILES * q, r) < 0.5),
+           gather_entry(f"gather_ivf_Q{ivf_inputs['lookup'][0].shape[0]}"
+                        f"_n{ivf_inputs['lookup'][0].shape[1]}",
+                        *ivf_inputs["lookup"]))
 
     # ---- bitonic_sort_pairs: the merge entry the round runs, the sort ----
-    def merge_inputs(n, l):
+    def merge_inputs(n, l, nq):
         """A lane's list (sorted prefix, +inf tail with -1 ids) and n fresh
         candidates (30% stale: +inf, -1), with ties and signed zeros."""
-        dl = signed(ints(0, 64, (q, l)).float()).sort(dim=1).values
-        tail = torch.arange(l, device=dev) >= ints(l // 2, l + 1, (q, 1))
+        dl = signed(ints(0, 64, (nq, l)).float()).sort(dim=1).values
+        tail = torch.arange(l, device=dev) >= ints(l // 2, l + 1, (nq, 1))
         dl[tail] = inf
-        ids = torch.where(tail, -1, ints(0, n_base, (q, l), torch.int32))
-        acc = torch.where(rand(q, l) < 0.3, rand(q, l), inf)
-        ev = rand(q, l) < 0.5
-        nd = signed(ints(0, 64, (q, n)).float())
-        stale = rand(q, n) < 0.3
+        ids = torch.where(tail, -1, ints(0, n_base, (nq, l), torch.int32))
+        acc = torch.where(rand(nq, l) < 0.3, rand(nq, l), inf)
+        ev = rand(nq, l) < 0.5
+        nd = signed(ints(0, 64, (nq, n)).float())
+        stale = rand(nq, n) < 0.3
         nd[stale] = inf
-        n_ids = torch.where(stale, -1, ints(0, n_base, (q, n), torch.int32))
+        n_ids = torch.where(stale, -1, ints(0, n_base, (nq, n), torch.int32))
         return ids, dl, acc, ev, n_ids, nd
 
-    def network_ops(width):
+    def network_ops(width, nq=q):
         lg = (width - 1).bit_length()
-        return q * (1 << lg) // 2 * lg * (lg + 1) // 2
+        return nq * (1 << lg) // 2 * lg * (lg + 1) // 2
 
-    def merge_entry(n, l=l):
-        cols = merge_inputs(n, l)
+    def merge_entry(n, l=l, nq=q):
+        cols = merge_inputs(n, l, nq)
         cat = [torch.cat([cols[0], cols[4]], 1), torch.cat([cols[1], cols[5]], 1),
                torch.cat([cols[2], torch.full_like(cols[5], inf)], 1),
                torch.cat([cols[3], torch.zeros_like(cols[3][:, :1]).expand(
-                   q, n)], 1)]
+                   nq, n)], 1)]
 
         def sort_and_gathers():
             order = torch.sort(cat[1], dim=1, stable=True).indices[:, :l]
             return [t.gather(1, order) for t in cat]
 
         return entry(
-            f"merge_L{l}_n{n}",
+            f"merge_L{l}_n{n}" + ("" if nq == q else f"_Q{nq}_batched_tiles"),
             "warp_merge_kernel" if l + n <= 1024 else "block_sort_kernel",
             ops.bitonic_merge_topl(*cols),
             ops.bitonic_merge_topl_plain(*cols), 0.0, 0.0,
             lambda: ops.bitonic_merge_topl(*cols),
             lambda: ops.bitonic_merge_topl_plain(*cols),
             {"sort_and_4_gathers": sort_and_gathers},
-            26 * q * l + 8 * q * n, network_ops(l + n))
+            26 * nq * l + 8 * nq * n, network_ops(l + n, nq))
 
     # the cross-tile merge's sort: P=4 tiles x k=10 candidates a query, with
     # duplicate ids (hot replicas) keyed +inf, -1 ids (+inf) and ties,
@@ -545,6 +613,7 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
     record("bitonic_sort_pairs", "src/repro_torch/kernels/csrc/bitonic_topk.cu",
            "src/repro/kernels/bitonic_topk.py:57", merge_entry(r),
            merge_entry(4 * r), merge_entry(r, 4 * l), merge_entry(r, 8 * l),
+           merge_entry(r, nq=NUM_TILES * q),
            cross, stream_merge, entry(
                f"sort_P{p}", "warp_sort_kernel",
                ops.bitonic_sort_pairs(keys, pos),
@@ -578,15 +647,16 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
             9 * nq * k + 4 * rows * d
             + 4 * d * int(mask.any(1).sum()), 3 * int(mask.sum()) * d)
 
-    def at_density(label, share, k=l):
-        if k == l:
+    def at_density(label, share, k=l, nq=q):
+        if k == l and nq == q:
             cols = dict()
         else:
-            kc = ints(0, n_base, (q, k), torch.int32)
+            kc = ints(0, n_base, (nq, k), torch.int32)
             cols = dict(cand=kc,
-                        acc=torch.where(rand(q, k) < 0.5, rand(q, k), inf),
-                        gathered=base[kc.long()])
-        mask = rand(q, k) < share
+                        acc=torch.where(rand(nq, k) < 0.5, rand(nq, k), inf),
+                        gathered=base[kc.long()],
+                        queries=queries.repeat(nq // q, 1))
+        mask = rand(nq, k) < share
         e = masked_entry(label, mask, **cols)
         e["mask_share"] = float(mask.float().mean())
         return e
@@ -597,6 +667,8 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
            at_density("masked_margin", rerank_density["margin"]),
            at_density(f"masked_K{filter_density['K']}",
                       filter_density["round_mean"], filter_density["K"]),
+           at_density(f"masked_Q{NUM_TILES * q}_batched_tiles",
+                      rerank_density["round_mean"], nq=NUM_TILES * q),
            masked_entry("masked_all", torch.ones((q, l), dtype=torch.bool,
                                                  device=dev)),
            # search_reference's exact distances: one query, the T=16 entries
@@ -998,6 +1070,7 @@ def _tiled_record(name, engine, searcher, queries, gt, log) -> dict:
         "recall_at_10": recall_at_k(ids, gt, 10), "launches": launches,
         "entry_launches": entries, "batches": batches,
         "cross_tile_merges": entries.get("bitonic_sort_launch", 0),
+        "launches_per_batch": sum(entries.values()) / batches,
         "engine_equals_searcher": bool(
             (_searcher_ids(searcher, queries) == ids).all()),
         "cross_device_identical_rows": float(
@@ -1006,10 +1079,204 @@ def _tiled_record(name, engine, searcher, queries, gt, log) -> dict:
     log(f"tiled {name}: {len(queries)} queries in {wall:.3f} s: "
         f"QPS={rec['qps']:.1f} recall@10={rec['recall_at_10']:.4f} "
         f"batches={batches} cross_tile_merges={rec['cross_tile_merges']} "
+        f"launches/batch={rec['launches_per_batch']:.1f} "
         f"engine_equals_searcher={rec['engine_equals_searcher']} "
         f"cross_device={rec['cross_device_identical_rows']:.4f} "
         f"launches={json.dumps(launches)}")
     return rec
+
+
+def _ab_arm(searcher, queries) -> tuple:
+    """``queries`` through ``searcher``, 256 a request: (wall seconds, raw
+    results, launches by C entry summed, requests), counts zeroed just
+    before."""
+    from repro_torch.kernels import loader
+    from repro_torch.plan import SearchRequest
+
+    loader.reset_launch_counts()
+    t0 = time.perf_counter()
+    raws = [searcher.search(SearchRequest(queries=queries[s : s + 256])).raw
+            for s in range(0, len(queries), 256)]
+    wall = time.perf_counter() - t0
+    return wall, raws, sum(loader.ENTRY_LAUNCHES.values()), len(raws)
+
+
+def _rounds_paid(raw, unrolled: bool) -> int:
+    """Rounds a batch pays: its slowest lane's, and with the unrolled
+    fan-out each tile's slowest lane's, one tile after another."""
+    rounds = raw.per_tile.rounds if hasattr(raw, "per_tile") else raw.rounds
+    if unrolled:
+        return int(rounds.amax(1).sum())
+    return int(rounds.max())
+
+
+def _same_sharded(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(
+        [a.ids, a.dists, a.probed, *a.per_tile],
+        [b.ids, b.dists, b.probed, *b.per_tile]))
+
+
+def fan_out_ab(torch, idx, queries, log) -> dict:
+    """AB_PAIRS alternating pairs of AB_QUERIES queries (a pair's two arms
+    on the same queries, the first arm alternating): the cluster tiles at
+    full fan-out unrolled (``use_vmap=False``) against the batched default,
+    then the flat index against the batched tiles.  Per arm: QPS of each
+    pair, median and spread, launches and rounds per 256-query request;
+    unrolled and batched must agree bit for bit (ids, distances, ``probed``
+    and every per-tile counter)."""
+    import statistics
+
+    from repro_torch.plan import Searcher
+
+    kw = dict(num_tiles=NUM_TILES, shard_policy="cluster")
+    arms = {"unrolled": Searcher.open(idx, use_vmap=False, **kw),
+            "batched": Searcher.open(idx, **kw), "flat": Searcher.open(idx)}
+    for s in arms.values():                    # warm-up, untimed
+        _ab_arm(s, queries[:256])
+    out = {}
+    for a, b in (("unrolled", "batched"), ("flat", "batched")):
+        rec = {n: {"qps": [], "launches_per_batch": [],
+                   "rounds_per_batch": []} for n in (a, b)}
+        equal = True
+        for i in range(AB_PAIRS):
+            s = (i * AB_QUERIES) % len(queries)
+            qs = queries[s : s + AB_QUERIES]
+            raws = {}
+            for name in ((a, b) if i % 2 == 0 else (b, a)):
+                wall, raws[name], launches, batches = _ab_arm(arms[name], qs)
+                r = rec[name]
+                r["qps"].append(len(qs) / wall)
+                r["launches_per_batch"].append(launches / batches)
+                r["rounds_per_batch"].append(statistics.mean(
+                    _rounds_paid(x, name == "unrolled") for x in raws[name]))
+            if a == "unrolled":
+                equal &= all(_same_sharded(x, y)
+                             for x, y in zip(raws[a], raws[b]))
+        for name, r in rec.items():
+            r["median_qps"] = statistics.median(r["qps"])
+            r["spread_qps"] = [min(r["qps"]), max(r["qps"])]
+            r["mean_launches_per_batch"] = statistics.mean(
+                r["launches_per_batch"])
+            r["mean_rounds_per_batch"] = statistics.mean(
+                r["rounds_per_batch"])
+        ratios = [y / x for x, y in zip(rec[a]["qps"], rec[b]["qps"])]
+        rec["median_ratio"] = statistics.median(ratios)
+        rec["ratio_spread"] = [min(ratios), max(ratios)]
+        if a == "unrolled":
+            rec["bit_equal"] = bool(equal)
+        out[f"{a}_vs_{b}"] = rec
+        log(f"fan-out A/B {a} vs {b}, {AB_PAIRS} alternating pairs of "
+            f"{AB_QUERIES} queries: " + "; ".join(
+                f"{n} QPS median {rec[n]['median_qps']:.1f} spread "
+                f"{rec[n]['spread_qps'][0]:.1f}-{rec[n]['spread_qps'][1]:.1f}"
+                f" launches/batch {rec[n]['mean_launches_per_batch']:.1f} "
+                f"rounds/batch {rec[n]['mean_rounds_per_batch']:.2f} "
+                f"(pairs {[round(x, 1) for x in rec[n]['qps']]})"
+                for n in (a, b))
+            + f"; {b}/{a} median {rec['median_ratio']:.3f} spread "
+            f"{rec['ratio_spread'][0]:.3f}-{rec['ratio_spread'][1]:.3f}"
+            + (f"; bit_equal={rec['bit_equal']}" if a == "unrolled" else ""))
+    return out
+
+
+def ivf_phase(torch, idx, flat_ids, log) -> tuple:
+    """fig11's IVF-PQ baseline on the main path's corpus: ``build_ivf``
+    (nlist=64, PQ 32 x 256 with 8 k-means iterations, residual) on the
+    card, then SHARD_QUERIES queries through ``search_ivf`` at each nprobe
+    of IVF_NPROBES: recall@10 beside the graph's on the same queries, QPS,
+    rows scanned a query, launches (zeroed before each).  Then
+    IVF_CHECK_QUERIES queries on the card against the same index on the
+    CPU (the plain versions).  Returns (the record, the arguments of one
+    chunk's ``pq_adt`` and lookup launches at the largest nprobe, for the
+    kernel phase)."""
+    from repro_torch.configs.base import PQConfig
+    from repro_torch.core.dataset import recall_at_k
+    from repro_torch.core.ivf import IVFIndex, build_ivf, search_ivf
+    from repro_torch.kernels import loader, ops
+
+    import numpy as np
+
+    ds = idx.dataset
+    queries, gt = ds.queries[:SHARD_QUERIES], ds.gt[:SHARD_QUERIES]
+    stages = {}
+    t0 = time.perf_counter()
+    ivf = build_ivf(ds.base, PQConfig(num_subvectors=32, num_centroids=256,
+                                      kmeans_iters=8), ds.metric,
+                    nlist=IVF_NLIST, device=idx.device,
+                    stage_times=stages)
+    torch.cuda.synchronize()
+    stages["total"] = time.perf_counter() - t0
+    lens = (ivf.lists >= 0).sum(1)
+    out = {"build_s": stages, "list_len_max": int(lens.max()),
+           "list_len_mean": float(lens.float().mean()),
+           "graph_recall_at_10": recall_at_k(flat_ids[:SHARD_QUERIES], gt,
+                                             10),
+           "sweep": {}}
+    log(f"IVF-PQ build (nlist={IVF_NLIST}, PQ 32 x 256, residual) seconds "
+        f"{json.dumps(stages)}; list lengths max {out['list_len_max']} "
+        f"mean {out['list_len_mean']:.1f}")
+    search_ivf(ivf, queries[:256], 10, IVF_NPROBES[0])     # warm-up
+    for nprobe in IVF_NPROBES:
+        loader.reset_launch_counts()
+        t0 = time.perf_counter()
+        ids, _, scanned = search_ivf(ivf, queries, 10, nprobe)
+        wall = time.perf_counter() - t0
+        rec = out["sweep"][nprobe] = {
+            "wall_s": wall, "qps": len(queries) / wall,
+            "recall_at_10": recall_at_k(ids, gt, 10),
+            "scanned_per_query": float(scanned.mean()),
+            "launches": dict(loader.LAUNCHES)}
+        log(f"IVF-PQ nprobe={nprobe}: {len(queries)} queries in {wall:.3f} s"
+            f": QPS={rec['qps']:.1f} recall@10={rec['recall_at_10']:.4f} "
+            f"(graph {out['graph_recall_at_10']:.4f}) scanned/query="
+            f"{rec['scanned_per_query']:.1f} launches="
+            f"{json.dumps(rec['launches'])}")
+
+    nq = IVF_CHECK_QUERIES
+    cpu = IVFIndex(coarse_centroids=ivf.coarse_centroids.cpu(),
+                   lists=ivf.lists.cpu(), list_codes=ivf.list_codes.cpu(),
+                   codebook=ivf.codebook, residual=ivf.residual,
+                   metric=ivf.metric)
+    g_ids, g_d, g_n = search_ivf(ivf, queries[:nq], 10, 8)
+    c_ids, c_d, c_n = search_ivf(cpu, queries[:nq], 10, 8)
+    fin = np.isfinite(c_d)
+    out["cross_device"] = {
+        "queries": nq, "nprobe": 8,
+        "ids_equal": bool((g_ids == c_ids).all()),
+        "rows_identical": float((g_ids == c_ids).all(1).mean()),
+        "scanned_equal": bool((g_n == c_n).all()),
+        "finite_equal": bool((np.isfinite(g_d) == fin).all()),
+        "max_rel_err": float(np.max(np.abs(g_d[fin] - c_d[fin])
+                                    / np.maximum(np.abs(c_d[fin]), 1e-6))),
+        # rtol 1e-4 plus 1e-6 of the largest (the repo's distance bar)
+        "dists_close": bool(np.allclose(
+            g_d[fin], c_d[fin], rtol=1e-4,
+            atol=1e-6 * float(np.abs(c_d[fin]).max())))}
+    log(f"IVF-PQ card vs CPU ({nq} queries, nprobe 8): "
+        f"{json.dumps(out['cross_device'])}")
+
+    # one chunk's launches at the largest nprobe, for the kernel phase
+    captured = {}
+    real = {"adt": ops.pq_adt, "lookup": ops.pq_lookup_gather}
+
+    def spy(key):
+        def call(*args):
+            captured.setdefault(key, args)
+            return real[key](*args)
+        return call
+
+    ops.pq_adt, ops.pq_lookup_gather = spy("adt"), spy("lookup")
+    try:
+        search_ivf(ivf, queries, 10, IVF_NPROBES[-1])
+    finally:
+        ops.pq_adt, ops.pq_lookup_gather = real["adt"], real["lookup"]
+    rows, _, _, mask = captured["lookup"]
+    out["kernel_shapes"] = {"adt_lanes": captured["adt"][0].shape[0],
+                            "lookup": list(rows.shape),
+                            "valid_share": float(mask.float().mean())}
+    return out, captured
 
 
 def tiled_phase(torch, idx, flat_ids, log) -> tuple:
@@ -1061,6 +1328,7 @@ def tiled_phase(torch, idx, flat_ids, log) -> tuple:
             searcher = Searcher.open(idx, **kw)
             out["variants"][name] = _tiled_record(
                 name, engine, searcher, queries, gt, log)
+        out["ab"] = fan_out_ab(torch, idx, queries, log)
     finally:
         index_mod.ProximaIndex.sharded_corpus = real
     return out, built
@@ -1645,6 +1913,20 @@ def stream_failures(rec: dict) -> list:
     return fails
 
 
+def ivf_failures(rec: dict) -> list:
+    out = []
+    for nprobe, r in rec["sweep"].items():
+        if min(r["launches"]["pq_adt"], r["launches"]["pq_lookup"]) <= 0:
+            out.append(f"IVF nprobe={nprobe}: pq_adt or pq_lookup never "
+                       f"launched: {r['launches']}")
+    cd = rec["cross_device"]
+    if not (cd["ids_equal"] and cd["scanned_equal"] and cd["finite_equal"]
+            and cd["dists_close"]):
+        out.append(f"IVF on the card differs from the CPU's plain versions: "
+                   f"{cd}")
+    return out
+
+
 def obs_failures(rec: dict) -> list:
     """The observability phase's checks."""
     fails = []
@@ -1975,6 +2257,8 @@ def main(argv=None) -> int:
 
     tiled, tiles = tiled_phase(torch, idx, gpu_ids, log)
     mark("tiled")
+    ivf, ivf_inputs = ivf_phase(torch, idx, gpu_ids, log)
+    mark("ivf")
     segmented, seg = segmented_phase(torch, idx.config, ds, dev, log)
     del ds
     mark("segmented")
@@ -1988,7 +2272,9 @@ def main(argv=None) -> int:
 
     scan_pass = int(store.mask(_specs()["range_price_0_9"]).sum())
     kernels = kernel_phase(torch, dev, args.num_base, res["rerank_density"],
-                           filt["masked_density"], scan_pass, args.seed)
+                           filt["masked_density"], scan_pass, ivf_inputs,
+                           args.seed)
+    del ivf_inputs
     mark("kernels")
     tiled_launches = {k: sum(v["launches"][k]
                              for v in tiled["variants"].values())
@@ -2002,6 +2288,8 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches"] = res["launches"][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
+        k["launches_by_path"]["ivf"] = sum(
+            r["launches"][k["name"]] for r in ivf["sweep"].values())
         k["launches_build"] = res["build_launches"][k["name"]]
         for e in k["entries"]:
             log(f"kernel {k['name']} [{e['entry']}]: "
@@ -2034,7 +2322,7 @@ def main(argv=None) -> int:
     log(f"seconds by phase (the kernel build apart): {json.dumps(phase_s)}")
 
     detail.update(card=card, kernels=kernels, main=res, continuous=cont,
-                  filtered=filt, tiled=tiled, segmented=segmented,
+                  filtered=filt, tiled=tiled, ivf=ivf, segmented=segmented,
                   observability=observed, streaming=streamed)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
@@ -2102,6 +2390,10 @@ def main(argv=None) -> int:
         if rec["cross_device_identical_rows"] < 0.95:
             failures.append(f"tiled {name}: cross-device identical rows "
                             f"{rec['cross_device_identical_rows']:.4f} < 0.95")
+    if not tiled["ab"]["unrolled_vs_batched"]["bit_equal"]:
+        failures.append("the batched tile fan-out differs from the unrolled "
+                        "one (ids, distances, probed or per-tile counters)")
+    failures.extend(ivf_failures(ivf))
     if segmented["flat"]["recall_at_10"] < 0.5:
         failures.append(f"segmented flat: recall@10 "
                         f"{segmented['flat']['recall_at_10']:.4f} < 0.5")

@@ -3,10 +3,13 @@
 ``ProximaConfig`` and ``upgrade_config``.  Field names and defaults are
 identical to the reference's, so a reference config converts field for field.
 
-``SearchConfig.use_pallas`` is kept for parity only.  The port routes by the
-device of its tensors instead: tensors on a CUDA device launch the
+``SearchConfig.use_pallas`` does not pick the kernels.  The port routes by
+the device of its tensors instead: tensors on a CUDA device launch the
 hand-written kernels of ``repro_torch.kernels``, tensors on the CPU take
 their plain PyTorch versions (the reference's ``use_pallas=False`` path).
+It does one thing, as in the reference: a tiled search with ``use_vmap``
+None runs the batched fan-out when ``use_pallas`` is False and the unrolled
+one (each tile's rounds launched on their own) when it is True.
 """
 from __future__ import annotations
 
@@ -53,8 +56,9 @@ class SearchConfig:
     use_pq: bool = True               # False -> HNSW-style accurate traversal
     early_termination: bool = True
     rerank: bool = True
-    use_pallas: bool = False          # parity only: the port routes by the
-                                      # tensors' device (CUDA -> kernels)
+    use_pallas: bool = False          # not the kernels (the tensors' device
+                                      # picks those); True makes a tiled
+                                      # search's use_vmap=None unrolled
 
 
 @dataclass(frozen=True)

@@ -60,13 +60,19 @@ DONE_CHECK_EVERY = 4     # rounds between host checks of "any lane active"
 
 
 class Corpus(NamedTuple):
-    """Device-resident search structures (one NAND tile's worth)."""
+    """Device-resident search structures (one NAND tile's worth), or the P
+    tiles of a ``TiledCorpus`` stacked into one set of tables
+    (``shard.search``'s batched fan-out): then lane p*Q + q searches query q
+    in tile p, its ids stay tile-local, and ``lane_offset`` says where its
+    tile's rows start in the stacked tables."""
     adjacency: torch.Tensor     # (N, R) int32 padded
     codes: torch.Tensor         # (N, M) uint8 PQ codes
     base: torch.Tensor          # (N, D) f32 raw vectors (rerank path)
     centroids: torch.Tensor     # (M, C, dsub) f32 PQ codebook
-    entry_point: int
-    hot_count: int              # ids < hot_count are "hot nodes"
+    entry_point: int            # stacked: (P*Q,) int32, one per lane
+    hot_count: int              # ids < hot_count are "hot nodes";
+                                # stacked: (P*Q, 1) int32
+    lane_offset: torch.Tensor | None = None   # stacked: (P*Q, 1) int32
 
 
 class SearchResult(NamedTuple):
@@ -151,6 +157,14 @@ def _passes_of(ids: torch.Tensor, node_mask) -> torch.Tensor:
     return valid & node_mask[ids.clamp(min=0).long()]
 
 
+def _rows(corpus: Corpus, ids: torch.Tensor) -> torch.Tensor:
+    """Table rows of (lanes, n) lane-local ids: the ids themselves, or in a
+    stacked corpus the ids plus their lane's tile offset, -1 padding kept
+    -1 (the kernels' id checks must still see it)."""
+    off = corpus.lane_offset
+    return ids if off is None else torch.where(ids >= 0, ids + off, -1)
+
+
 def _mask_on(corpus: Corpus, node_mask):
     """The (N,) pass mask as a bool tensor on the corpus's device."""
     if node_mask is None:
@@ -190,17 +204,22 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
     def tdist(q, adts, ids, mask=None):
         """Traversal distances of (Q, n) ids; +inf where ``mask`` is False
         (the lookup kernel then reads nothing for them)."""
+        rows = _rows(corpus, ids)
         if use_pq:
-            return ops.pq_lookup_gather(ids, corpus.codes, adts, mask)
-        d = exact_dist(q, corpus.base[ids.long()], metric)
+            return ops.pq_lookup_gather(rows, corpus.codes, adts, mask)
+        d = exact_dist(q, corpus.base[rows.long()], metric)
         return d if mask is None else torch.where(mask, d, INF)
 
     def init(q, adts) -> _State:
         nq = q.shape[0]
-        ep = torch.full((nq, 1), corpus.entry_point, dtype=i32, device=dev)
+        if corpus.lane_offset is None:
+            ep = torch.full((nq, 1), corpus.entry_point, dtype=i32,
+                            device=dev)
+        else:
+            ep = corpus.entry_point.reshape(nq, 1)
         d0 = tdist(q, adts, ep)[:, 0]
         ids0 = torch.full((nq, L), -1, dtype=i32, device=dev)
-        ids0[:, 0] = corpus.entry_point
+        ids0[:, 0] = ep[:, 0]
         dists0 = torch.full((nq, L), INF, device=dev)
         dists0[:, 0] = d0
         acc0 = torch.full((nq, L), INF, device=dev)
@@ -246,7 +265,7 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
         vs = torch.where(sel_valid, s.ids.gather(1, sel), 0)        # (Q, E)
 
         # ---- expand the beam: one E-row adjacency gather ---------------
-        neigh = corpus.adjacency[vs.long()].reshape(nq, E * R)
+        neigh = corpus.adjacency[_rows(corpus, vs).long()].reshape(nq, E * R)
         fresh = (_dedup_round(neigh)
                  & ~bloom.contains(s.bits, neigh, num_hashes)
                  & sel_valid.repeat_interleave(R, dim=1))
@@ -275,7 +294,8 @@ def _round_fns(corpus: Corpus, cfg: SearchConfig, metric: str,
         need = in_t_pl & torch.isinf(acc) & (all_eval & live)[:, None]
         n_acc_new = need.sum(1, dtype=i32)
         if use_pq:
-            acc2 = ops.l2_rerank_masked(q, ids, corpus.base, acc, need, metric)
+            acc2 = ops.l2_rerank_masked(q, _rows(corpus, ids), corpus.base,
+                                        acc, need, metric)
         else:
             acc2 = torch.where(valid, dists, INF)
         rerank_key = torch.where(in_t_pl, acc2, INF)
@@ -340,8 +360,8 @@ def _finalize_batch(corpus: Corpus, cfg: SearchConfig, metric: str,
                           d_t + (cfg.beta - 1.0) * torch.abs(d_t))
     if cfg.use_pq and cfg.rerank:
         need = pass_l & (s.dists <= thr[:, None]) & torch.isinf(s.acc)
-        acc = ops.l2_rerank_masked(queries, s.ids, corpus.base, s.acc, need,
-                                   metric)
+        acc = ops.l2_rerank_masked(queries, _rows(corpus, s.ids),
+                                   corpus.base, s.acc, need, metric)
         n_acc = s.n_acc + need.sum(1, dtype=torch.int32)
     else:
         # no rerank (rank by PQ) / accurate traversal (dists are accurate)
@@ -381,12 +401,17 @@ def init_search_state(corpus: Corpus, queries, cfg: SearchConfig,
                       metric: str = "l2", bloom_bits: int = 1 << 17,
                       num_hashes: int = 8, node_mask=None) -> SearchState:
     """Round 0 for a (Q, D) query batch: normalize, build ADTs, seed every
-    lane at the entry point.  ``node_mask`` only matters in later rounds but
-    is accepted here for signature symmetry."""
+    lane at the entry point.  Over a stacked corpus of P tiles the ADTs are
+    built once per query and the lanes are P*Q: lane p*Q + q takes query q
+    and its ADT.  ``node_mask`` only matters in later rounds but is
+    accepted here for signature symmetry."""
     q = _queries_on(corpus, queries)
     if metric == "angular":
         q = l2_normalize(q)
     adts = _build_adts(corpus, q, cfg, metric)
+    if corpus.lane_offset is not None:
+        tiles = corpus.lane_offset.shape[0] // q.shape[0]
+        q, adts = q.repeat(tiles, 1), adts.repeat(tiles, 1, 1)
     init, _, _ = _round_fns(corpus, cfg, metric, bloom_bits, num_hashes)
     return SearchState(queries=q, adts=adts, lanes=init(q, adts))
 

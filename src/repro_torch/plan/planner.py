@@ -484,6 +484,7 @@ class QueryPlanner:
                     art["node_masks_on_device"] = node_masks
         res = sharded_search_kernel(
             self.tiled, q_np, plan.cfg, self.metric,
+            use_vmap=self.plan_cfg.use_vmap,
             probe_tiles=plan.probe_tiles or None, node_masks=node_masks)
         return Execution(ids=res.ids.cpu().numpy(),
                          dists=res.dists.cpu().numpy(), raw=res,

@@ -93,13 +93,11 @@ class Searcher:
         ``filter.AttributeStore`` keyed by internal id) serves filtered
         requests; an index's own ``attributes`` is the default.  ``obs``
         takes an ``obs.Observability`` bundle or an ``ObsConfig`` (None:
-        the shared no-op bundle).  The reference's ``use_vmap`` and its
-        mesh keywords (``mesh``, ``mode``, ``data_axis``, ``queue_axis``)
-        are accepted and raise, naming the ROADMAP item that ports them."""
-        if use_vmap is not None:
-            raise NotImplementedError(
-                "the vmapped tile fan-out (use_vmap=) is not ported yet: "
-                "ROADMAP Queue 1 item 19")
+        the shared no-op bundle).  ``use_vmap`` picks a tiled target's
+        fan-out (``shard.sharded_search_kernel``; None: the batched one).
+        The reference's mesh keywords (``mesh``, ``mode``, ``data_axis``,
+        ``queue_axis``) are accepted and raise, naming the ROADMAP item
+        that ports them."""
         given = [n for n, v in (("mesh", mesh), ("mode", mode),
                                 ("data_axis", data_axis),
                                 ("queue_axis", queue_axis)) if v is not None]
@@ -112,7 +110,7 @@ class Searcher:
         kw = dict(search=cfg, num_tiles=num_tiles, shard_policy=shard_policy,
                   probe_tiles=probe_tiles, beam_width=beam_width,
                   filter=filter_cfg, bloom_bits=bloom_bits,
-                  num_hashes=num_hashes)
+                  num_hashes=num_hashes, use_vmap=use_vmap)
         pc = dataclasses.replace(
             pc, **{k: v for k, v in kw.items() if v is not None})
         if _is_mutable(index):

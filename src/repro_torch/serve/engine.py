@@ -34,7 +34,8 @@ updates the Bloom bits in place.
 
 Tiled serving (``num_tiles``, ``shard_policy``, ``probe_tiles``, or a
 segment-built index) runs every batch through the fan-out over the tiles
-and the cross-tile merge (``shard.sharded_search_kernel``).
+(by default the batched one: one traversal of the tiles' P x Q lanes) and
+the cross-tile merge (``shard.sharded_search_kernel``).
 
 Streaming (``ServingEngine(MutableIndex(index))``): ``insert`` / ``delete``
 interleave with ``submit``; updates apply at once (the delta segment is

@@ -4,8 +4,20 @@
 
 A query batch is broadcast to every tile; each tile runs the unmodified
 Algorithm-1 traversal (``core.search.graph_search``, on the four kernels on
-CUDA) against its local graph/codes/base, one tile after another — the
-reference's unrolled fan-out, so tiles early-terminate independently.
+CUDA) against its local graph/codes/base, in one of the reference's two
+fan-outs:
+
+* **batched** (the reference's vmap over the tile axis, its default on the
+  jnp path): ONE traversal of P*Q lanes over the stacked tile tables viewed
+  as (P*Nt, ...), lane p*Q + q searching query q in tile p with tile-local
+  ids (``core.search.Corpus.lane_offset``).  A batch pays one round's
+  launches, not P, and runs until its slowest lane is done;
+* **unrolled**: one traversal per tile, one tile after another, so tiles
+  early-terminate independently.  A masked fan-out (``node_masks``) is
+  always unrolled: that makes the zero-pass tile skip a host decision.
+
+Both give the same ids, distances and counters: every lane's arithmetic is
+its own.
 Tile-local result ids are mapped to global ids through ``tile_ids`` and the
 P*k candidate streams are fused per query by accurate distance in
 ``cross_tile_merge``: the candidates padded to the next power of two and
@@ -109,12 +121,38 @@ def _tile_corpus(tiled: TiledCorpus, p: int, entries, hots) -> Corpus:
                   entry_point=entries[p], hot_count=hots[p])
 
 
+def _stacked_corpus(tiled: TiledCorpus, nq: int) -> Corpus:
+    """The P tiles as one corpus of P*nq lanes: the stacked tables viewed
+    as (P*Nt, ...), and lane p*nq + q given tile p's entry point, hot count
+    and row offset p*Nt."""
+    p, nt = tiled.adjacency.shape[:2]
+    dev = tiled.adjacency.device
+
+    def per_lane(t):
+        return t.to(torch.int32).repeat_interleave(nq)
+
+    return Corpus(
+        adjacency=tiled.adjacency.reshape(p * nt, -1),
+        codes=tiled.codes.reshape(p * nt, -1),
+        base=tiled.base.reshape(p * nt, -1), centroids=tiled.centroids,
+        entry_point=per_lane(tiled.entry_points),
+        hot_count=per_lane(tiled.hot_counts)[:, None],
+        lane_offset=per_lane(torch.arange(p, device=dev) * nt)[:, None])
+
+
 def _fan_out(tiled: TiledCorpus, queries: torch.Tensor, cfg: SearchConfig,
-             metric: str, node_masks=None) -> SearchResult:
-    """``graph_search`` on every tile in turn; results get a leading (P,)
-    axis.  ``node_masks`` (P, Nt) bool — per-tile slices of a pass mask: each
-    tile admits only its passing vertices, and a tile whose slice is
-    all-False is skipped outright (zero-pass tile skipping)."""
+             metric: str, use_vmap: bool, node_masks=None) -> SearchResult:
+    """``graph_search`` on every tile; results get a leading (P,) axis.
+    ``use_vmap`` without ``node_masks``: one traversal of the stacked tiles'
+    P*Q lanes.  Otherwise the tiles in turn; ``node_masks`` (P, Nt) bool —
+    per-tile slices of a pass mask: each tile admits only its passing
+    vertices, and a tile whose slice is all-False is skipped outright
+    (zero-pass tile skipping)."""
+    if use_vmap and node_masks is None:
+        nq = queries.shape[0]
+        res = graph_search(_stacked_corpus(tiled, nq), queries, cfg, metric)
+        return SearchResult(*(x.reshape(tiled.num_tiles, nq, *x.shape[1:])
+                              for x in res))
     entries = tiled.entry_points.tolist()
     hots = tiled.hot_counts.tolist()
     live = [True] * tiled.num_tiles if node_masks is None \
@@ -155,11 +193,18 @@ def route_queries(tiled: TiledCorpus, queries, probe_tiles: int,
 
 
 def sharded_search_kernel(tiled: TiledCorpus, queries, cfg: SearchConfig,
-                          metric: str = "l2", probe_tiles=None,
+                          metric: str = "l2", use_vmap=None,
+                          probe_tiles=None,
                           node_masks=None) -> ShardedSearchResult:
     """Channel-parallel Proxima search: fan out over tiles, merge top-k —
-    the ``tiled`` execution spine of a ``plan.QueryPlan``.  The fan-out is
-    the reference's unrolled loop (it has no vmapped form here).
+    the ``tiled`` execution spine of a ``plan.QueryPlan``.
+
+    ``use_vmap`` selects the fan-out: True the batched one, False the
+    unrolled loop; None resolves as the reference does, to ``not
+    cfg.use_pallas``, so the default is the batched fan-out and a config
+    with ``use_pallas=True`` gets the unrolled one (the port's kernels run
+    either; pass ``use_vmap=True`` to keep the batched one).  A masked
+    fan-out is unrolled whatever ``use_vmap`` says.
 
     ``probe_tiles`` enables the coarse query router: each query is served
     by its nearest tiles only; the others' candidates are masked from the
@@ -173,7 +218,9 @@ def sharded_search_kernel(tiled: TiledCorpus, queries, cfg: SearchConfig,
     if node_masks is not None:
         node_masks = torch.as_tensor(node_masks, dtype=torch.bool,
                                      device=dev)
-    per = _fan_out(tiled, q, cfg, metric, node_masks)
+    if use_vmap is None:
+        use_vmap = not cfg.use_pallas
+    per = _fan_out(tiled, q, cfg, metric, use_vmap, node_masks)
     nt = tiled.num_tiles
     # probe_tiles in {None, 0} -> full fan-out
     if probe_tiles and probe_tiles < nt:
@@ -204,7 +251,7 @@ def sharded_search_kernel(tiled: TiledCorpus, queries, cfg: SearchConfig,
 
 
 def sharded_search(tiled: TiledCorpus, queries, cfg: SearchConfig,
-                   metric: str = "l2", probe_tiles=None,
+                   metric: str = "l2", use_vmap=None, probe_tiles=None,
                    node_masks=None) -> ShardedSearchResult:
     """Entry point over a tiled target: a ``plan.SearchRequest`` through
     the ``Searcher`` facade, which calls ``sharded_search_kernel`` with the
@@ -212,5 +259,6 @@ def sharded_search(tiled: TiledCorpus, queries, cfg: SearchConfig,
     adaptation)."""
     from repro_torch.plan import Searcher, SearchRequest
 
-    s = Searcher.open(tiled, cfg=cfg, metric=metric, probe_tiles=probe_tiles)
+    s = Searcher.open(tiled, cfg=cfg, metric=metric, use_vmap=use_vmap,
+                      probe_tiles=probe_tiles)
     return s.search(SearchRequest(queries=queries, node_mask=node_masks)).raw

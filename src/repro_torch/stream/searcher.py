@@ -91,7 +91,7 @@ def merged_search_kernel(
             tiled_cfg = adapt_search_cfg(base_cfg, float(base_mask.mean()),
                                          fcfg)
         res = sharded_search_kernel(tiled, q, tiled_cfg, mutable.metric,
-                                    probe_tiles=probe_tiles,
+                                    use_vmap=None, probe_tiles=probe_tiles,
                                     node_masks=node_masks)
     elif base_mask is not None:
         from repro_torch.plan.planner import flat_filtered_search

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import loader, ops
 
 RNG = np.random.default_rng(0)
 
@@ -727,3 +727,82 @@ def test_cuda_merged_search_matches_cpu(cuda):
     assert (g.ids == c.ids).all(1).mean() >= 0.95
     np.testing.assert_array_equal(g.delta_candidates, c.delta_candidates)
     assert not np.isin(g.ids, list(gpu.tombstones)).any()
+
+
+def _tensors(res):
+    return [res.ids, res.dists, res.probed, *res.per_tile]
+
+
+def test_cuda_batched_fan_out_equals_unrolled(cuda):
+    """The batched tile fan-out (one traversal of P x Q lanes over the
+    stacked tiles) against the unrolled one on the card, full and routed:
+    ids, distances, ``probed`` and every per-tile counter bit for bit, one
+    ``pq_adt`` launch instead of P and fewer launches of the round's
+    kernels."""
+    from repro_torch.shard import partition_index
+    from repro_torch.shard.search import sharded_search_kernel
+
+    idx = _small_cuda_index()
+    tiled, _ = partition_index(idx, 3, "cluster")
+    q = idx.dataset.queries
+    for probe in (None, 2):
+        loader.reset_launch_counts()
+        batched = sharded_search_kernel(tiled, q, idx.config.search,
+                                        use_vmap=True, probe_tiles=probe)
+        b_launches = dict(loader.LAUNCHES)
+        loader.reset_launch_counts()
+        unrolled = sharded_search_kernel(tiled, q, idx.config.search,
+                                         use_vmap=False, probe_tiles=probe)
+        u_launches = dict(loader.LAUNCHES)
+        for x, y in zip(_tensors(batched), _tensors(unrolled)):
+            assert torch.equal(x, y)
+        assert (b_launches["pq_adt"], u_launches["pq_adt"]) == (1, 3)
+        for kernel in ("pq_lookup", "l2_rerank"):
+            assert b_launches[kernel] < u_launches[kernel], kernel
+
+
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "raw"])
+def test_ivf_lookup_kernel_ragged(cuda, monkeypatch, residual):
+    """``search_ivf``'s one lookup launch, at (Q*nprobe, max_len) (raw:
+    (Q, nprobe*max_len)) over lists of ragged lengths, one empty, -1
+    padded: the kernel against its plain version on the same inputs
+    (rtol/atol 1e-4, +inf where the padding is masked), the scanned counts
+    exact and the ids of the search equal to the CPU's on >= 95% of rows."""
+    from repro_torch.core.ivf import ivf_from_arrays, search_ivf
+
+    rng = np.random.default_rng(3)
+    nlist, max_len, m, c, d, q, nprobe = 8, 300, 16, 64, 64, 37, 3
+    lengths = rng.integers(1, max_len + 1, nlist)
+    lengths[2], lengths[5] = 0, max_len
+    lists = np.full((nlist, max_len), -1, np.int32)
+    lists[np.arange(max_len) < lengths[:, None]] = rng.permutation(
+        int(lengths.sum())).astype(np.int32)
+    arrays = dict(
+        coarse_centroids=rng.standard_normal((nlist, d)).astype(np.float32),
+        lists=lists, list_codes=rng.integers(0, c, (nlist, max_len, m),
+                                             dtype=np.uint8),
+        centroids=rng.standard_normal((m, c, d // m)).astype(np.float32),
+        residual=residual, metric="l2")
+    queries = rng.standard_normal((q, d)).astype(np.float32)
+    calls = []
+    real = ops.pq_lookup_gather
+
+    def spy(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(ops, "pq_lookup_gather", spy)
+    loader.reset_launch_counts()
+    ids, _, scanned = search_ivf(ivf_from_arrays(**arrays, device="cuda"),
+                                 queries, 10, nprobe)
+    assert loader.LAUNCHES["pq_adt"] == loader.LAUNCHES["pq_lookup"] == 1
+    (rows, table, adts, mask), out = calls[0]
+    lanes = (q * nprobe, max_len) if residual else (q, nprobe * max_len)
+    assert rows.shape == mask.shape == lanes and not mask.all()
+    want = ops.pq_lookup_gather_plain(rows, table, adts, mask)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    cpu_ids, _, cpu_scanned = search_ivf(
+        ivf_from_arrays(**arrays, device="cpu"), queries, 10, nprobe)
+    np.testing.assert_array_equal(scanned, cpu_scanned)
+    assert (ids == cpu_ids).all(1).mean() >= 0.95

@@ -358,14 +358,51 @@ def test_kernel_calls_equal_the_ports_call_counts(tiny_port, monkeypatch):
 
 
 @pytest.mark.parametrize("keyword,item", [
-    ("use_vmap", "item 19"), ("mesh", "item 15"), ("mode", "item 15"),
+    ("mesh", "item 15"), ("mode", "item 15"),
     ("data_axis", "item 15"), ("queue_axis", "item 15")])
 def test_searcher_open_reference_keywords_name_their_item(tiny_port, keyword,
                                                           item):
-    value = {"use_vmap": True, "mesh": object(), "mode": "nsp",
+    value = {"mesh": object(), "mode": "nsp",
              "data_axis": "data", "queue_axis": "model"}[keyword]
     with pytest.raises(NotImplementedError, match=item):
         Searcher.open(tiny_port, **{keyword: value})
+
+
+@pytest.mark.parametrize("use_vmap,lanes", [(None, [16]), (True, [16]),
+                                            (False, [8, 8])])
+def test_searcher_open_use_vmap_routes_the_fan_out(tiny_port, monkeypatch,
+                                                   use_vmap, lanes):
+    """``Searcher.open(use_vmap=)`` is the reference's keyword: it sets
+    ``PlanConfig.use_vmap``, and a tiled plan then runs the batched fan-out
+    (None or True: one traversal of P x Q lanes) or the unrolled one
+    (False: one per tile), with the same ids.  ``ServingEngine(num_tiles=)``
+    takes the batched one."""
+    from repro_torch.serve import ServingEngine
+    from repro_torch.shard import search as shard_search
+
+    seen = []
+    real = shard_search.graph_search
+
+    def spy(corpus, queries, *a, **kw):
+        res = real(corpus, queries, *a, **kw)
+        seen.append(res.ids.shape[0])
+        return res
+
+    monkeypatch.setattr(shard_search, "graph_search", spy)
+    q = tiny_port.dataset.queries[:8]
+    s = Searcher.open(tiny_port, num_tiles=2, use_vmap=use_vmap)
+    assert s.plan_cfg.use_vmap is use_vmap
+    got = s.search(SearchRequest(queries=q))
+    assert got.plan.kind == "tiled" and seen == lanes
+    want = Searcher.open(tiny_port, num_tiles=2, use_vmap=False).search(
+        SearchRequest(queries=q))
+    np.testing.assert_array_equal(got.ids, want.ids)
+    seen.clear()
+    eng = ServingEngine(tiny_port, batch_size=8, num_tiles=2)
+    for v in q:
+        eng.submit(v)
+    eng.drain()
+    assert seen and set(seen) == {16}       # its warm-up batch included
 
 
 def test_searcher_shadow_oracle_equals_reference(tiny_index, tiny_port,

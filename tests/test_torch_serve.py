@@ -86,11 +86,12 @@ def test_engine_beam_width_and_plan_config(tiny_index, tiny_port):
 
 
 def test_unported_serving_modes_raise(tiny_index, tiny_port):
-    """What the port still refuses names its ROADMAP item: the vmapped
-    fan-out (item 19), the mesh keywords (item 15); targets other than an
-    index, a mutable index, a corpus or tiles raise too.  Tiled plans (item
-    11) run: a tiled Searcher serves a request, and a flat one takes a
-    request's probe_tiles as the plan's fan-in.  Observability and NAND
+    """What the port still refuses names its ROADMAP item: the mesh
+    keywords (item 15); targets other than an index, a mutable index, a
+    corpus or tiles raise too.  Tiled plans (item 11) run: a tiled Searcher
+    serves a request, and a flat one takes a request's probe_tiles as the
+    plan's fan-in.  The batched fan-out (item 19) is ported: ``use_vmap=``
+    is taken into the plan config.  Observability and NAND
     billing (items 12 and 13) are ported: ``obs=`` refuses what
     ``Observability.resolve`` refuses, with the reference's TypeError.
     Streaming (item 10) is ported: a merged plan over a static index has
@@ -107,8 +108,7 @@ def test_unported_serving_modes_raise(tiny_index, tiny_port):
         Searcher.open(dataclasses.replace(tiny_port.dataset))
     with pytest.raises(TypeError, match="obs= takes"):
         ServingEngine(tiny_port, batch_size=4, continuous=True, obs=object())
-    with pytest.raises(NotImplementedError, match="item 19"):
-        Searcher.open(tiny_port, use_vmap=True)
+    assert Searcher.open(tiny_port, use_vmap=True).plan_cfg.use_vmap is True
     with pytest.raises(NotImplementedError, match="item 15"):
         Searcher.open(tiny_port, mesh=object())
     q = tiny_port.dataset.queries

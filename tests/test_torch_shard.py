@@ -12,6 +12,10 @@
   ``probed`` mask exactly, distances within the search bar (rtol 1e-5 plus
   1e-6 of the largest, tests/test_torch_core.py says why), with and without
   ``probe_tiles`` and with per-tile node masks;
+* the batched fan-out (``use_vmap``, the default) against the reference's
+  vmapped fan-out and against the port's unrolled one, full and routed;
+  a masked fan-out stays unrolled under ``use_vmap=True``; the flat
+  traversal is unchanged by the stacked-corpus path;
 * the serving engine: the twin of ``tests/test_serve.py::
   test_engine_sharded_path`` and ids equal to the reference engine's with
   ``num_tiles=2`` (the port partitions and rebuilds the tiles itself).
@@ -164,6 +168,102 @@ def test_sharded_search_matches_reference(tiny_index, ref_tiles, case):
     if masks is not None:
         assert not got.probed[0].any()
         assert (got.per_tile.n_hops[0] == 0).all()
+
+
+def _tensors(res):
+    return [res.ids, res.dists, res.probed, *res.per_tile]
+
+
+def _count_traversals(monkeypatch):
+    """Spy on the fan-out's ``graph_search``: the lanes of each call."""
+    from repro_torch.shard import search as shard_search
+
+    lanes = []
+    real = shard_search.graph_search
+
+    def spy(corpus, queries, *a, **kw):
+        res = real(corpus, queries, *a, **kw)
+        lanes.append(res.ids.shape[0])
+        return res
+
+    monkeypatch.setattr(shard_search, "graph_search", spy)
+    return lanes
+
+
+@pytest.mark.parametrize("case", ["full", "probe2"])
+def test_batched_fan_out_matches_reference_vmap(tiny_index, ref_tiles,
+                                                monkeypatch, case):
+    """``use_vmap=True`` (one traversal of P*Q lanes) gives the reference's
+    vmapped fan-out's ids, ``probed`` and per-tile counters, and the port's
+    unrolled fan-out's bit for bit; ``use_vmap=None`` is the batched one."""
+    ref, part = ref_tiles[3, "cluster"]
+    tiled, _ = port_tiled(ref, part)
+    cfg = tiny_index.config.search
+    pcfg = SearchConfig(**dataclasses.asdict(cfg))
+    probe = 2 if case == "probe2" else None
+    q = tiny_index.dataset.queries
+    want = ref_sharded_search(ref, q, cfg, probe_tiles=probe, use_vmap=True)
+    lanes = _count_traversals(monkeypatch)
+    got = sharded_search(tiled, q, pcfg, use_vmap=True, probe_tiles=probe)
+    assert lanes == [3 * len(q)]
+    _assert_same_sharded(got, want)
+    unrolled = sharded_search(tiled, q, pcfg, use_vmap=False,
+                              probe_tiles=probe)
+    assert lanes == [3 * len(q)] + [len(q)] * 3
+    for x, y in zip(_tensors(got), _tensors(unrolled)):
+        assert torch.equal(x, y)
+    default = sharded_search(tiled, q, pcfg, probe_tiles=probe)
+    assert lanes[-1] == 3 * len(q) and torch.equal(default.ids, got.ids)
+
+
+def test_masked_fan_out_stays_unrolled(tiny_index, ref_tiles, monkeypatch):
+    """Per-tile node masks take the unrolled loop under ``use_vmap=True``,
+    as the reference's (the zero-pass tile is skipped, never traversed)."""
+    ref, part = ref_tiles[3, "cluster"]
+    tiled, _ = port_tiled(ref, part)
+    mask = np.random.default_rng(9).random(tiny_index.dataset.num_base) < 0.4
+    mask[np.asarray(ref.tile_ids)[0].clip(0)] = False
+    masks = tile_node_masks(tiled.tile_ids, mask)
+    cfg = tiny_index.config.search
+    q = tiny_index.dataset.queries
+    lanes = _count_traversals(monkeypatch)
+    got = sharded_search(tiled, q, SearchConfig(**dataclasses.asdict(cfg)),
+                         use_vmap=True, node_masks=masks)
+    assert lanes == [len(q)] * 2
+    _assert_same_sharded(got, ref_sharded_search(
+        ref, q, cfg, node_masks=masks, use_vmap=True))
+
+
+def test_flat_search_ignores_stacked_path(tiny_index, tiny_port):
+    """A flat corpus has no lane offsets: ``graph_search`` gives the
+    reference's ids and counters (the flat bar of tests/test_torch_core.py)
+    and the same result as a one-tile stacked corpus of the same tables."""
+    from repro.core.search import graph_search as ref_graph_search
+    from repro_torch.core.search import graph_search
+    from repro_torch.shard.search import _stacked_corpus
+    from repro_torch.shard import TiledCorpus
+
+    corpus = tiny_port.corpus()
+    assert corpus.lane_offset is None
+    q = tiny_index.dataset.queries
+    cfg = tiny_port.config.search
+    got = graph_search(corpus, q, cfg)
+    want = ref_graph_search(tiny_index.corpus(), q, tiny_index.config.search)
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    for f in COUNTERS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), f)
+    one = TiledCorpus(
+        adjacency=corpus.adjacency[None], codes=corpus.codes[None],
+        base=corpus.base[None], centroids=corpus.centroids,
+        entry_points=torch.tensor([corpus.entry_point], dtype=torch.int32),
+        hot_counts=torch.tensor([corpus.hot_count], dtype=torch.int32),
+        tile_ids=torch.arange(corpus.base.shape[0],
+                              dtype=torch.int32)[None],
+        tile_centroids=corpus.base.mean(0, keepdim=True))
+    stacked = graph_search(_stacked_corpus(one, len(q)), q, cfg)
+    for a, b in zip(got, stacked):
+        assert torch.equal(a, b)
 
 
 def test_searcher_tiled_filtered_matches_reference(tiny_index, tiny_port,
