@@ -30,6 +30,21 @@ not printed):
    host seconds per tick and per read of the active flags, recall@10.
    Fails unless every request's ids and distances equal, bit for bit, the
    batch-flush engine's.
+   Distributed phase (``repro_torch.core.distributed``, ``launch/``): the
+   index sharded round-robin (``shard_corpus``) and 2,048 queries served
+   256 at a time through ``Searcher.open(sharded, mesh=, mode=)``: at
+   world size 1 over NCCL in this process (a 1x1 mesh), nsp and fetch at
+   E=1 and 4, beside a flat ``Searcher`` at the same E (QPS, recall@10,
+   launches per kernel a round, bytes handed to the collectives a round,
+   each round collective's time); then a (2, 2) mesh of 4 gloo processes
+   on the one card (``mesh_rank``; each loads only its own data shard,
+   written once as ``.npy``), nsp and fetch at E=1 (QPS, seconds); then
+   ``python -m repro_torch.launch.serve`` at its defaults.  Fails unless
+   every world-size-1 run's ids equal the flat search's as sorted sets,
+   its recall@10 is >= 0.5, each round launched the lookup (twice in nsp),
+   the merge and the masked rerank (twice) and each batch ``pq_adt``
+   once, every rank exits 0 with the world-size-1 ids, and the launcher
+   exits 0 with its recall line.
    Filtered phase: ``random_attributes(N, {"category": 8, "price": 1000},
    seed=5)`` and four specs — ``isin(category, [0, 1, 2])`` (~37.5%,
    masked, L=512), ``eq(category, 3)`` (~12.5%, masked, L=1024), ``range(price, 0,
@@ -64,7 +79,8 @@ not printed):
    launched at every nprobe and 64 queries on the card give the ids and
    scanned counts of the same index on the CPU (plain versions), with
    distances at rtol 1e-4.
-   Segmented phase: ``build_segmented`` of the corpus in 4 segments of
+   Segmented phase: ``build_segmented`` of the corpus's first 500,000
+   vectors (the ground truth recomputed over them) in 2 segments of
    250,000 on the card, 16,384 stitch anchors a joining segment (stage and
    stitch seconds, patched rows), 2,048
    queries served tiled through the segments (the checks above) and flat
@@ -90,15 +106,16 @@ not printed):
    counters, not times of any device), the in-search ``kernel_wall_ms``
    medians per kernel and the QPS pairs.
    Streaming phase (``repro_torch.stream``): a ``MutableIndex`` over the
-   index at ``StreamConfig``'s defaults (delta capacity 4,096, list 32,
-   brute force below 64, over-fetch 16), served by ``ServingEngine(mutable,
+   index at ``StreamConfig``'s defaults but a delta capacity of
+   STREAM_DELTA_CAPACITY, 1,024 (list 32, brute force below 64, over-fetch
+   16), served by ``ServingEngine(mutable,
    batch_size=256)`` and the continuous engine (slots=256), both with
    ``auto_consolidate=False``.  10,000 random base ids and each of the
-   first 2,048 queries' exact top-1 are deleted, 4,096 vectors (a random
+   first 2,048 queries' exact top-1 are deleted, 1,024 vectors (a random
    base vector plus N(0, 0.1^2) noise) inserted through the continuous
    engine, filling the delta; 512 queries and 256 of the inserted vectors
    are served through both engines and ``merged_search_kernel``; then with
-   256 lanes in flight the 4,097th insert consolidates inside ``insert``
+   256 lanes in flight the 1,025th insert consolidates inside ``insert``
    (the base rebuilt on the card) and the same sets are served again.
    Prints inserts a second, merged QPS beside the flat engine's, the delta
    search's share of the wall time, recall@10 against the exact kNN of
@@ -108,8 +125,8 @@ not printed):
    ``merged_search_kernel``, recall@10 is below 0.5, the merge drops an
    inserted vector that its segment's own search found, fewer than
    STREAM_SELF_FLOOR of the inserted vectors find themselves, the engine's
-   stats are not 1 consolidation / 4,097 inserts / every delete, a lane in
-   flight was not retired before the rebuild, the old base's corpus is
+   stats are not 1 consolidation / capacity + 1 inserts / every delete, a
+   lane in flight was not retired before the rebuild, the old base's corpus is
    still allocated when the rebuild starts, the rebuild's peak exceeds one
    build's on top of what remains, device memory grew across it, or the
    sort entry did not launch once per merged batch.
@@ -135,7 +152,10 @@ not printed):
    round: the lookup, the merge (L=128, n=64) and the masked rerank at
    4 x 256 = 1,024 lanes.  The IVF search's: ``pq_adt`` over one chunk's
    (Q x nprobe) residuals and the lookup at that chunk's (Q x nprobe,
-   max_len), the IVF phase's own arguments.  Each entry is timed over
+   max_len), the IVF phase's own arguments.  The distributed round's, on
+   one round's arguments from the distributed phase: the lookup over the
+   shard's codes, over the hot replica and over fetch's fetched table, the
+   masked rerank over the shard's base and over the hot replica.  Each entry is timed over
    30 launches, the 50 MB L2 cache flushed
    before each and the launch queued behind a spin: by CUDA events around
    each launch (``ms``) and, for the same launches, by the kernel's own
@@ -160,8 +180,10 @@ default.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -178,6 +200,9 @@ IVF_NLIST = 64                   # fig11's IVF-PQ baseline
 IVF_NPROBES = (2, 8, 16)
 IVF_CHECK_QUERIES = 64           # card against CPU, at nprobe 8
 SEGMENT_SIZE = 250_000
+# the segmented phase builds the corpus's first SEGMENTED_BASE vectors (2
+# segments), the smoke's time limit's cut of its depth (PERF.md)
+SEGMENTED_BASE = 500_000
 # boundary anchors a joining segment stitches (BuildConfig's default is 32:
 # the stitched 1M graph then stays inside segment 0, recall@10 0.2339 on an
 # H100, PERF.md)
@@ -187,12 +212,19 @@ FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 # exact top-1 too), queries served before and after the consolidation, and
 # inserted vectors served as queries
 STREAM_DELETES = 10_000
+# the delta's capacity, the inserts that fill it (StreamConfig's default is
+# 4,096): the smoke's time limit's cut of the streaming path's depth; 4,096
+# inserts ran 8.8-13.6 a second on the card's hosts, 301-463 s (PERF.md).
+# Merged QPS over this delta is not comparable with a 4,096-row delta's
+STREAM_DELTA_CAPACITY = 1024
 STREAM_QUERIES = 512             # of the 10,000: the host's delta search
 STREAM_SELF_QUERIES = 256
-# the share of inserted vectors that must find themselves: the reference's
-# delta search found 0.949-0.980 of 256 over seeds 1-5
-# (tests/_delta_self_recall.py on the CPU, PERF.md), a miss rate near 3.7%;
-# 0.9 is ~5 standard deviations of a 256-query share below that
+# the share of inserted vectors that must find themselves, before the
+# consolidation (the delta's search) and after (the rebuilt base graph's):
+# the reference's delta search found 0.992-1.000 of 256 over seeds 1-5 at
+# STREAM_DELTA_CAPACITY inserts (0.949-0.980 at 4,096, a miss rate near
+# 3.7%; tests/_delta_self_recall.py on the CPU, PERF.md); 0.9 is ~5
+# standard deviations of a 256-query share below the 4,096-insert rate
 STREAM_SELF_FLOOR = 0.9
 
 
@@ -279,7 +311,7 @@ def _bound(nbytes: float, flops: float) -> tuple:
 
 def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                  filter_density: dict, scan_pass: int, ivf_inputs: dict,
-                 seed: int = 0) -> list:
+                 dist_inputs: dict, seed: int = 0) -> list:
     """Each kernel vs its plain version at the main path's shapes; raises
     on a disagreement.  Returns one record per kernel (launches filled in
     from the main path): the top-level numbers are those of the entry the
@@ -292,7 +324,9 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
     pads them, are entries too; so are the batched tile fan-out's round
     (the lookup, merge and masked rerank at NUM_TILES x Q lanes) and the
     IVF search's launches (``ivf_inputs``: the arguments of one chunk's
-    ``pq_adt`` and lookup, as the IVF phase made them)."""
+    ``pq_adt`` and lookup, as the IVF phase made them) and the distributed
+    search's call sites (``dist_inputs``: one round's arguments of each,
+    as the distributed phase made them at world size 1)."""
     from repro_torch.core.search import next_pow2
     from repro_torch.kernels import ops
 
@@ -510,7 +544,12 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                         rand(NUM_TILES * q, r) < 0.5),
            gather_entry(f"gather_ivf_Q{ivf_inputs['lookup'][0].shape[0]}"
                         f"_n{ivf_inputs['lookup'][0].shape[1]}",
-                        *ivf_inputs["lookup"]))
+                        *ivf_inputs["lookup"]),
+           # the distributed round's: nsp over the shard's codes (local
+           # ids, "fresh and owned and not hot") and over the hot replica
+           # ("fresh and hot"); fetch over the fetched (Q*R, M) table
+           *(gather_entry(f"gather_distributed_{site}", *dist_inputs[site])
+             for site in ("lookup_shard", "lookup_hot", "lookup_table")))
 
     # ---- bitonic_sort_pairs: the merge entry the round runs, the sort ----
     def merge_inputs(n, l, nq):
@@ -647,6 +686,22 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
             9 * nq * k + 4 * rows * d
             + 4 * d * int(mask.any(1).sum()), 3 * int(mask.sum()) * d)
 
+    def rerank_entry(label, qq, ids, table, acc_, mask):
+        """The masked entry on a call site's own arguments."""
+        pre = table[ids.clamp(min=0).long()]
+        nq, k = ids.shape
+        return entry(
+            label, "l2_rerank_kernel",
+            ops.l2_rerank_masked(qq, ids, table, acc_, mask, "l2"),
+            ops.l2_rerank_masked_plain(qq, ids, table, acc_, mask, "l2"),
+            1e-4, 1e-3,
+            lambda: ops.l2_rerank_masked(qq, ids, table, acc_, mask, "l2"),
+            lambda: ops.l2_rerank_masked_plain(qq, ids, table, acc_, mask,
+                                               "l2"),
+            {"cdist": lambda: torch.cdist(qq[:, None, :], pre)},
+            9 * nq * k + 4 * int(torch.unique(ids[mask]).numel()) * d
+            + 4 * d * int(mask.any(1).sum()), 3 * int(mask.sum()) * d)
+
     def at_density(label, share, k=l, nq=q):
         if k == l and nq == q:
             cols = dict()
@@ -671,6 +726,11 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                       rerank_density["round_mean"], nq=NUM_TILES * q),
            masked_entry("masked_all", torch.ones((q, l), dtype=torch.bool,
                                                  device=dev)),
+           # the distributed round's exact distances: the shard's rows
+           # ("needed and owned and not hot", 0 elsewhere) and the hot
+           # replica's ("needed and hot")
+           *(rerank_entry(f"masked_distributed_{site}", *dist_inputs[site])
+             for site in ("rerank_shard", "rerank_hot")),
            # search_reference's exact distances: one query, the T=16 entries
            # of a round's top-T, every one asked for
            masked_entry("masked_Q1_K16_trace",
@@ -881,6 +941,355 @@ def continuous_phase(torch, idx, batch_ids, batch_dists, log) -> dict:
     log(f"continuous ids and distances equal the batch-flush engine's: "
         f"{res['equals_batch_engine']}")
     return res
+
+
+DIST_RUNS = (("nsp", 1), ("nsp", 4), ("fetch", 1), ("fetch", 4))
+MESH_SHAPE = (2, 2)              # (data, model) gloo ranks on the one card
+MESH_MODES = ("nsp", "fetch")    # at E=1
+ROUND_COLLECTIVES = ("adjacency", "scores", "codes", "exact")
+
+
+def _serve_searcher(searcher, queries, before=None) -> tuple:
+    """``queries`` through ``searcher.search`` 256 at a time after one
+    untimed batch (``before``, if given, is called between them): (ids,
+    wall seconds).  The ids reach the host in each call, so the device's
+    work is done when the clock stops."""
+    import numpy as np
+
+    from repro_torch.plan import SearchRequest
+
+    searcher.search(SearchRequest(queries=queries[:256]))
+    if before is not None:
+        before()
+    t0 = time.perf_counter()
+    ids = np.concatenate([
+        searcher.search(SearchRequest(queries=queries[s : s + 256])).ids
+        for s in range(0, len(queries), 256)])
+    return ids, time.perf_counter() - t0
+
+
+def _distributed_inputs(searcher, queries, sc) -> dict:
+    """One more 256-query batch with the kernel entries wrapped: the
+    arguments of each distributed call site in the batch's 20th round (the
+    kernel phase times the kernels on them)."""
+    from repro_torch.kernels import ops
+
+    seen, kept = {}, {}
+    real = {f: getattr(ops, f) for f in ("pq_lookup_gather",
+                                         "l2_rerank_masked")}
+
+    def site(name, table):
+        if table.shape[0] == sc.hot_codes.shape[0]:
+            return name + "_hot"
+        return name + ("_shard" if table.shape[0] == sc.base.shape[1]
+                       else "_table")
+
+    def lookup(ids, codes, adts, mask=None):
+        key = site("lookup", codes)
+        seen[key] = seen.get(key, 0) + 1
+        if seen[key] == 20:
+            kept[key] = (ids.clone(), codes, adts.clone(), mask.clone())
+        return real["pq_lookup_gather"](ids, codes, adts, mask)
+
+    def rerank(queries, ids, base, acc, mask, metric="l2"):
+        key = site("rerank", base)
+        seen[key] = seen.get(key, 0) + 1
+        if seen[key] == 20:
+            kept[key] = (queries.clone(), ids.clone(), base, acc.clone(),
+                         mask.clone())
+        return real["l2_rerank_masked"](queries, ids, base, acc, mask,
+                                        metric)
+
+    ops.pq_lookup_gather, ops.l2_rerank_masked = lookup, rerank
+    try:
+        from repro_torch.plan import SearchRequest
+
+        searcher.search(SearchRequest(queries=queries[-256:]))
+    finally:
+        for f, fn in real.items():
+            setattr(ops, f, fn)
+    return kept
+
+
+def distributed_phase(torch, dev, idx, out_dir, repo, log) -> tuple:
+    """The distributed search (``repro_torch.core.distributed`` through
+    ``Searcher.open(sharded_corpus, mesh=, mode=)``) over the main path's
+    index, SHARD_QUERIES queries 256 at a time.  World size 1 over NCCL in
+    this process (a 1x1 mesh): both modes at E=1 and 4 against a flat
+    ``Searcher`` on the same queries (ids as sorted sets, recall@10, QPS,
+    launches per kernel and bytes handed to the collectives, a round),
+    and each round-collective's time at its shape.  Then a MESH_SHAPE mesh
+    of gloo ranks on the one card (``mesh_rank``, one process each, each
+    loading only its own data shard, written once as ``.npy``), MESH_MODES
+    at E=1 (ids against world size 1, QPS, seconds).  Then ``python -m
+    repro_torch.launch.serve`` at its defaults.  Returns (the record, the
+    call sites' arguments for the kernel phase).  On a CPU ``dev`` (a
+    rehearsal) the groups are gloo and the mesh's ranks run on the CPU."""
+    import datetime
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as dmod
+    from repro_torch.core.dataset import recall_at_k
+    from repro_torch.kernels import loader
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.plan import Searcher
+
+    queries = idx.dataset.queries[:SHARD_QUERIES]
+    gt = idx.dataset.gt[:SHARD_QUERIES]
+    batches = -(-len(queries) // 256)
+    args = (idx.graph.adjacency, idx.codes, idx._search_base(),
+            idx.codebook.centroids, int(idx.graph.entry_point),
+            idx.hot_count)
+    work = out_dir / "distributed"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {"flat": {}, "world_1": {}, "collective_ms": {}}
+    flat = {}
+
+    def _reset():
+        loader.reset_launch_counts()
+        dmod.TRAFFIC.clear()
+
+    for beam in (1, 4):
+        flat[beam], wall = _serve_searcher(
+            Searcher.open(idx, beam_width=beam), queries)
+        out["flat"][beam] = {"qps": len(queries) / wall,
+                             "recall_at_10": recall_at_k(flat[beam], gt, 10)}
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        store=dist.FileStore(str(work / "store_1"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        t0 = time.perf_counter()
+        sc = dmod.shard_corpus(*args, 1, shard=0, device=dev)
+        out["shard_s"] = time.perf_counter() - t0
+        world1 = {}
+        for mode, beam in DIST_RUNS:
+            searcher = Searcher.open(sc, mesh=mesh, mode=mode,
+                                     cfg=idx.config.search, beam_width=beam)
+            ids, wall = _serve_searcher(searcher, queries, _reset)
+            world1[mode, beam] = ids
+            launches = dict(loader.LAUNCHES)
+            traffic = dict(dmod.TRAFFIC)
+            n_batches = batches
+            rounds = traffic["rounds"]
+            per_round = {k: traffic.get(k, 0) / rounds
+                         for k in ROUND_COLLECTIVES if k in traffic}
+            rec = out["world_1"][f"{mode}_E{beam}"] = {
+                "qps": len(queries) / wall, "wall_s": wall,
+                "qps_over_flat": len(queries) / wall
+                / out["flat"][beam]["qps"],
+                "recall_at_10": recall_at_k(ids, gt, 10),
+                "flat_recall_at_10": out["flat"][beam]["recall_at_10"],
+                "same_sets_as_flat": float(
+                    (np.sort(ids, 1) == np.sort(flat[beam], 1)).all(1)
+                    .mean()),
+                "rounds": rounds, "batches": n_batches,
+                "launches": launches,
+                "launches_per_round": {k: v / rounds
+                                       for k, v in launches.items()},
+                "collective_bytes_per_round": per_round,
+                "collective_bytes_per_round_total": sum(per_round.values()),
+                "collectives": traffic["collectives"],
+                "launch_check": {
+                    "pq_adt": [launches["pq_adt"], n_batches],
+                    "pq_lookup": [launches["pq_lookup"],
+                                  (2 if mode == "nsp" else 1)
+                                  * (rounds + n_batches)],
+                    "bitonic_sort_pairs": [launches["bitonic_sort_pairs"],
+                                           rounds],
+                    "l2_rerank": [launches["l2_rerank"],
+                                  2 * (rounds + n_batches)]},
+            }
+            log(f"distributed world 1 {mode} E={beam}: QPS={rec['qps']:.1f} "
+                f"({rec['qps_over_flat']:.3f} of flat "
+                f"{out['flat'][beam]['qps']:.1f}) recall@10="
+                f"{rec['recall_at_10']:.4f} (flat "
+                f"{rec['flat_recall_at_10']:.4f}) same sets as flat "
+                f"{rec['same_sets_as_flat']:.4f}; rounds {rounds} over "
+                f"{n_batches} batches; launches a round "
+                f"{json.dumps(rec['launches_per_round'])}; collective bytes "
+                f"a round {json.dumps(per_round)}")
+        searcher = Searcher.open(sc, mesh=mesh, mode="nsp",
+                                 cfg=idx.config.search)
+        inputs = _distributed_inputs(searcher, queries, sc)
+        fetch = Searcher.open(sc, mesh=mesh, mode="fetch",
+                              cfg=idx.config.search)
+        inputs["lookup_table"] = _distributed_inputs(
+            fetch, queries, sc)["lookup_table"]
+        # each collective of a round at its shape (Q=256, E=1, R=64,
+        # M=32, L=128), timed as the kernels are
+        group = mesh.get_group("data")
+        flush = _Flush(torch, dev)
+        r, m = idx.graph.adjacency.shape[1], idx.codes.shape[1]
+        shapes = {"adjacency": ((256, r), torch.int32),
+                  "scores": ((256, r), torch.float32),
+                  "codes": ((256, r, m), torch.int32),
+                  "exact": ((256, idx.config.search.list_size),
+                            torch.float32)}
+        for name, (shape, dtype) in shapes.items():
+            t = torch.zeros(shape, dtype=dtype, device=dev)
+            out["collective_ms"][name] = {
+                "bytes": t.numel() * t.element_size(),
+                "ms": _time_ms(torch, lambda t=t: dist.all_reduce(
+                    t, group=group), flush)}
+        log(f"NCCL all_reduce at world size 1, a round's collectives: "
+            f"{json.dumps(out['collective_ms'])}")
+        del sc
+    finally:
+        dist.destroy_process_group()
+
+    # the gloo mesh: each data shard written once, each rank loads its own
+    p = MESH_SHAPE[0]
+    t0 = time.perf_counter()
+    for s in range(p):
+        part = dmod.shard_corpus(*args, p, shard=s, device="cpu")
+        for f in ("adjacency", "codes", "base"):
+            np.save(work / f"{f}{s}.npy", getattr(part, f).numpy())
+    np.savez(work / "replicated.npz", **{f: getattr(part, f).numpy() for f in (
+        "centroids", "hot_adjacency", "hot_codes", "hot_base")})
+    np.save(work / "queries.npy", queries)
+    (work / "meta.json").write_text(json.dumps({
+        "entry_point": part.entry_point, "hot_count": part.hot_count,
+        "num_vertices": part.num_vertices, "device": dev.type,
+        "cfg": dataclasses.asdict(idx.config.search)}))
+    del part
+    out["mesh_write_s"] = time.perf_counter() - t0
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    t0 = time.perf_counter()
+    ranks = math.prod(MESH_SHAPE)
+    # one host thread a rank: the ranks share the host's cores
+    rank_env = dict(env, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.mesh_rank(sys.argv[1:]))", str(rank),
+         str(work)], cwd=repo, env=rank_env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(ranks)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    out["mesh_s"] = time.perf_counter() - t0
+    (out_dir / "distributed_ranks.log").write_text("\n".join(
+        f"== rank {i} (exit {proc.returncode})\n{text}"
+        for i, (proc, text) in enumerate(zip(procs, logs))))
+    out["mesh_exit_codes"] = [proc.returncode for proc in procs]
+    mesh_rec = out["mesh"] = {}
+    if all(c == 0 for c in out["mesh_exit_codes"]):
+        recs = [json.loads((work / f"rank{i}.json").read_text())
+                for i in range(ranks)]
+        for mode in MESH_MODES:
+            ids = [np.load(work / f"ids{i}.npz")[mode] for i in range(ranks)]
+            wall = max(rec[mode]["wall_s"] for rec in recs)
+            t = recs[0][mode]["traffic"]
+            mesh_rec[mode] = {
+                "qps": len(queries) / wall, "wall_s": wall,
+                "equals_world_1": all(np.array_equal(x, world1[mode, 1])
+                                      for x in ids),
+                "rounds_rank0": t["rounds"],
+                "ms_per_round": wall * 1e3 / t["rounds"],
+                "collective_bytes_per_round_rank0": {
+                    k: t[k] / t["rounds"] for k in ROUND_COLLECTIVES
+                    if k in t},
+                "launches_rank0": recs[0][mode]["launches"]}
+            rec = mesh_rec[mode]
+            log(f"distributed gloo mesh {MESH_SHAPE} ({ranks} processes, "
+                f"one card) {mode} E=1: QPS={rec['qps']:.1f} "
+                f"wall {wall:.3f} s, ids equal world size 1: "
+                f"{rec['equals_world_1']}; rank 0: rounds {t['rounds']}, "
+                f"ms a round {rec['ms_per_round']:.3f}, collective bytes a "
+                f"round {json.dumps(rec['collective_bytes_per_round_rank0'])}")
+    log(f"distributed gloo mesh: exit codes {out['mesh_exit_codes']}, "
+        f"{out['mesh_s']:.1f} s (shards written in "
+        f"{out['mesh_write_s']:.1f} s; rank logs in "
+        f"distributed_ranks.log)")
+    shutil.rmtree(work, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+         dev.type], cwd=repo, env=env, capture_output=True, text=True,
+        timeout=600)
+    out["serve"] = {"exit_code": proc.returncode,
+                    "s": time.perf_counter() - t0,
+                    "stdout": proc.stdout[-2000:],
+                    "stderr": proc.stderr[-2000:]}
+    line = [x for x in proc.stdout.splitlines() if "recall@" in x]
+    out["serve"]["recall_line"] = line[-1] if line else None
+    log(f"python -m repro_torch.launch.serve: exit {proc.returncode} in "
+        f"{out['serve']['s']:.1f} s: {out['serve']['recall_line']}")
+    return out, inputs
+
+
+def mesh_rank(argv) -> int:
+    """One rank of the distributed phase's gloo mesh (``python -c "import
+    chip_smoke; chip_smoke.mesh_rank([rank, dir])"`` from the repo root):
+    its own data shard from ``dir``, MESH_MODES at E=1 over the queries 256
+    at a time after one untimed batch; ids, seconds, launches and
+    collective bytes into ``dir``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, work = int(argv[0]), Path(argv[1])
+    meta = json.loads((work / "meta.json").read_text())
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(work / "store_mesh"),
+                                     math.prod(MESH_SHAPE)),
+        rank=rank, world_size=math.prod(MESH_SHAPE),
+        timeout=datetime.timedelta(seconds=600))
+    try:
+        from repro_torch.configs.base import SearchConfig
+        from repro_torch.core import distributed as dmod
+        from repro_torch.kernels import loader
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.plan import Searcher
+
+        dev = torch.device(meta["device"])
+        mesh = make_mesh(MESH_SHAPE, ("data", "model"), device_type=dev.type)
+        s = mesh.get_local_rank("data")
+
+        def load(a):
+            return torch.from_numpy(a).to(dev)
+
+        rep = np.load(work / "replicated.npz")
+        sc = dmod.ShardedCorpus(
+            *(load(np.load(work / f"{f}{s}.npy"))
+              for f in ("adjacency", "codes", "base")),
+            *(load(rep[f]) for f in ("centroids", "hot_adjacency",
+                                     "hot_codes", "hot_base")),
+            entry_point=meta["entry_point"], hot_count=meta["hot_count"],
+            num_vertices=meta["num_vertices"], num_shards=MESH_SHAPE[0],
+            shard=s)
+        queries = np.load(work / "queries.npy")
+        cfg = SearchConfig(**meta["cfg"])
+        ids, rec = {}, {}
+        for mode in MESH_MODES:
+            searcher = Searcher.open(sc, mesh=mesh, mode=mode, cfg=cfg)
+
+            def reset():
+                dist.barrier()
+                loader.reset_launch_counts()
+                dmod.TRAFFIC.clear()
+
+            ids[mode], wall = _serve_searcher(searcher, queries, reset)
+            dist.barrier()
+            rec[mode] = {"wall_s": wall, "launches": dict(loader.LAUNCHES),
+                         "traffic": dict(dmod.TRAFFIC)}
+        np.savez(work / f"ids{rank}.npz", **ids)
+        (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 FILTER_SPECS = (("isin_category_0_2", "masked"), ("eq_category_3", "masked"),
@@ -1335,20 +1744,27 @@ def tiled_phase(torch, idx, flat_ids, log) -> tuple:
 
 
 def segmented_phase(torch, cfg, ds, dev, log) -> tuple:
-    """``build_segmented`` of the main path's corpus in SEGMENT_SIZE
-    segments on the card (stage seconds summed over the segments, the
-    stitch's seconds and patched rows), then SHARD_QUERIES queries served
+    """``build_segmented`` of the main path's first SEGMENTED_BASE vectors
+    in SEGMENT_SIZE segments on the card (stage seconds summed over the
+    segments, the stitch's seconds and patched rows; the ground truth
+    recomputed over those vectors), then SHARD_QUERIES queries served
     tiled through its segments and flat through ``to_flat()`` (the
     stitched graph).  Returns (the record, the segmented index)."""
-    from repro_torch.core.dataset import recall_at_k
+    from repro_torch.core.dataset import Dataset, exact_knn, recall_at_k
     from repro_torch.core.segmented import build_segmented
     from repro_torch.plan import Searcher
     from repro_torch.serve import ServingEngine
 
-    import dataclasses
-
-    cfg = dataclasses.replace(cfg, build=dataclasses.replace(
-        cfg.build, stitch_sample=STITCH_SAMPLE))
+    n = min(SEGMENTED_BASE, ds.num_base)
+    base = ds.base[:n]
+    ds = Dataset(base=base, queries=ds.queries,
+                 gt=exact_knn(ds.queries, base, ds.gt.shape[1], ds.metric,
+                              device=dev),
+                 metric=ds.metric,
+                 config=dataclasses.replace(ds.config, num_base=n))
+    cfg = dataclasses.replace(
+        cfg, dataset=ds.config,
+        build=dataclasses.replace(cfg.build, stitch_sample=STITCH_SAMPLE))
     stages = {}
     t0 = time.perf_counter()
     seg = build_segmented(cfg, dataset=ds, segment_size=SEGMENT_SIZE,
@@ -1616,17 +2032,19 @@ def stream_phase(torch, idx, flat_qps: dict, build_peak: int, seed: int,
                  out_dir, log) -> dict:
     """The streaming target on the main path's index: a ``MutableIndex``
     over it (the rebuilt base is the mutable's own; ``idx`` is untouched)
-    at ``StreamConfig``'s defaults, served by ``ServingEngine(mutable,
+    at ``StreamConfig``'s defaults but a ``delta_capacity`` of
+    STREAM_DELTA_CAPACITY, served by ``ServingEngine(mutable,
     batch_size=256)`` and the continuous engine (slots=256), both with
     ``auto_consolidate=False`` so that the full delta is served before the
     capacity-forced consolidation.  Updates, from ``seed``: STREAM_DELETES
     random base ext ids and each of the first 2,048 queries' exact top-1
-    base neighbour tombstoned; ``delta_capacity`` (4,096) inserts, each a
+    base neighbour tombstoned; ``delta_capacity`` inserts, each a
     random base vector plus N(0, 0.1^2) noise, through the continuous
     engine, filling the delta.  STREAM_QUERIES of the main path's queries and
     STREAM_SELF_QUERIES of the inserted vectors are served through both
     engines and ``merged_search_kernel``; then, with 256 continuous lanes in
-    flight, insert number 4,097 consolidates inside ``insert``, and the
+    flight, insert number ``delta_capacity + 1`` consolidates inside
+    ``insert``, and the
     same sets are served again.  Records inserts a second, QPS beside the
     flat engine's, the delta search's share of the wall time, recall@10
     against the exact kNN of ``live_vectors()`` (on the card), the
@@ -1652,7 +2070,8 @@ def stream_phase(torch, idx, flat_qps: dict, build_peak: int, seed: int,
     dev = idx.device
     rng = np.random.default_rng(seed + 17)
     n = idx.dataset.num_base
-    mutable = MutableIndex(idx)
+    mutable = MutableIndex(idx, dataclasses.replace(
+        idx.config.stream, delta_capacity=STREAM_DELTA_CAPACITY))
     cap = mutable.stream_cfg.delta_capacity
     queries = idx.dataset.queries[:STREAM_QUERIES]
     dead = np.union1d(rng.choice(n, STREAM_DELETES, replace=False),
@@ -1911,6 +2330,38 @@ def stream_failures(rec: dict) -> list:
         fails.append(f"device memory grew across the consolidation: "
                      f"{rec['mem_before_bytes']} -> {rec['mem_after_bytes']}")
     return fails
+
+
+def distributed_failures(rec: dict) -> list:
+    """The distributed phase's checks: at world size 1 every mode's ids are
+    the flat Searcher's as sorted sets, recall@10 >= 0.5 and every kernel
+    launched as the round prescribes; the gloo mesh's ranks exit 0 and
+    return the world-size-1 ids; the serving launcher exits 0 with its
+    recall line."""
+    out = []
+    for name, run in rec["world_1"].items():
+        if run["same_sets_as_flat"] < 1.0:
+            out.append(f"distributed {name}: {run['same_sets_as_flat']:.4f} "
+                       "of rows as sets equal the flat search's")
+        if run["recall_at_10"] < 0.5:
+            out.append(f"distributed {name}: recall@10 "
+                       f"{run['recall_at_10']:.4f} < 0.5")
+        for kernel, (got, want) in run["launch_check"].items():
+            if got != want or got <= 0:
+                out.append(f"distributed {name}: {kernel} launched {got} "
+                           f"times, expected {want}")
+    if any(rec["mesh_exit_codes"]):
+        out.append(f"distributed gloo mesh: rank exit codes "
+                   f"{rec['mesh_exit_codes']} (distributed_ranks.log)")
+    for mode in MESH_MODES:
+        if not rec["mesh"].get(mode, {}).get("equals_world_1"):
+            out.append(f"distributed gloo mesh {mode}: ids differ from "
+                       "world size 1")
+    if rec["serve"]["exit_code"] != 0 or not rec["serve"]["recall_line"]:
+        out.append(f"python -m repro_torch.launch.serve exited "
+                   f"{rec['serve']['exit_code']}: "
+                   f"{rec['serve']['stderr'][-500:]}")
+    return out
 
 
 def ivf_failures(rec: dict) -> list:
@@ -2249,6 +2700,9 @@ def main(argv=None) -> int:
 
     cont = continuous_phase(torch, idx, gpu_ids, gpu_dists, log)
     mark("continuous")
+    distributed, dist_inputs = distributed_phase(torch, dev, idx, out_dir,
+                                                 repo, log)
+    mark("distributed")
     filt, store = filtered_phase(torch, idx, log)
     filt["masked_density"] = masked_density(torch, idx, store)
     log(f"exact-distance mask density, masked search: "
@@ -2273,8 +2727,8 @@ def main(argv=None) -> int:
     scan_pass = int(store.mask(_specs()["range_price_0_9"]).sum())
     kernels = kernel_phase(torch, dev, args.num_base, res["rerank_density"],
                            filt["masked_density"], scan_pass, ivf_inputs,
-                           args.seed)
-    del ivf_inputs
+                           dist_inputs, args.seed)
+    del ivf_inputs, dist_inputs
     mark("kernels")
     tiled_launches = {k: sum(v["launches"][k]
                              for v in tiled["variants"].values())
@@ -2284,7 +2738,10 @@ def main(argv=None) -> int:
              "filtered_batch": filt["batch"]["launches"],
              "tiled": tiled_launches, "segmented": segmented["launches"],
              "obs": observed["batch"]["launches"],
-             "stream": streamed["before"]["batch"]["launches"]}
+             "stream": streamed["before"]["batch"]["launches"],
+             "distributed_nsp": distributed["world_1"]["nsp_E1"]["launches"],
+             "distributed_fetch":
+                 distributed["world_1"]["fetch_E1"]["launches"]}
     for k in kernels:
         k["launches"] = res["launches"][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -2323,7 +2780,8 @@ def main(argv=None) -> int:
 
     detail.update(card=card, kernels=kernels, main=res, continuous=cont,
                   filtered=filt, tiled=tiled, ivf=ivf, segmented=segmented,
-                  observability=observed, streaming=streamed)
+                  observability=observed, streaming=streamed,
+                  distributed=distributed)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     failures = []
@@ -2399,6 +2857,7 @@ def main(argv=None) -> int:
                         f"{segmented['flat']['recall_at_10']:.4f} < 0.5")
     failures.extend(obs_failures(observed))
     failures.extend(stream_failures(streamed))
+    failures.extend(distributed_failures(distributed))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

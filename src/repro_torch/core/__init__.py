@@ -1,9 +1,13 @@
-"""Port of ``repro.core``: Algorithm 1, its reference oracle, and the index
+"""Port of ``repro.core``: Algorithm 1, its reference oracle, the index
 build (single-segment and segmented, with hot-node reordering and gap
-encoding)."""
+encoding) and the distributed search over a device mesh."""
 from repro_torch.core.dataset import (
     ArraySegmentSource, Dataset, SyntheticSegmentSource, exact_knn,
     make_dataset, recall_at_k, recall_hits_per_query,
+)
+from repro_torch.core.distributed import (
+    ShardedCorpus, distributed_search, distributed_search_kernel,
+    shard_corpus,
 )
 from repro_torch.core.index import (
     ProximaIndex, build_index, build_index_monolithic, index_from_arrays,
@@ -19,10 +23,11 @@ from repro_torch.core.segmented import (
 
 __all__ = [
     "ArraySegmentSource", "Corpus", "Dataset", "IndexSegment", "ProximaIndex",
-    "SearchResult", "SearchState", "SegmentedIndex", "SyntheticSegmentSource",
-    "build_index", "build_index_monolithic", "build_segmented", "exact_knn",
-    "finalize_search", "graph_search", "graph_search_step",
+    "SearchResult", "SearchState", "SegmentedIndex", "ShardedCorpus",
+    "SyntheticSegmentSource", "build_index", "build_index_monolithic",
+    "build_segmented", "distributed_search", "distributed_search_kernel",
+    "exact_knn", "finalize_search", "graph_search", "graph_search_step",
     "graph_search_stepped", "index_from_arrays", "init_search_state",
     "make_dataset", "recall_at_k", "recall_hits_per_query",
-    "search_reference", "search_state_active",
+    "search_reference", "search_state_active", "shard_corpus",
 ]

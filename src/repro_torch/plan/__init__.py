@@ -1,6 +1,6 @@
 """Port of ``repro.plan``: the ``Searcher`` facade, its ``QueryPlanner`` and
 the round-stepped ``RoundSession``, for flat plans (strategies none, masked,
-scan and empty)."""
+scan and empty), tiled, merged and distributed plans."""
 from repro_torch.configs.base import PlanConfig
 from repro_torch.plan.planner import (
     Execution, IndexCapabilities, QueryPlan, QueryPlanner,

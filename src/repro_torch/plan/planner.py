@@ -1,23 +1,26 @@
 """QueryPlanner — request + index capabilities -> executable ``QueryPlan``;
-port of ``src/repro/plan/planner.py`` for flat, tiled and mutable targets.
+port of ``src/repro/plan/planner.py`` for flat, tiled, mutable and
+distributed targets.
 
 A plan's ``kind`` is its execution spine: ``flat`` (one traversal),
 ``tiled`` (per-channel fan-out + cross-tile merge, ``shard.
-sharded_search_kernel``) or ``merged`` (a mutable index: the base search
+sharded_search_kernel``), ``merged`` (a mutable index: the base search
 plus the host delta segment, fused with the tombstones, ``stream.searcher.
-merged_search_kernel``).  Its ``strategy`` says where the filter runs:
-``none``, ``masked`` traversal (inflated frontier, ``filter.
-adapt_search_cfg``; on tiles with per-tile node masks, ``filter.
-tile_node_masks``), bitmap PQ ``scan``, the ``empty`` short-circuit — the
-flat selectivity regime switch of ``_filter_strategy`` — or ``adaptive``
-(merged plans: the admission mask depends on the live tombstone set, so the
-regime is decided at execute time).  ``round_session`` gives the steppable
-form of the flat ``none`` and ``masked`` plans and of merged plans over a
-flat base whose live regime is a traversal (``plan.rounds.RoundSession``),
-which the continuous engine runs one round at a time; tiled plans, scans
-and empty plans have none (``None``, as in the reference), so the engine
-flushes them through the batch path.  Distributed plans raise, naming the
-ROADMAP item that ports them.  The plan cache, ``QueryPlan.cache_key`` (the
+merged_search_kernel``) or ``distributed`` (a round-robin ``core.
+distributed.ShardedCorpus`` over a device mesh, ``core.distributed.
+distributed_search_kernel``: no filter, no caller mask, no counters).  Its
+``strategy`` says where the filter runs: ``none``, ``masked`` traversal
+(inflated frontier, ``filter.adapt_search_cfg``; on tiles with per-tile
+node masks, ``filter.tile_node_masks``), bitmap PQ ``scan``, the ``empty``
+short-circuit — the flat selectivity regime switch of ``_filter_strategy``
+— or ``adaptive`` (merged plans: the admission mask depends on the live
+tombstone set, so the regime is decided at execute time).
+``round_session`` gives the steppable form of the flat ``none`` and
+``masked`` plans and of merged plans over a flat base whose live regime is
+a traversal (``plan.rounds.RoundSession``), which the continuous engine
+runs one round at a time; tiled and distributed plans, scans and empty
+plans have none (``None``, as in the reference), so the engine flushes
+them through the batch path.  The plan cache, ``QueryPlan.cache_key`` (the
 serving layer's batching identity) and the per-plan artifact cache
 (compiled pass masks) are the reference's.  With an enabled ``obs=`` bundle
 the planner counts plan-cache hits, misses and compiled plans and wraps
@@ -45,17 +48,18 @@ from repro_torch.plan.request import SearchRequest, SearchStats
 @dataclasses.dataclass(frozen=True)
 class IndexCapabilities:
     """What the opened index supports (derived once by ``Searcher.open``)."""
-    kind: str                        # flat | tiled | merged
+    kind: str                        # flat | tiled | merged | distributed
     mutable: bool = False
     tiled: bool = False
     num_tiles: int = 1
+    mesh_devices: int = 0            # device count (distributed targets)
 
 
 @dataclasses.dataclass(frozen=True)
 class QueryPlan:
     """One executable strategy.  Frozen and hashable: ``cache_key`` is the
     serving layer's batching identity and the artifact-cache key."""
-    kind: str                        # flat | tiled | merged
+    kind: str                        # flat | tiled | merged | distributed
     strategy: str                    # none | masked | scan | empty | adaptive
     cfg: SearchConfig                # EFFECTIVE config executed (adapted)
     metric: str
@@ -100,12 +104,6 @@ def _mean_counters(res) -> dict:
                     means))
 
 
-def _unported_kind(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kind} plans are not ported yet: ROADMAP Queue 1 item 15 "
-        "(distributed)")
-
-
 def flat_filtered_search(corpus, queries, mask, cfg: SearchConfig,
                          metric: str, filter_cfg: Optional[FilterConfig] = None):
     """Selectivity-adaptive filtered search over a flat corpus through a
@@ -123,14 +121,15 @@ def flat_filtered_search(corpus, queries, mask, cfg: SearchConfig,
 
 class QueryPlanner:
     """Compiles ``SearchRequest`` -> ``QueryPlan`` and executes plans over
-    one opened flat corpus, tiled corpus or mutable index.  Owns the plan
-    cache and the per-plan artifact cache (compiled masks, per-tile mask
-    slices)."""
+    one opened flat corpus, tiled corpus, mutable index or sharded corpus
+    on a device mesh.  Owns the plan cache and the per-plan artifact cache
+    (compiled masks, per-tile mask slices)."""
 
     def __init__(self, *, capabilities: IndexCapabilities, cfg: SearchConfig,
                  metric: str, filter_cfg: FilterConfig, plan_cfg: PlanConfig,
                  corpus=None, tiled=None, mutable=None, attributes=None,
-                 probe_tiles: int = 0, obs: Optional[Observability] = None):
+                 probe_tiles: int = 0, dcorpus=None, mesh=None,
+                 obs: Optional[Observability] = None):
         self.capabilities = capabilities
         self.cfg = cfg
         self.metric = metric
@@ -141,6 +140,8 @@ class QueryPlanner:
         self.mutable = mutable
         self.attributes = attributes
         self.probe_tiles = int(probe_tiles or 0)
+        self.dcorpus = dcorpus
+        self.mesh = mesh
         self._plan_cache: Dict[tuple, QueryPlan] = {}
         self._mask_cache: Dict[FilterSpec, np.ndarray] = {}
         self._artifacts: Dict[tuple, dict] = {}
@@ -251,6 +252,14 @@ class QueryPlanner:
         )
 
         cfg = self._effective_cfg(request)
+        if self.capabilities.kind == "distributed":
+            if spec is not None:
+                raise NotImplementedError(
+                    "the distributed (device-mesh) path has no filtered "
+                    "traversal — drop the filter or open a flat/tiled target"
+                )
+            return QueryPlan(kind="distributed", strategy="none", cfg=cfg,
+                             **self._common(request))
         if self.capabilities.mutable:
             # the admission mask depends on the live tombstone set, so the
             # regime is decided inside the merged kernel at execute time
@@ -318,8 +327,6 @@ class QueryPlanner:
         it is a traversal of a single-tile base."""
         from repro_torch.plan.rounds import RoundSession
 
-        if plan.kind == "distributed":
-            raise _unported_kind(plan.kind)
         if plan.kind == "merged":
             return self._merged_session(plan)
         if plan.kind != "flat" or plan.mask_token \
@@ -423,6 +430,17 @@ class QueryPlanner:
 
         pc = self.plan_cfg
         q_np = np.atleast_2d(np.asarray(queries, np.float32))
+        if plan.kind == "distributed":
+            from repro_torch.core.distributed import distributed_search_kernel
+
+            ids, dists = distributed_search_kernel(
+                self.dcorpus, q_np, plan.cfg, self.metric, pc.mode,
+                mesh=self.mesh, data_axis=pc.data_axis,
+                queue_axis=pc.queue_axis, bloom_bits=pc.bloom_bits,
+                num_hashes=pc.num_hashes)
+            return Execution(ids=ids.cpu().numpy(), dists=dists.cpu().numpy(),
+                             raw=(ids, dists), counters=None,
+                             selectivity=1.0, delta_candidates=0.0)
         if plan.kind == "tiled":
             return self._execute_tiled(plan, q_np)
         if plan.kind == "merged":
@@ -435,8 +453,6 @@ class QueryPlanner:
                              counters=res.base, selectivity=res.selectivity,
                              delta_candidates=float(
                                  np.asarray(res.delta_candidates).mean()))
-        if plan.kind != "flat":
-            raise _unported_kind(plan.kind)
         if plan.strategy == "none":
             res = graph_search(self.corpus, q_np, plan.cfg, self.metric,
                                pc.bloom_bits, pc.num_hashes)

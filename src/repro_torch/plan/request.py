@@ -60,8 +60,9 @@ class SearchResult:
     """Plan-layer search reply: host numpy ``(Q, k)`` ``ids``/``dists``
     (-1 / +inf padded where a filter admits fewer than k), the ``stats``,
     the executed ``plan`` and the ``raw`` kernel result
-    (``core.search.SearchResult`` or ``filter.FilteredSearchResult``, its
-    tensors on the search device)."""
+    (``core.search.SearchResult``, ``filter.FilteredSearchResult``,
+    ``shard.ShardedSearchResult``, ``stream.MergedResult`` or a distributed
+    ``(ids, dists)`` pair, its tensors on the search device)."""
     ids: Any
     dists: Any
     stats: SearchStats

@@ -1,14 +1,16 @@
 """``Searcher`` — the host-side query API; port of
 ``src/repro/plan/searcher.py`` (``open`` on an index, a segment-built
-index, a ``stream.MutableIndex``, a ``Corpus`` or a ``TiledCorpus``;
-``search``, ``plan``, ``execute``, ``round_session``).
+index, a ``stream.MutableIndex``, a ``Corpus``, a ``TiledCorpus`` or a
+``core.distributed.ShardedCorpus`` on a device mesh; ``search``, ``plan``,
+``execute``, ``round_session``; ``warn_legacy`` for the deprecated entry
+points).
 
     s = Searcher.open(index, num_tiles=4, shard_policy="cluster",
                       probe_tiles=2, attributes=store)
     res = s.search(SearchRequest(queries=q, k=10,
                                  filter=FilterSpec.eq("category", 3)))
     res.ids, res.dists                           # (Q, k) numpy
-    res.stats.as_dict(), res.plan.kind           # flat | tiled | merged
+    res.stats.as_dict(), res.plan.kind   # flat | tiled | merged | distributed
 
 The search runs on the device of the opened corpus (a mutable index's: its
 base index's).  ``num_tiles > 1`` on a flat index partitions it
@@ -19,8 +21,10 @@ a ``MutableIndex`` plans ``merged`` (its base tiled when its own
 an ``ObsConfig``): the planner then bills plan-cache traffic and kernel
 execution, and with a quality monitor ``search`` feeds the shadow-recall
 oracle (``shadow_ground_truth``, an exact kNN on the searcher's device).
-Distributed targets, the vmapped tile fan-out and the mesh keywords are not
-ported yet and raise (ROADMAP Queue 1 items 15 and 19).
+``mesh=`` (a ``launch.mesh.make_mesh`` device mesh) or a ``ShardedCorpus``
+target opens a distributed searcher: ``mode``, ``data_axis`` and
+``queue_axis`` go into its ``PlanConfig``; every rank of the mesh makes
+the same calls.
 """
 from __future__ import annotations
 
@@ -40,6 +44,30 @@ from repro_torch.plan.planner import (
     Execution, IndexCapabilities, QueryPlan, QueryPlanner,
 )
 from repro_torch.plan.request import SearchRequest, SearchResult
+
+# legacy entry points that already warned this process: one warning per
+# entry point, not one per call
+_warned_legacy: set = set()
+
+
+def warn_legacy(old: str, new: str = "repro_torch.plan.Searcher.search"
+                ) -> None:
+    """One DeprecationWarning per legacy entry point per process, as in the
+    reference; ``reset_legacy_warnings`` re-arms them (tests)."""
+    if old in _warned_legacy:
+        return
+    _warned_legacy.add(old)
+    warnings.warn(
+        f"{old} is a deprecated entry point kept for compatibility; build a "
+        f"SearchRequest and call {new} instead (see README 'query plan "
+        f"layer')",
+        DeprecationWarning, stacklevel=3,
+    )
+
+
+def reset_legacy_warnings() -> None:
+    """Re-arm every deduplicated deprecation warning (test helper)."""
+    _warned_legacy.clear()
 
 
 def validate_attribute_store(store, expected_rows: int, owner: str):
@@ -87,32 +115,30 @@ class Searcher:
              queue_axis: Optional[str] = None,
              obs=None) -> "Searcher":
         """Open a ``ProximaIndex``, a ``SegmentedIndex``, a
-        ``stream.MutableIndex``, a ``Corpus`` or a ``TiledCorpus``.  Keyword
-        arguments override the matching ``PlanConfig`` fields; unset fields defer to the index's own config
+        ``stream.MutableIndex``, a ``Corpus``, a ``TiledCorpus`` or (with
+        ``mesh=``) a ``ShardedCorpus``.  Keyword arguments override the
+        matching ``PlanConfig`` fields; unset fields defer to the index's own config
         (its ``search``/``shard``/``filter`` sections).  ``attributes`` (a
         ``filter.AttributeStore`` keyed by internal id) serves filtered
         requests; an index's own ``attributes`` is the default.  ``obs``
         takes an ``obs.Observability`` bundle or an ``ObsConfig`` (None:
         the shared no-op bundle).  ``use_vmap`` picks a tiled target's
         fan-out (``shard.sharded_search_kernel``; None: the batched one).
-        The reference's mesh keywords (``mesh``, ``mode``, ``data_axis``,
-        ``queue_axis``) are accepted and raise, naming the ROADMAP item
-        that ports them."""
-        given = [n for n, v in (("mesh", mesh), ("mode", mode),
-                                ("data_axis", data_axis),
-                                ("queue_axis", queue_axis)) if v is not None]
-        if given:
-            raise NotImplementedError(
-                f"distributed search ({', '.join(given)}=) is not ported "
-                "yet: ROADMAP Queue 1 item 15")
+        ``mesh`` (or a ``ShardedCorpus`` target, which needs it) opens a
+        distributed searcher, run with ``mode`` (``nsp`` | ``fetch``),
+        ``data_axis`` and ``queue_axis`` (``core.distributed.
+        distributed_search_kernel``)."""
         obs = Observability.resolve(obs)
         pc = plan or PlanConfig()
         kw = dict(search=cfg, num_tiles=num_tiles, shard_policy=shard_policy,
                   probe_tiles=probe_tiles, beam_width=beam_width,
                   filter=filter_cfg, bloom_bits=bloom_bits,
-                  num_hashes=num_hashes, use_vmap=use_vmap)
+                  num_hashes=num_hashes, use_vmap=use_vmap, mode=mode,
+                  data_axis=data_axis, queue_axis=queue_axis)
         pc = dataclasses.replace(
             pc, **{k: v for k, v in kw.items() if v is not None})
+        if mesh is not None or _is_sharded_corpus(index):
+            return cls._open_distributed(index, pc, metric, mesh, obs)
         if _is_mutable(index):
             return cls._open_mutable(index, pc, metric, attributes, obs)
         if isinstance(index, Corpus):
@@ -123,9 +149,9 @@ class Searcher:
             return cls._open_segmented(index, pc, metric, attributes, obs)
         if not hasattr(index, "graph"):
             raise NotImplementedError(
-                f"{type(index).__name__} targets are not ported yet: device "
-                "meshes and their sharded corpora wait for ROADMAP Queue 1 "
-                "item 15")
+                f"Searcher.open takes an index, a segmented or mutable "
+                f"index, a Corpus, a TiledCorpus or a ShardedCorpus, not a "
+                f"{type(index).__name__}")
         return cls._open_index(index, pc, metric, attributes, obs)
 
     @classmethod
@@ -257,6 +283,21 @@ class Searcher:
         return cls(planner=planner, plan_cfg=pc, index=seg_index,
                    num_tiles=n_segments, shard_policy="segments")
 
+    @classmethod
+    def _open_distributed(cls, dcorpus, pc, metric, mesh, obs):
+        if mesh is None:
+            raise ValueError("distributed targets need mesh=")
+        scfg = cls._resolve_cfg(pc, pc.search or SearchConfig())
+        num_shards = getattr(dcorpus, "num_shards", 1)
+        caps = IndexCapabilities(kind="distributed",
+                                 mesh_devices=int(mesh.size()),
+                                 num_tiles=num_shards)
+        planner = QueryPlanner(
+            capabilities=caps, cfg=scfg, metric=metric or "l2",
+            filter_cfg=pc.filter or FilterConfig(), plan_cfg=pc,
+            dcorpus=dcorpus, mesh=mesh, obs=obs)
+        return cls(planner=planner, plan_cfg=pc, num_tiles=num_shards)
+
     # -------------------------------------------------------------- querying
     def plan(self, request: SearchRequest) -> QueryPlan:
         return self.planner.plan(request)
@@ -296,15 +337,11 @@ class Searcher:
         the attribute-passing subset of the base, otherwise the whole base.
         The exact kNN runs on the searcher's device (``core.dataset.
         exact_knn``).  Returns ``(Q, k')`` int64 with ``k' = min(plan.cfg.k,
-        population)``, or ``None`` for one-shot caller-mask plans and
-        targets with no raw vectors."""
+        population)``, or ``None`` for distributed fan-outs, one-shot
+        caller-mask plans and targets with no raw vectors."""
         from repro_torch.core.dataset import exact_knn
 
-        if plan.kind == "distributed":
-            raise NotImplementedError(
-                "the shadow oracle of distributed plans is not ported yet: "
-                "ROADMAP Queue 1 item 15")
-        if plan.mask_token:
+        if plan.kind == "distributed" or plan.mask_token:
             return None
         q = np.atleast_2d(np.asarray(queries, np.float32))
         k = int(plan.cfg.k)
@@ -442,6 +479,10 @@ class Searcher:
 def _is_mutable(obj) -> bool:
     return hasattr(obj, "delta") and hasattr(obj, "tombstones") \
         and hasattr(obj, "base")
+
+
+def _is_sharded_corpus(obj) -> bool:
+    return hasattr(obj, "num_shards") and hasattr(obj, "hot_adjacency")
 
 
 def _is_tiled(obj) -> bool:

@@ -7,7 +7,8 @@ returns the vector's own id: its distance is 0, so it then tops the merged
 list.  A miss is the greedy graph search's, which the port copies line for
 line.
 
-Two modes, both on the CPU with numpy (a few minutes per 4,096 inserts):
+Two modes, both on the CPU with numpy (a minute per 1,024 inserts, a few
+per 4,096):
 
   PYTHONPATH=src python tests/_delta_self_recall.py --inserts FILE.npz
       replays the inserts ``chip_smoke.py`` wrote (``stream_inserts.npz`` in
@@ -42,6 +43,9 @@ from repro.stream.delta import DeltaSegment  # noqa: E402
 GRAPH = GraphConfig(max_degree=64, build_list_size=128)
 K = 10
 SELF_QUERIES = 256
+# the smoke's STREAM_DELTA_CAPACITY: its inserts.  Seeds 1-5 found 0.9961,
+# 0.9922, 1.0, 0.9961, 0.9922 of 256 (0.949-0.980 at StreamConfig's 4,096)
+CAPACITY = 1024
 
 
 def smoke_inserts(seed: int, num_base: int, cap: int):
@@ -79,7 +83,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--num-base", type=int, default=100_000)
     args = ap.parse_args(argv)
-    cap = StreamConfig().delta_capacity
+    cap = CAPACITY
     out = {}
     if args.inserts:
         f = np.load(args.inserts)

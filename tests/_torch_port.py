@@ -1,5 +1,7 @@
-"""Shared helpers of the port's tests: carry a reference index (and a
-reference tiled corpus) across."""
+"""Shared helpers of the port's tests: carry a reference index (a
+reference tiled corpus, a sharded corpus) across, and a one-rank process
+group for the distributed path."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -34,3 +36,36 @@ def port_tiled(ref_tiled, ref_partition=None, device="cpu"):
         partition=None if ref_partition is None
         else dataclasses.asdict(ref_partition),
         device=device)
+
+
+@contextlib.contextmanager
+def gloo_world_of_one(directory):
+    """A one-rank gloo process group on a FileStore in ``directory`` and
+    its 1x1 ("data", "model") CPU mesh; the group is destroyed on exit, so
+    no other test in the process sees it (the default group is global)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(directory / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def port_sharded(ref_index, shard=None, base=None):
+    """The port's one-shard ShardedCorpus over a reference index's arrays
+    (its base, or ``base``)."""
+    from repro_torch.core.distributed import shard_corpus
+
+    idx = ref_index
+    return shard_corpus(
+        idx.graph.adjacency, idx.codes,
+        idx.dataset.base if base is None else base, idx.codebook.centroids,
+        int(idx.graph.entry_point), idx.hot_count, 1, shard=shard,
+        device="cpu")

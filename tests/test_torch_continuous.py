@@ -5,8 +5,8 @@ bit for bit and the reference continuous engine's ids (distances within the
 search bar of ROADMAP: rtol 1e-5 plus 1e-6 of the largest), lanes retire
 across ticks, refill serves a backlog, the drain guard raises, non-steppable
 plans fall back to batch flushes, masked plans run in slot pools, a merged
-plan over a static index gets the reference's answers, and what is not
-ported yet raises naming its ROADMAP item.
+plan over a static index gets the reference's answers, and a distributed
+plan has no round session and runs through the batch path.
 """
 import dataclasses
 
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import port_index
+from _torch_port import gloo_world_of_one, port_index, port_sharded
 from repro.filter import FilterSpec as RefSpec
 from repro.filter import random_attributes as ref_random_attributes
 from repro.plan import Searcher as RefSearcher
@@ -310,11 +310,13 @@ def test_port_leaves_caller_arrays_untouched(tiny_index):
 
 
 def test_unported_paths_raise_naming_their_items(tiny_index, tiny_port,
-                                                 tiny_store):
+                                                 tiny_store, tmp_path):
     """Merged plans (item 10) are ported: over a static index a merged plan
     gets the reference's answers on the same call (no round session; its
-    execution fails for want of a mutable index), and distributed plans
-    still raise naming item 15.  Observability, SLOs and NAND billing
+    execution fails for want of a mutable index).  Distributed plans (item
+    15) are ported: like the reference's they have no round session, and a
+    distributed searcher (a one-rank gloo group, a 1x1 mesh) executes one
+    through the batch path.  Observability, SLOs and NAND billing
     (items 12 and 13) are ported: the engine takes them, and
     ``record_round`` appends one convergence record per lane."""
     from repro_torch.nand import NandConfig
@@ -340,10 +342,16 @@ def test_unported_paths_raise_naming_their_items(tiny_index, tiny_port,
         with pytest.raises(AttributeError):
             searcher.execute(p, tiny_index.dataset.queries[:1])
     distributed = dataclasses.replace(plan, kind="distributed")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        s.round_session(distributed)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        s.execute(distributed, tiny_port.dataset.queries[:1])
+    assert s.round_session(distributed) is None
+    with gloo_world_of_one(tmp_path) as mesh:
+        ds = Searcher.open(port_sharded(tiny_index),
+                           cfg=tiny_port.config.search, mesh=mesh)
+        dplan = ds.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))
+        assert dplan.kind == "distributed" and ds.round_session(dplan) is None
+        ex = ds.execute(dplan, tiny_port.dataset.queries[:3])
+        flat = s.execute(plan, tiny_port.dataset.queries[:3])
+        np.testing.assert_array_equal(np.sort(ex.ids, 1),
+                                      np.sort(flat.ids, 1))
     # tiled plans run (item 11), through the batch path: no round session
     tiled = Searcher.open(tiny_port, num_tiles=2, attributes=tiny_store)
     tplan = tiled.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))

@@ -14,6 +14,8 @@ against the CPU search of the same index: identical ids on >= 95% of rows,
 since the kernels' ADT rounds differently from the CPU's expanded form.
 """
 import dataclasses
+import functools
+import json
 import os
 import pathlib
 import subprocess
@@ -806,3 +808,166 @@ def test_ivf_lookup_kernel_ragged(cuda, monkeypatch, residual):
         ivf_from_arrays(**arrays, device="cpu"), queries, 10, nprobe)
     np.testing.assert_array_equal(scanned, cpu_scanned)
     assert (ids == cpu_ids).all(1).mean() >= 0.95
+
+
+@functools.lru_cache(maxsize=1)
+def _hot_cuda_index():
+    """A small index with the paper's 3% hot nodes, built on the card."""
+    from repro_torch.configs.base import (
+        DatasetConfig, GraphConfig, PQConfig, ProximaConfig, SearchConfig,
+    )
+    from repro_torch.core.index import build_index
+
+    cfg = ProximaConfig(
+        dataset=DatasetConfig(name="sift-like", num_base=1500, num_queries=24,
+                              dim=64, num_clusters=12, cluster_std=0.3),
+        pq=PQConfig(num_subvectors=32, num_centroids=128, kmeans_iters=8),
+        graph=GraphConfig(max_degree=24, build_list_size=48, alpha=1.2),
+        search=SearchConfig(k=10, list_size=64, t_init=16, t_step=8,
+                            repetition_rate=3, beta=1.06),
+        hot_node_fraction=0.03,
+    )
+    return build_index(cfg, device="cuda", reorder_samples=24)
+
+
+def _shard_args(idx):
+    return (idx.graph.adjacency, idx.codes, idx._search_base(),
+            idx.codebook.centroids, int(idx.graph.entry_point),
+            idx.hot_count)
+
+
+def _nccl_world_of_one(directory):
+    import datetime
+
+    import torch.distributed as dist
+
+    directory.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(directory / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+
+
+def test_cuda_distributed_world_one_equals_flat(cuda, tmp_path):
+    """World size 1 over NCCL on a 1x1 mesh: in both modes at E = 1 and 4
+    the card's ids and distances equal the card's flat ``graph_search``
+    bit for bit (the same kernels on the same rows; a value plus zeros is
+    exact), every round launches the lookup, the merge and the masked
+    rerank, each batch ``pq_adt`` once; against the CPU's distributed run
+    (gloo, plain versions) identical ids on >= 95% of rows."""
+    import torch.distributed as dist
+
+    from _torch_port import gloo_world_of_one
+    from repro_torch.core.distributed import (
+        TRAFFIC, distributed_search_kernel, shard_corpus,
+    )
+    from repro_torch.core.search import graph_search
+    from repro_torch.launch.mesh import make_mesh
+
+    idx = _hot_cuda_index()
+    q = idx.dataset.queries
+    runs = [(mode, beam) for mode in ("nsp", "fetch") for beam in (1, 4)]
+    cpu = {}
+    (tmp_path / "gloo").mkdir()
+    with gloo_world_of_one(tmp_path / "gloo") as mesh:
+        sc = shard_corpus(*_shard_args(idx), 1, device="cpu")
+        for mode, beam in runs:
+            c = dataclasses.replace(idx.config.search, beam_width=beam)
+            cpu[mode, beam] = distributed_search_kernel(
+                sc, q, c, mode=mode, mesh=mesh)[0]
+    _nccl_world_of_one(tmp_path / "nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        sc = shard_corpus(*_shard_args(idx), 1, shard=0, device="cuda")
+        for mode, beam in runs:
+            c = dataclasses.replace(idx.config.search, beam_width=beam)
+            flat = graph_search(idx.corpus(), q, c)
+            loader.reset_launch_counts()
+            TRAFFIC.clear()
+            ids, d = distributed_search_kernel(sc, q, c, mode=mode,
+                                               mesh=mesh)
+            assert torch.equal(ids, flat.ids) and torch.equal(d, flat.dists)
+            rounds, n = TRAFFIC["rounds"], loader.LAUNCHES
+            lookups = 2 if mode == "nsp" else 1
+            assert n["pq_adt"] == 1
+            assert n["pq_lookup"] == lookups * (rounds + 1), (mode, n)
+            assert n["bitonic_sort_pairs"] == rounds
+            assert n["l2_rerank"] == 2 * (rounds + 1)
+            same = (ids.cpu() == cpu[mode, beam]).all(1).float().mean()
+            assert same >= 0.95, (mode, beam, same)
+    finally:
+        dist.destroy_process_group()
+
+
+_CARD_RANK = r"""
+import datetime, json, sys
+import numpy as np
+import torch, torch.distributed as dist
+from repro_torch.configs.base import SearchConfig
+from repro_torch.core.distributed import (
+    ShardedCorpus, distributed_search_kernel)
+from repro_torch.launch.mesh import make_mesh
+
+rank, where = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group(
+    "gloo", store=dist.FileStore(where + "/store", 4), rank=rank,
+    world_size=4, timeout=datetime.timedelta(seconds=120))
+mesh = make_mesh((2, 2), ("data", "model"))
+s = mesh.get_local_rank("data")
+a = {k: torch.from_numpy(v).cuda()
+     for k, v in np.load(where + "/rep.npz").items()}
+sc = ShardedCorpus(
+    *(torch.from_numpy(np.load(f"{where}/{f}{s}.npy")).cuda()
+      for f in ("adjacency", "codes", "base")),
+    a["centroids"], a["hot_adjacency"], a["hot_codes"], a["hot_base"],
+    int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]), 2, s)
+q = np.load(where + "/queries.npy")
+cfg = SearchConfig(**json.loads(sys.argv[6]))
+out = {m: distributed_search_kernel(sc, q, cfg, mode=m,
+                                    mesh=mesh)[0].cpu().numpy()
+       for m in ("nsp", "fetch")}
+np.savez(where + f"/out{rank}.npz", **out)
+dist.destroy_process_group()
+"""
+
+
+def test_cuda_distributed_gloo_ranks_on_one_card(cuda, tmp_path):
+    """A (2, 2) mesh of 4 gloo processes on the one card (collectives
+    staged through host memory), each rank holding only its own data shard
+    from ``.npy``: in both modes every rank's ids equal the card's flat
+    ``graph_search`` ids."""
+    from repro_torch.core.distributed import shard_corpus
+    from repro_torch.core.search import graph_search
+
+    idx = _hot_cuda_index()
+    loader.build_all()
+    args = _shard_args(idx)
+    for s in (0, 1):
+        sc = shard_corpus(*args, 2, shard=s, device="cpu")
+        for f in ("adjacency", "codes", "base"):
+            np.save(tmp_path / f"{f}{s}.npy", getattr(sc, f).numpy())
+    np.savez(tmp_path / "rep.npz", **{f: getattr(sc, f).numpy() for f in (
+        "centroids", "hot_adjacency", "hot_codes", "hot_base")})
+    np.save(tmp_path / "queries.npy", idx.dataset.queries)
+    want = graph_search(idx.corpus(), idx.dataset.queries,
+                        idx.config.search).ids.cpu().numpy()
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(
+        pathlib.Path(__file__).resolve().parent.parent / "src"))
+    cfg = json.dumps(dataclasses.asdict(idx.config.search))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CARD_RANK, str(r), str(tmp_path),
+         str(sc.entry_point), str(sc.hot_count), str(sc.num_vertices), cfg],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    for r in range(4):
+        out = np.load(tmp_path / f"out{r}.npz")
+        for mode in ("nsp", "fetch"):
+            np.testing.assert_array_equal(out[mode], want,
+                                          err_msg=f"rank {r} {mode}")

@@ -357,15 +357,34 @@ def test_kernel_calls_equal_the_ports_call_counts(tiny_port, monkeypatch):
     assert m.counter_total("kernel_launches") == 0     # no card, no launch
 
 
-@pytest.mark.parametrize("keyword,item", [
-    ("mesh", "item 15"), ("mode", "item 15"),
-    ("data_axis", "item 15"), ("queue_axis", "item 15")])
+class _Mesh:
+    """Stands in for a one-rank device mesh where nothing is executed."""
+
+    def size(self):
+        return 1
+
+
+@pytest.mark.parametrize("keyword,value", [
+    ("mesh", _Mesh()), ("mode", "fetch"), ("data_axis", "shards"),
+    ("queue_axis", "queues")])
 def test_searcher_open_reference_keywords_name_their_item(tiny_port, keyword,
-                                                          item):
-    value = {"mesh": object(), "mode": "nsp",
-             "data_axis": "data", "queue_axis": "model"}[keyword]
-    with pytest.raises(NotImplementedError, match=item):
-        Searcher.open(tiny_port, **{keyword: value})
+                                                          value):
+    """The reference's mesh keywords (item 15, ported): with ``mesh=`` the
+    target opens as a distributed searcher, whose plans are
+    ``distributed``; ``mode``, ``data_axis`` and ``queue_axis`` land in its
+    ``PlanConfig`` and, without a mesh, leave a flat target flat, as in the
+    reference."""
+    kw = {"mesh": _Mesh(), keyword: value}
+    s = Searcher.open(tiny_port, **kw)
+    assert s.capabilities.kind == "distributed"
+    assert s.capabilities.mesh_devices == 1
+    plan = s.plan(SearchRequest(queries=tiny_port.dataset.queries[:1]))
+    assert plan.kind == "distributed" and s.round_session(plan) is None
+    if keyword != "mesh":
+        assert getattr(s.plan_cfg, keyword) == value
+        flat = Searcher.open(tiny_port, **{keyword: value})
+        assert flat.capabilities.kind == "flat"
+        assert getattr(flat.plan_cfg, keyword) == value
 
 
 @pytest.mark.parametrize("use_vmap,lanes", [(None, [16]), (True, [16]),

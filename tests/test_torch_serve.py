@@ -8,7 +8,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-from _torch_port import port_index
+from _torch_port import gloo_world_of_one, port_index, port_sharded
 from repro.plan import Searcher as RefSearcher
 from repro.plan import SearchRequest as RefRequest
 from repro.serve.engine import ServingEngine as RefEngine
@@ -85,10 +85,11 @@ def test_engine_beam_width_and_plan_config(tiny_index, tiny_port):
         np.testing.assert_array_equal(eng.done[rid].ids, ref.done[rid].ids)
 
 
-def test_unported_serving_modes_raise(tiny_index, tiny_port):
-    """What the port still refuses names its ROADMAP item: the mesh
-    keywords (item 15); targets other than an index, a mutable index, a
-    corpus or tiles raise too.  Tiled plans (item 11) run: a tiled Searcher
+def test_unported_serving_modes_raise(tiny_index, tiny_port, tmp_path):
+    """The mesh keywords (item 15) are ported: ``mesh=`` over a sharded
+    corpus opens a distributed searcher, which serves the reference's
+    ids; targets other than an index, a mutable index, a corpus, tiles or
+    a sharded corpus raise.  Tiled plans (item 11) run: a tiled Searcher
     serves a request, and a flat one takes a request's probe_tiles as the
     plan's fan-in.  The batched fan-out (item 19) is ported: ``use_vmap=``
     is taken into the plan config.  Observability and NAND
@@ -109,8 +110,15 @@ def test_unported_serving_modes_raise(tiny_index, tiny_port):
     with pytest.raises(TypeError, match="obs= takes"):
         ServingEngine(tiny_port, batch_size=4, continuous=True, obs=object())
     assert Searcher.open(tiny_port, use_vmap=True).plan_cfg.use_vmap is True
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Searcher.open(tiny_port, mesh=object())
+    with gloo_world_of_one(tmp_path) as mesh:
+        res = Searcher.open(port_sharded(tiny_index),
+                            cfg=tiny_port.config.search, mesh=mesh).search(
+            SearchRequest(queries=tiny_port.dataset.queries[:4]))
+    want = RefSearcher.open(tiny_index).search(
+        RefRequest(queries=tiny_index.dataset.queries[:4]))
+    assert res.plan.kind == "distributed"
+    np.testing.assert_array_equal(np.sort(res.ids, 1),
+                                  np.sort(np.asarray(want.ids), 1))
     q = tiny_port.dataset.queries
     s, rs = Searcher.open(tiny_port), RefSearcher.open(tiny_index)
     plan = s.plan(SearchRequest(queries=q[:1]))
