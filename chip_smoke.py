@@ -130,6 +130,29 @@ not printed):
    still allocated when the rebuild starts, the rebuild's peak exceeds one
    build's on top of what remains, device memory grew across it, or the
    sort entry did not launch once per merged batch.
+   Model phase (``repro_torch.models``, ``model_phase``): each of the ten
+   architectures' smoke configs in f32 (TF32 off) and bf16, one set of
+   seeded weights on the card and on the CPU, through ``prefill``, 4
+   ``decode_step``s and, for the five archs that support it,
+   ``prefill_chunked``: the card's logits against the CPU's at 1e-3 (f32)
+   and 5e-2 (bf16; the hybrid's 0.15, PERF.md).  Then PaliGemma-3B at full
+   width in bf16 (18 layers, d 2048, 8 heads, 1 KV head, head_dim 256,
+   d_ff 16,384, vocab 257,216, 256 x 1152 patch embeddings, softcap 30;
+   weights from a seeded generator on the card): 8 requests of 256
+   patches + 32 tokens through ``prefill`` (max_len 320) and 32 greedy
+   decode steps (prefill ms, median decode ms, tokens a second, KV-cache
+   bytes, peak memory); the same requests on an f32 copy, its decode
+   logits against one teacher-forced forward within 1e-3 of the largest
+   |logit|.  Then ``examples/image_retrieval.py`` at scale: 16,384
+   synthetic images (512 classes x 32, class centres N(0, 1), noise 0.3,
+   4 prompt tokens) embedded 64 at a time and pooled over the patches,
+   indexed by ``EmbeddingRetriever(metric="angular")`` on the card (PQ 32
+   x 256 at dsub 64, R=32), 1,024 fresh images searched 256 at a time:
+   images a second, build seconds by stage, recall@10 against the exact
+   angular kNN over the embeddings, label purity of the top 5, QPS,
+   launches.  Fails on any disagreement, below recall@10 0.5, or if a
+   kernel never launched on the retrieval; the models are freed before
+   the kernel phase.
    Every kernel must launch on each path (launches zeroed before each).
 3. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
    M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
@@ -155,7 +178,11 @@ not printed):
    max_len), the IVF phase's own arguments.  The distributed round's, on
    one round's arguments from the distributed phase: the lookup over the
    shard's codes, over the hot replica and over fetch's fetched table, the
-   masked rerank over the shard's base and over the hot replica.  Each entry is timed over
+   masked rerank over the shard's base and over the hot replica.  The
+   image retriever's, on one round's arguments from the model phase:
+   ``pq_adt`` at (256, 2048) x (32, 256, 64), angular; the lookup at
+   n=32; the merge at (L=64, n=32); the masked rerank at D=2048 over the
+   16,384 embeddings.  Each entry is timed over
    30 launches, the 50 MB L2 cache flushed
    before each and the launch queued behind a spin: by CUDA events around
    each launch (``ms``) and, for the same launches, by the kernel's own
@@ -311,7 +338,7 @@ def _bound(nbytes: float, flops: float) -> tuple:
 
 def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                  filter_density: dict, scan_pass: int, ivf_inputs: dict,
-                 dist_inputs: dict, seed: int = 0) -> list:
+                 dist_inputs: dict, retr_inputs: dict, seed: int = 0) -> list:
     """Each kernel vs its plain version at the main path's shapes; raises
     on a disagreement.  Returns one record per kernel (launches filled in
     from the main path): the top-level numbers are those of the entry the
@@ -326,7 +353,9 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
     IVF search's launches (``ivf_inputs``: the arguments of one chunk's
     ``pq_adt`` and lookup, as the IVF phase made them) and the distributed
     search's call sites (``dist_inputs``: one round's arguments of each,
-    as the distributed phase made them at world size 1)."""
+    as the distributed phase made them at world size 1) and the image
+    retriever's (``retr_inputs``: one round's arguments of each kernel over
+    the 2048-d angular embeddings, as the model phase made them)."""
     from repro_torch.core.search import next_pow2
     from repro_torch.kernels import ops
 
@@ -402,23 +431,32 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
 
     # ---- pq_adt: the batch's (Q=256, also calibrate_beta's) and the
     # reorder trace's (one sampled base vector a search, Q=1) -------------
-    def adt_entry(label, qq, cents=cents):
-        nq = qq.shape[0]
-        qsub = qq.reshape(nq, m, d // m).transpose(0, 1).contiguous()
+    def adt_entry(label, qq, cents=cents, metric="l2"):
+        nq, dd = qq.shape
+        mm, cc, dsub = cents.shape
+        qsub = qq.reshape(nq, mm, dsub).transpose(0, 1).contiguous()
+        lib = ({"cdist": lambda: torch.cdist(qsub, cents)}  # sqrt of the table
+               if metric == "l2" else
+               {"bmm": lambda: torch.bmm(qsub, cents.transpose(1, 2))})
         return entry(
-            label, "pq_adt_kernel", ops.pq_adt(qq, cents, "l2"),
-            ops.pq_adt_plain(qq, cents, "l2"), 1e-4, 1e-4,
-            lambda: ops.pq_adt(qq, cents, "l2"),
-            lambda: ops.pq_adt_plain(qq, cents, "l2"),
-            {"cdist": lambda: torch.cdist(qsub, cents)},  # sqrt of the table
-            4 * (nq * d + m * c * (d // m) + nq * m * c),
-            3 * nq * m * c * (d // m))
+            label, "pq_adt_kernel", ops.pq_adt(qq, cents, metric),
+            ops.pq_adt_plain(qq, cents, metric), 1e-4, 1e-4,
+            lambda: ops.pq_adt(qq, cents, metric),
+            lambda: ops.pq_adt_plain(qq, cents, metric), lib,
+            4 * (nq * dd + mm * cc * dsub + nq * mm * cc),
+            (3 if metric == "l2" else 2) * nq * mm * cc * dsub)
 
     ivf_res, ivf_cents, _ = ivf_inputs["adt"]
+    retr_adt = retr_inputs["pq_adt"]
+    retr_lookup = retr_inputs["pq_lookup_gather"]
+    retr_merge = retr_inputs["bitonic_merge_topl"]
+    retr_rerank = retr_inputs["l2_rerank_masked"]
     record("pq_adt", "src/repro_torch/kernels/csrc/pq_adt.cu",
            "src/repro/kernels/pq_adt.py:38", adt_entry("pq_adt", queries),
            adt_entry("pq_adt_Q1_trace", queries[:1]),
-           adt_entry(f"pq_adt_ivf_Q{ivf_res.shape[0]}", ivf_res, ivf_cents))
+           adt_entry(f"pq_adt_ivf_Q{ivf_res.shape[0]}", ivf_res, ivf_cents),
+           adt_entry(f"pq_adt_retriever_Q{retr_adt[0].shape[0]}"
+                     f"_D{retr_adt[0].shape[1]}", *retr_adt))
 
     # ---- pq_lookup (the search's gather entry, masked and not) -----------
     adts = ops.pq_adt(queries, cents, "l2")
@@ -549,7 +587,10 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
            # ids, "fresh and owned and not hot") and over the hot replica
            # ("fresh and hot"); fetch over the fetched (Q*R, M) table
            *(gather_entry(f"gather_distributed_{site}", *dist_inputs[site])
-             for site in ("lookup_shard", "lookup_hot", "lookup_table")))
+             for site in ("lookup_shard", "lookup_hot", "lookup_table")),
+           # the image retriever's round over its 2048-d corpus (n = R = 32)
+           gather_entry(f"gather_retriever_Q{retr_lookup[0].shape[0]}"
+                        f"_n{retr_lookup[0].shape[1]}", *retr_lookup))
 
     # ---- bitonic_sort_pairs: the merge entry the round runs, the sort ----
     def merge_inputs(n, l, nq):
@@ -571,8 +612,10 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
         lg = (width - 1).bit_length()
         return nq * (1 << lg) // 2 * lg * (lg + 1) // 2
 
-    def merge_entry(n, l=l, nq=q):
-        cols = merge_inputs(n, l, nq)
+    def merge_entry(n, l=l, nq=q, cols=None, label=None):
+        """The merge at (L=l, n) over nq lanes: random lists, or ``cols``,
+        a call site's own arguments."""
+        cols = cols or merge_inputs(n, l, nq)
         cat = [torch.cat([cols[0], cols[4]], 1), torch.cat([cols[1], cols[5]], 1),
                torch.cat([cols[2], torch.full_like(cols[5], inf)], 1),
                torch.cat([cols[3], torch.zeros_like(cols[3][:, :1]).expand(
@@ -583,7 +626,8 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
             return [t.gather(1, order) for t in cat]
 
         return entry(
-            f"merge_L{l}_n{n}" + ("" if nq == q else f"_Q{nq}_batched_tiles"),
+            label or f"merge_L{l}_n{n}"
+            + ("" if nq == q else f"_Q{nq}_batched_tiles"),
             "warp_merge_kernel" if l + n <= 1024 else "block_sort_kernel",
             ops.bitonic_merge_topl(*cols),
             ops.bitonic_merge_topl_plain(*cols), 0.0, 0.0,
@@ -653,6 +697,10 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
            "src/repro/kernels/bitonic_topk.py:57", merge_entry(r),
            merge_entry(4 * r), merge_entry(r, 4 * l), merge_entry(r, 8 * l),
            merge_entry(r, nq=NUM_TILES * q),
+           merge_entry(retr_merge[4].shape[1], retr_merge[0].shape[1],
+                       retr_merge[0].shape[0], cols=retr_merge,
+                       label=f"merge_L{retr_merge[0].shape[1]}"
+                             f"_n{retr_merge[4].shape[1]}_retriever"),
            cross, stream_merge, entry(
                f"sort_P{p}", "warp_sort_kernel",
                ops.bitonic_sort_pairs(keys, pos),
@@ -686,21 +734,25 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
             9 * nq * k + 4 * rows * d
             + 4 * d * int(mask.any(1).sum()), 3 * int(mask.sum()) * d)
 
-    def rerank_entry(label, qq, ids, table, acc_, mask):
+    def rerank_entry(label, qq, ids, table, acc_, mask, metric="l2"):
         """The masked entry on a call site's own arguments."""
         pre = table[ids.clamp(min=0).long()]
         nq, k = ids.shape
+        dd = table.shape[1]
+        lib = ({"cdist": lambda: torch.cdist(qq[:, None, :], pre)}
+               if metric == "l2" else
+               {"bmm": lambda: torch.bmm(pre, qq[:, :, None])})
         return entry(
             label, "l2_rerank_kernel",
-            ops.l2_rerank_masked(qq, ids, table, acc_, mask, "l2"),
-            ops.l2_rerank_masked_plain(qq, ids, table, acc_, mask, "l2"),
+            ops.l2_rerank_masked(qq, ids, table, acc_, mask, metric),
+            ops.l2_rerank_masked_plain(qq, ids, table, acc_, mask, metric),
             1e-4, 1e-3,
-            lambda: ops.l2_rerank_masked(qq, ids, table, acc_, mask, "l2"),
+            lambda: ops.l2_rerank_masked(qq, ids, table, acc_, mask, metric),
             lambda: ops.l2_rerank_masked_plain(qq, ids, table, acc_, mask,
-                                               "l2"),
-            {"cdist": lambda: torch.cdist(qq[:, None, :], pre)},
-            9 * nq * k + 4 * int(torch.unique(ids[mask]).numel()) * d
-            + 4 * d * int(mask.any(1).sum()), 3 * int(mask.sum()) * d)
+                                               metric), lib,
+            9 * nq * k + 4 * int(torch.unique(ids[mask]).numel()) * dd
+            + 4 * dd * int(mask.any(1).sum()),
+            (3 if metric == "l2" else 2) * int(mask.sum()) * dd)
 
     def at_density(label, share, k=l, nq=q):
         if k == l and nq == q:
@@ -731,6 +783,9 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
            # replica's ("needed and hot")
            *(rerank_entry(f"masked_distributed_{site}", *dist_inputs[site])
              for site in ("rerank_shard", "rerank_hot")),
+           # the image retriever's round: 2048-d angular rows of its corpus
+           rerank_entry(f"masked_retriever_D{retr_rerank[2].shape[1]}"
+                        f"_N{retr_rerank[2].shape[0]}", *retr_rerank),
            # search_reference's exact distances: one query, the T=16 entries
            # of a round's top-T, every one asked for
            masked_entry("masked_Q1_K16_trace",
@@ -2417,6 +2472,376 @@ def obs_failures(rec: dict) -> list:
     return fails
 
 
+ZOO_STEPS = 4                    # decode steps a zoo model, card and CPU
+ZOO_CHUNKED = ("stablelm-1.6b", "mixtral-8x22b", "granite-moe-3b-a800m",
+               "falcon-mamba-7b", "zamba2-1.2b")
+SERVE_ARCH = "paligemma-3b"
+SERVE_BATCH = 8                  # requests: 256 patches + 32 prompt tokens
+SERVE_PROMPT = 32
+SERVE_STEPS = 32                 # greedy decode steps
+SERVE_TF_RTOL = 1e-3             # f32 decode vs teacher forcing, of max|logit|
+# 512 classes x 32 images = 16,384.  Not 256 x 64: with 64 a class the
+# retriever's build list (2R = 64) holds only the point's own class, the
+# graph falls into 256 cliques and recall@10 collapses, in the reference as
+# in the port (PERF.md, the model phase)
+RETR_CLASSES = 512
+RETR_PER_CLASS = 32
+RETR_QUERIES = 1024              # fresh noise draws around the same centres
+RETR_NOISE = 0.3
+RETR_PROMPT = 4                  # prompt tokens of id 0 after the patches
+RETR_EMBED_BATCH = 64
+RETR_SEARCH_BATCH = 256
+RETR_CAPTURE_CALL = 8            # the kernel phase's arguments: a call from
+                                 # the 9th on (a round well into the search)
+RETR_KERNELS = ("pq_adt", "pq_lookup_gather", "bitonic_merge_topl",
+                "l2_rerank_masked")
+
+
+def _zoo_tol(cfg) -> tuple:
+    """(rtol, atol) of card against CPU: 1e-3 in f32; bf16 5e-2, the
+    hybrid's 0.15 (PERF.md: bf16 rounding its mamba2 and shared attention
+    layers compound, measured against the reference)."""
+    if cfg.dtype == "float32":
+        return 1e-3, 1e-3
+    return (5e-2, 1.5e-1) if cfg.family == "hybrid" else (5e-2, 5e-2)
+
+
+def zoo_phase(torch, dev, seed: int, log) -> dict:
+    """Every architecture's smoke config in f32 and bf16, one set of seeded
+    weights on the card and on the CPU: prefill, ZOO_STEPS decode steps and,
+    for ZOO_CHUNKED, ``prefill_chunked``; the card's logits against the
+    CPU's."""
+    import numpy as np
+
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in ARCH_IDS:
+        for dt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype=dt)
+            kw = dict(q_chunk=64, ssm_chunk=8)
+            cpu = build_model(cfg, device="cpu", generator=torch.Generator(
+                ).manual_seed(seed), **kw)
+            card = build_model(cfg, device=dev, **kw)
+            card.load_state_dict(cpu.state_dict())
+            rng = np.random.default_rng(seed)
+            b, s = 2, 16
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s))}
+            if cfg.family == "vlm":
+                batch["frontend"] = rng.standard_normal(
+                    (b, cfg.frontend_tokens, cfg.frontend_dim), np.float32)
+            if cfg.family == "encdec":
+                batch["frontend"] = rng.standard_normal(
+                    (b, s, cfg.frontend_dim), np.float32)
+            steps = rng.integers(0, cfg.vocab_size, (ZOO_STEPS, b, 1))
+            long_prompt = rng.integers(0, cfg.vocab_size, (b, 64))
+
+            def run(model):
+                on = {k: torch.as_tensor(v, device=model.device)
+                      for k, v in batch.items()}
+                lg, cache = model.prefill(
+                    on, max_len=s + ZOO_STEPS + cfg.frontend_tokens)
+                logits = [lg]
+                for t in steps:
+                    lg, cache = model.decode_step(
+                        cache, torch.as_tensor(t, device=model.device))
+                    logits.append(lg)
+                if arch in ZOO_CHUNKED:
+                    logits.append(model.prefill_chunked({
+                        "tokens": torch.as_tensor(long_prompt,
+                                                  device=model.device)},
+                        seg_len=16)[0])
+                return [x.float().cpu() for x in logits]
+
+            got, want = run(card), run(cpu)
+            rtol, atol = _zoo_tol(cfg)
+            out[f"{arch}/{dt}"] = {
+                "max_abs_err": max(float((a - b_).abs().max())
+                                   for a, b_ in zip(got, want)),
+                "rtol": rtol, "atol": atol, "logits_compared": len(got),
+                "ok": all(torch.allclose(a, b_, rtol=rtol, atol=atol)
+                          for a, b_ in zip(got, want))}
+            del cpu, card
+    worst = {k: v["max_abs_err"] for k, v in out.items()}
+    log(f"model zoo, card vs CPU (prefill, {ZOO_STEPS} decode steps, "
+        f"prefill_chunked for {len(ZOO_CHUNKED)} archs; f32 with TF32 off "
+        f"at 1e-3, bf16 at 5e-2, the hybrid's at 0.15): max abs err "
+        f"{json.dumps(worst)}; all within: "
+        f"{all(v['ok'] for v in out.values())}")
+    return out
+
+
+def _count_ops(fn) -> dict:
+    """The aten ops that ``fn()`` dispatches, views apart: the host's work
+    items (a non-view op launches about one kernel on the card)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts = {"ops": 0, "views": 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts["views" if func.is_view else "ops"] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return counts
+
+
+def serve_phase(torch, dev, cfg, seed: int, log) -> tuple:
+    """PaliGemma at ``cfg``'s width in its own dtype, weights from a seeded
+    generator on the card: SERVE_BATCH requests of 256 patch embeddings +
+    SERVE_PROMPT tokens through ``prefill`` (max_len 320), then SERVE_STEPS
+    greedy ``decode_step``s, timed (one untimed round first).  Then the
+    same requests on an f32 copy of the weights: the decode steps' logits
+    against one teacher-forced forward over prompt + generated tokens.
+    Returns (record, the bf16 model, for the retrieval)."""
+    from repro_torch.models.model import build_model
+
+    rec = {"config": cfg.name, "dtype": cfg.dtype}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["params"] = sum(p.numel() for p in model.parameters())
+    rec["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters())
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    front = torch.randn((SERVE_BATCH, cfg.frontend_tokens, cfg.frontend_dim),
+                        generator=g, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                         generator=g, device=dev)
+    batch = {"tokens": toks, "frontend": front}
+    internal = cfg.frontend_tokens + SERVE_PROMPT
+    max_len = internal + SERVE_STEPS
+
+    def serve(m, keep_logits=False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = m.prefill(batch, max_len=max_len)
+        tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        fed, logits, step_s = [], [], []
+        for _ in range(SERVE_STEPS):
+            fed.append(tok)
+            t = time.perf_counter()
+            lg, cache = m.decode_step(cache, tok)
+            tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            if keep_logits:
+                logits.append(lg[:, 0])
+        return prefill_s, step_s, torch.cat(fed, 1), logits, cache
+
+    serve(model)                                     # untimed: warm-up
+    torch.cuda.reset_peak_memory_stats()
+    prefill_s, step_s, fed, _, cache = serve(model)
+    med = _median(step_s)
+    rec.update(prefill_ms=prefill_s * 1e3,
+               decode_ms=[t * 1e3 for t in step_s], decode_ms_median=med * 1e3,
+               decode_tokens_per_s=SERVE_BATCH / med,
+               kv_cache_bytes=cache.nbytes(), cache_capacity=max_len,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    # what the host dispatches for one decode step (after the timed run)
+    short = model.prefill(batch, max_len=internal + 1)[1]
+    rec["decode_step_ops"] = _count_ops(
+        lambda: model.decode_step(short, fed[:, :1]))
+    del cache, short
+    log(f"{cfg.name} ({rec['params']:,} parameters, {rec['param_bytes']:,} "
+        f"bytes, {cfg.dtype}, weights drawn in {rec['init_s']:.2f} s): "
+        f"{SERVE_BATCH} requests of {cfg.frontend_tokens} patches + "
+        f"{SERVE_PROMPT} tokens: prefill_ms={rec['prefill_ms']:.2f} "
+        f"decode_ms_median={rec['decode_ms_median']:.3f} "
+        f"decode_tokens_per_s={rec['decode_tokens_per_s']:.1f} "
+        f"kv_cache_bytes={rec['kv_cache_bytes']:,} "
+        f"peak_bytes={rec['peak_bytes']:,}; one decode step dispatches "
+        f"{json.dumps(rec['decode_step_ops'])} aten ops")
+
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(seed))
+    m32.load_state_dict(model.state_dict())
+    _, _, fed, logits, _ = serve(m32, keep_logits=True)
+    x, pos, pre = m32._embed_inputs({"tokens": torch.cat([toks, fed], 1),
+                                     "frontend": front})
+    h, _, _ = m32._decoder_stack(x, pos, prefix_len=pre)
+    forced = m32._logits(h[:, internal : internal + SERVE_STEPS])
+    decoded = torch.stack(logits, 1)
+    err = float((decoded - forced).abs().max())
+    scale = float(forced.abs().max())
+    rec["f32_teacher_forcing"] = {
+        "max_abs_err": err, "max_abs_logit": scale,
+        "bound": SERVE_TF_RTOL * scale, "ok": err <= SERVE_TF_RTOL * scale}
+    del m32, x, h, forced, decoded, logits
+    torch.cuda.empty_cache()
+    log(f"{cfg.name} f32 copy: {SERVE_STEPS} decode steps against one "
+        f"teacher-forced forward: max abs err {err:.3g} of max |logit| "
+        f"{scale:.3g} (bound {SERVE_TF_RTOL} x): "
+        f"{rec['f32_teacher_forcing']['ok']}")
+    return rec, model
+
+
+def retrieval_phase(torch, dev, model, seed: int, log) -> tuple:
+    """``examples/image_retrieval.py`` at scale: RETR_CLASSES x
+    RETR_PER_CLASS synthetic images (class centres of (patches, width)
+    N(0, 1), noise RETR_NOISE) embedded RETR_EMBED_BATCH at a time by
+    ``model`` and pooled over the patch prefix, indexed by
+    ``EmbeddingRetriever(metric="angular")`` on the card, and RETR_QUERIES
+    fresh images searched RETR_SEARCH_BATCH at a time.  Frees ``model``'s
+    weights once the images are embedded.  Returns (record, the arguments
+    of the RETR_CAPTURE_CALL-th call of each kernel in one more batch)."""
+    import numpy as np
+
+    from repro_torch.core.dataset import exact_knn, recall_at_k
+    from repro_torch.kernels import loader, ops
+    from repro_torch.serve.retrieval import EmbeddingRetriever
+
+    cfg = model.config
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    centres = torch.randn((RETR_CLASSES, cfg.frontend_tokens,
+                           cfg.frontend_dim), generator=g, device=dev)
+    labels = torch.arange(RETR_CLASSES, device=dev).repeat_interleave(
+        RETR_PER_CLASS)
+    q_labels = torch.randint(0, RETR_CLASSES, (RETR_QUERIES,), generator=g,
+                             device=dev)
+
+    def embed(lab):
+        out = []
+        for s in range(0, lab.shape[0], RETR_EMBED_BATCH):
+            part = lab[s : s + RETR_EMBED_BATCH]
+            front = centres[part] + RETR_NOISE * torch.randn(
+                (part.shape[0], cfg.frontend_tokens, cfg.frontend_dim),
+                generator=g, device=dev)
+            x, pos, pre = model._embed_inputs({
+                "tokens": torch.zeros((part.shape[0], RETR_PROMPT),
+                                      dtype=torch.long, device=dev),
+                "frontend": front})
+            h, _, _ = model._decoder_stack(x, pos, prefix_len=pre)
+            out.append(h[:, :pre, :].mean(dim=1).float())   # pooled image
+        return torch.cat(out)
+
+    embed(labels[:RETR_EMBED_BATCH])                 # untimed: warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = embed(labels)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    q_embs = embed(q_labels)
+    base, queries = embs.cpu().numpy(), q_embs.cpu().numpy()
+    labels, q_labels = labels.cpu().numpy(), q_labels.cpu().numpy()
+    model.to("meta")      # frees the weights while callers hold the module
+    del embs, q_embs, centres
+    torch.cuda.empty_cache()
+    rec = {"images": int(base.shape[0]), "dim": int(base.shape[1]),
+           "embed_s": embed_s, "images_per_s": base.shape[0] / embed_s,
+           "finite": bool(np.isfinite(base).all()
+                          and np.isfinite(queries).all())}
+    log(f"embedded {rec['images']} images ({RETR_EMBED_BATCH} a batch, "
+        f"{cfg.frontend_tokens} patches + {RETR_PROMPT} tokens, {cfg.dtype}) "
+        f"in {embed_s:.2f} s: {rec['images_per_s']:.1f} images/s")
+
+    stages = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    retr = EmbeddingRetriever(base, metric="angular", device=dev,
+                              stage_times=stages)
+    torch.cuda.synchronize()
+    stages["total"] = time.perf_counter() - t0
+    gt = exact_knn(queries, base, 10, "angular", device=dev)
+    idx = retr.index
+    rec.update(build_s=stages, pq_subvectors=idx.config.pq.num_subvectors,
+               pq_centroids=idx.config.pq.num_centroids,
+               max_degree=idx.config.graph.max_degree,
+               hot_count=idx.hot_count)
+    retr.query(queries[:RETR_SEARCH_BATCH])          # untimed: warm-up
+    loader.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = np.concatenate([
+        retr.query(queries[s : s + RETR_SEARCH_BATCH], k=10)[0]
+        for s in range(0, RETR_QUERIES, RETR_SEARCH_BATCH)])
+    wall = time.perf_counter() - t0
+    rec.update(launches=dict(loader.LAUNCHES), search_s=wall,
+               qps=RETR_QUERIES / wall,
+               recall_at_10=recall_at_k(ids, gt, 10),
+               purity_at_5=float((labels[np.clip(ids[:, :5], 0, None)]
+                                  == q_labels[:, None]).mean()))
+    log(f"EmbeddingRetriever over {rec['images']} x {rec['dim']} (angular, "
+        f"PQ {rec['pq_subvectors']} x {rec['pq_centroids']}, R="
+        f"{rec['max_degree']}, {rec['hot_count']} hot): build seconds "
+        f"{json.dumps(stages)}; {RETR_QUERIES} queries: QPS={rec['qps']:.1f}"
+        f" recall@10={rec['recall_at_10']:.4f} (exact angular kNN over the "
+        f"embeddings) label purity@5={rec['purity_at_5']:.4f} (random "
+        f"{1 / RETR_CLASSES:.4f}); launches {json.dumps(rec['launches'])}")
+
+    # one more batch, its kernels' arguments kept for the kernel phase: of
+    # each kernel the first call from the RETR_CAPTURE_CALL-th on whose mask
+    # asks for a row (else the last such call)
+    captured, calls, at = {}, {}, {}
+    real = {n: getattr(ops, n) for n in RETR_KERNELS}
+    mask_arg = {"pq_lookup_gather": 3, "l2_rerank_masked": 4}
+
+    def spy(name):
+        def call(*args):
+            calls[name] = calls.get(name, 0) + 1
+            mask = args[mask_arg[name]] if name in mask_arg else None
+            if at.get(name, 0) <= RETR_CAPTURE_CALL \
+                    and (mask is None or bool(mask.any())):
+                captured[name], at[name] = args, calls[name]
+            return real[name](*args)
+        return call
+
+    for n in RETR_KERNELS:
+        setattr(ops, n, spy(n))
+    try:
+        retr.query(queries[:RETR_SEARCH_BATCH])
+    finally:
+        for n in RETR_KERNELS:
+            setattr(ops, n, real[n])
+    rec["kernel_shapes"] = {n: [list(a.shape) for a in args
+                                if hasattr(a, "shape")]
+                            for n, args in captured.items()}
+    del retr
+    return rec, captured
+
+
+def model_phase(torch, dev, serve_cfg, seed: int, log) -> tuple:
+    """The model zoo on the card (``zoo_phase``), PaliGemma served at
+    ``serve_cfg``'s width (``serve_phase``) and its image embeddings
+    retrieved through the four kernels (``retrieval_phase``).  Frees every
+    model before it returns (record, the retriever's kernel arguments)."""
+    rec = {"zoo": zoo_phase(torch, dev, seed, log)}
+    rec["serve"], model = serve_phase(torch, dev, serve_cfg, seed, log)
+    rec["retrieval"], captured = retrieval_phase(torch, dev, model, seed, log)
+    del model
+    torch.cuda.empty_cache()
+    return rec, captured
+
+
+def model_failures(rec: dict) -> list:
+    fails = [f"model zoo {k}: card vs CPU max abs err {v['max_abs_err']:.3g}"
+             f" beyond rtol {v['rtol']} / atol {v['atol']}"
+             for k, v in rec["zoo"].items() if not v["ok"]]
+    tf = rec["serve"]["f32_teacher_forcing"]
+    if not tf["ok"]:
+        fails.append(f"{rec['serve']['config']} f32 decode vs teacher "
+                     f"forcing: {tf['max_abs_err']:.3g} > {tf['bound']:.3g}")
+    r = rec["retrieval"]
+    if not r["finite"]:
+        fails.append("image embeddings are not finite")
+    if r["recall_at_10"] < 0.5:
+        fails.append(f"retrieval recall@10 {r['recall_at_10']:.4f} < 0.5")
+    if min(r["launches"].values()) <= 0:
+        fails.append(f"retrieval: a kernel never launched: {r['launches']}")
+    if set(r["kernel_shapes"]) != set(RETR_KERNELS):
+        fails.append(f"retrieval: kernel calls not captured: "
+                     f"{sorted(r['kernel_shapes'])}")
+    return fails
+
+
 def cross_device(torch, idx, gpu_ids, n: int = 64) -> float:
     """Share of the first n queries whose top-10 ids on the CPU (plain
     versions) equal the card's."""
@@ -2723,12 +3148,17 @@ def main(argv=None) -> int:
                                          "continuous": cont["qps"]},
                             res["build_peak_bytes"], args.seed, out_dir, log)
     mark("streaming")
+    from repro_torch.configs import get_config
+
+    models, retr_inputs = model_phase(torch, dev, get_config(SERVE_ARCH),
+                                      args.seed, log)
+    mark("models")
 
     scan_pass = int(store.mask(_specs()["range_price_0_9"]).sum())
     kernels = kernel_phase(torch, dev, args.num_base, res["rerank_density"],
                            filt["masked_density"], scan_pass, ivf_inputs,
-                           dist_inputs, args.seed)
-    del ivf_inputs, dist_inputs
+                           dist_inputs, retr_inputs, args.seed)
+    del ivf_inputs, dist_inputs, retr_inputs
     mark("kernels")
     tiled_launches = {k: sum(v["launches"][k]
                              for v in tiled["variants"].values())
@@ -2741,7 +3171,8 @@ def main(argv=None) -> int:
              "stream": streamed["before"]["batch"]["launches"],
              "distributed_nsp": distributed["world_1"]["nsp_E1"]["launches"],
              "distributed_fetch":
-                 distributed["world_1"]["fetch_E1"]["launches"]}
+                 distributed["world_1"]["fetch_E1"]["launches"],
+             "retrieval": models["retrieval"]["launches"]}
     for k in kernels:
         k["launches"] = res["launches"][k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
@@ -2781,7 +3212,7 @@ def main(argv=None) -> int:
     detail.update(card=card, kernels=kernels, main=res, continuous=cont,
                   filtered=filt, tiled=tiled, ivf=ivf, segmented=segmented,
                   observability=observed, streaming=streamed,
-                  distributed=distributed)
+                  distributed=distributed, models=models)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     failures = []
@@ -2858,6 +3289,7 @@ def main(argv=None) -> int:
     failures.extend(obs_failures(observed))
     failures.extend(stream_failures(streamed))
     failures.extend(distributed_failures(distributed))
+    failures.extend(model_failures(models))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -1,7 +1,18 @@
-"""Proxima configuration dataclasses — the port's copy of the Proxima half of
-``src/repro/configs/base.py`` (lines 185-402): ``PQConfig`` through
-``ProximaConfig`` and ``upgrade_config``.  Field names and defaults are
-identical to the reference's, so a reference config converts field for field.
+"""Configuration dataclasses — the port's copy of ``src/repro/configs/base.py``.
+
+Two families, as in the reference:
+
+* ``ModelConfig`` (lines 24-160 of the reference) — an LM-family
+  architecture (dense / MoE / VLM / hybrid / enc-dec / SSM) for the model zoo
+  (``repro_torch.models``), with ``ShapeConfig`` and ``SHAPES``, the four
+  input-shape cells.  ``param_count`` is the reference's analytic count,
+  kept exactly: it leaves out ``ln_f``, ``frontend_proj`` and the SSM
+  vectors, so it is not the sum of a model's tensor sizes.
+* ``PQConfig`` through ``ProximaConfig`` and ``upgrade_config`` (lines
+  185-402) — the paper's ANN-search configuration.
+
+Field names and defaults are identical to the reference's, so a reference
+config converts field for field.
 
 ``SearchConfig.use_pallas`` does not pick the kernels.  The port routes by
 the device of its tensors instead: tensors on a CUDA device launch the
@@ -14,8 +25,170 @@ one (each tile's rounds launched on their own) when it is True.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Model configs
+# ---------------------------------------------------------------------------
+
+BLOCK_ATTN = "attn"          # self-attention block
+BLOCK_MAMBA1 = "mamba1"      # Mamba-1 selective SSM block
+BLOCK_MAMBA2 = "mamba2"      # Mamba-2 SSD block
+BLOCK_SHARED_ATTN = "shared_attn"  # zamba2-style shared (tied) attention block
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One architecture. ``family`` selects the forward pass."""
+
+    name: str
+    family: str                       # dense | moe | vlm | hybrid | encdec | ssm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int                 # GQA; 0 for attention-free archs
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+    # MoE ------------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    # SSM ------------------------------------------------------------------
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    # Attention flavour -----------------------------------------------------
+    sliding_window: int = 0           # 0 -> full attention
+    rope_theta: float = 10000.0
+    max_position: int = 131072
+    # Hybrid (zamba2-style) --------------------------------------------------
+    attn_every: int = 0               # insert shared attn block every k blocks
+    # Enc-dec ----------------------------------------------------------------
+    encoder_layers: int = 0           # >0 -> enc-dec; num_layers == decoder layers
+    # VLM / audio frontend stub ----------------------------------------------
+    frontend_tokens: int = 0          # patch/frame embeddings prepended (stub)
+    frontend_dim: int = 0             # dim of the precomputed embeddings
+    mlp_variant: str = "swiglu"       # swiglu (3 mats) | gelu (2 mats)
+    # Numerics ---------------------------------------------------------------
+    dtype: str = "bfloat16"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+
+    # ----------------------------------------------------------------- utils
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch decode with a bounded state at 500k context?"""
+        return (
+            self.family in ("ssm", "hybrid")
+            or self.sliding_window > 0
+        )
+
+    def block_pattern(self) -> Tuple[str, ...]:
+        """Per-layer block types for the *decoder* stack."""
+        if self.family == "ssm":
+            return tuple(BLOCK_MAMBA1 for _ in range(self.num_layers))
+        if self.family == "hybrid":
+            pat = []
+            every = self.attn_every or 6
+            for i in range(self.num_layers):
+                pat.append(BLOCK_SHARED_ATTN if (i % every == every - 1) else BLOCK_MAMBA2)
+            return tuple(pat)
+        return tuple(BLOCK_ATTN for _ in range(self.num_layers))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), as the
+        reference computes it for its roofline's MODEL_FLOPS."""
+        d, dff, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        nq, nkv = self.num_heads, self.num_kv_heads
+        emb = v * d
+        head = 0 if self.tie_embeddings else v * d
+        per_attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
+        mats = 3 if self.mlp_variant == "swiglu" else 2
+        per_mlp = mats * d * dff
+        if self.family == "moe":
+            per_mlp = self.num_experts * mats * d * self.d_ff + d * self.num_experts
+        # mamba1 block params: in_proj (d -> 2*e*d), conv, x_proj, dt_proj, out_proj
+        e = self.ssm_expand
+        di = e * d
+        per_m1 = d * 2 * di + di * self.ssm_conv + di * (2 * self.ssm_state + di // 16 + 1) + di * d
+        per_m2 = d * (2 * di + 2 * self.ssm_state + di // 64) + (
+            di + 2 * self.ssm_state
+        ) * self.ssm_conv + di * d
+        norms = 2 * d
+        total = emb + head
+        for blk in self.block_pattern():
+            if blk == BLOCK_ATTN:
+                total += per_attn + per_mlp + norms
+            elif blk == BLOCK_SHARED_ATTN:
+                total += norms  # attn+mlp weights shared (counted once below)
+            elif blk == BLOCK_MAMBA1:
+                total += per_m1 + norms
+            elif blk == BLOCK_MAMBA2:
+                total += per_m2 + norms
+        if self.family == "hybrid":
+            total += per_attn + per_mlp  # the single shared block's weights
+        if self.encoder_layers:
+            # encoder self-attn + mlp, and decoder cross-attn addition
+            total += self.encoder_layers * (per_attn + per_mlp + norms)
+            total += self.num_layers * per_attn  # cross-attention per decoder layer
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        dense_like = dataclasses.replace(
+            self, family="dense", num_experts=0, experts_per_token=0
+        )
+        base = dense_like.param_count() - self.num_layers * 3 * d * self.d_ff
+        return int(
+            base
+            + self.num_layers
+            * (self.experts_per_token * 3 * d * self.d_ff + d * self.num_experts)
+        )
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+    @staticmethod
+    def from_json(s: str) -> "ModelConfig":
+        return ModelConfig(**json.loads(s))
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the four shape cells)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,345 @@
+"""Transformer building blocks — port of ``src/repro/models/layers.py``:
+RMSNorm, RoPE, GQA/SWA attention (KV cache, ring buffer, query chunks),
+SwiGLU / GELU MLP and capacity-based MoE.
+
+Every function is a plain function over tensors with the reference's name
+and argument order; weights come in as dicts of tensors, made by the
+matching ``init_*`` function, which also returns the *logical sharding spec*
+of each weight (axis names the training slice's sharding resolves to mesh
+axes).  ``init_*`` take a ``torch.Generator`` where the reference takes a
+PRNG key: the shapes, scales and dtypes are the reference's, the values are
+other draws from the same distributions.
+
+The reference's GSPMD hints (``shard_lib.param_hints`` / ``hint``) are
+identity on one device and are left out here; ``moe``'s ``dispatch_hint`` is
+accepted and changes nothing.
+
+Logical axis vocabulary:
+    "embed"   — d_model
+    "heads"   — attention heads
+    "kv"      — kv heads
+    "mlp"     — FFN hidden
+    "vocab"   — vocabulary
+    "experts" — MoE experts
+    None      — replicated
+
+Numerics kept from the reference, each of which the natural PyTorch form
+would change: RMSNorm scales by ``1 + w`` in f32; RoPE rotates the two
+halves of a head, not interleaved pairs; attention logits are f32, soft-capped
+when ``logit_softcap`` is set, masked with -1e30 (not -inf), and the softmax
+weights are cast to V's dtype before the PV product; GELU is the tanh form
+(``jax.nn.gelu``'s default); MoE's top-k keeps the lower expert first on ties
+(a stable descending sort, not ``torch.topk``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype a config's ``dtype`` string names."""
+    return _DTYPES[name]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+def normal(generator: torch.Generator, shape, scale: float,
+           dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1) * scale drawn in f32 on the generator's device, then cast —
+    the reference's ``(jax.random.normal(k, shape) * scale).astype(dt)``."""
+    w = torch.randn(shape, generator=generator, device=generator.device)
+    return w.mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norm / RoPE
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + w.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs           # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                   # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA / MQA / SWA), chunked over query blocks
+# ---------------------------------------------------------------------------
+
+def init_attention(generator: torch.Generator,
+                   cfg: ModelConfig) -> Tuple[Params, Dict]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    scale = d ** -0.5
+    dt = _dtype(cfg)
+    p = {
+        "wq": normal(generator, (d, nq * hd), scale, dt),
+        "wk": normal(generator, (d, nkv * hd), scale, dt),
+        "wv": normal(generator, (d, nkv * hd), scale, dt),
+        "wo": normal(generator, (nq * hd, d), (nq * hd) ** -0.5, dt),
+    }
+    s = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv"),
+        "wv": ("embed", "kv"),
+        "wo": ("heads", "embed"),
+    }
+    return p, s
+
+
+def _attn_mask(q_pos, k_pos, sliding_window: int, prefix_len: int = 0):
+    """(..., Sq, Sk) boolean mask from (..., Sq) and (..., Sk) positions.
+    Causal, optional sliding window, optional bidirectional prefix
+    (PaliGemma-style prefix-LM)."""
+    qp, kp = q_pos[..., :, None], k_pos[..., None, :]
+    causal = qp >= kp
+    if prefix_len > 0:
+        causal = causal | ((qp < prefix_len) & (kp < prefix_len))
+    if sliding_window > 0:
+        causal = causal & (qp - kp < sliding_window)
+    return causal
+
+
+def attention(
+    p: Params,
+    x: torch.Tensor,                  # (B, S, d)
+    cfg: ModelConfig,
+    positions: torch.Tensor,          # (B, S)
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_len: Optional[int] = None,
+    q_chunk: int = 1024,
+    prefix_len: int = 0,
+    attend_cache: bool = False,
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """GQA attention. With ``kv_cache=(k,v)`` of shape (B, C, Hkv, hd) this is
+    a decode/prefill-extend step: new k/v are written at ``cache_len`` (a
+    host int) and attention runs over the cache. Returns (out, new_cache);
+    the new cache is a new pair of tensors, the caller's are not written."""
+    b, s, d = x.shape
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    g = nq // nkv
+
+    q = (x @ p["wq"]).reshape(b, s, nq, hd)
+    k = (x @ p["wk"]).reshape(b, s, nkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, nkv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        cap = ck.shape[1]
+        ring = cfg.sliding_window > 0 and cap <= 2 * cfg.sliding_window
+        if s > cap and not ring:
+            raise ValueError(
+                f"prefill length {s} exceeds non-ring cache capacity {cap}"
+            )
+        # write the (last cap) new k/v into the cache. Slots are pos % cap in
+        # ring mode; the slice below guarantees no duplicate slots.
+        if s >= cap:
+            offs = torch.arange(s - cap, s, device=x.device)
+            kw, vw = k[:, -cap:], v[:, -cap:]
+        else:
+            offs = torch.arange(s, device=x.device)
+            kw, vw = k, v
+        idx = (cache_len + offs) % cap if ring else cache_len + offs
+        ck = ck.index_copy(1, idx, kw.to(ck.dtype))
+        cv = cv.index_copy(1, idx, vw.to(cv.dtype))
+        new_cache = (ck, cv)
+        if s > 1 and not attend_cache:
+            # single-shot prefill: attend over the in-flight k/v (window mask
+            # applies); the cache is only written for subsequent decode steps
+            k_all, v_all = k, v
+            k_pos_all = positions
+        else:
+            # decode, or segmented (chunked) prefill: attend over the cache
+            # (already containing this segment's keys); absolute-position
+            # masking handles both full and ring buffers
+            k_all, v_all = ck, cv
+            k_pos_all = _cache_positions(cache_len, s, cap, ring, x.device)
+    else:
+        k_all, v_all = k, v
+        k_pos_all = positions
+
+    # grouped heads: (B, S, Hkv, G, hd)
+    qg = q.reshape(b, s, nkv, g, hd)
+    k_pos_all = k_pos_all.expand(b, k_pos_all.shape[-1])
+    k32 = k_all.float()
+    scale = hd ** -0.5
+
+    def attend_chunk(q_blk, qpos_blk):
+        # q_blk (B, sq, Hkv, G, hd)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", q_blk.float(), k32) * scale
+        if cfg.logit_softcap > 0:
+            c = cfg.logit_softcap
+            logits = c * torch.tanh(logits / c)
+        mask = _attn_mask(qpos_blk, k_pos_all, cfg.sliding_window, prefix_len)
+        logits = logits.masked_fill(~mask[:, None, None], -1e30)
+        w = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhgqk,bkhd->bqhgd", w.to(v_all.dtype), v_all)
+
+    if s > q_chunk and s % q_chunk == 0:
+        out = torch.cat([
+            attend_chunk(qg[:, i : i + q_chunk], positions[:, i : i + q_chunk])
+            for i in range(0, s, q_chunk)], dim=1)
+    else:
+        out = attend_chunk(qg, positions)
+    return out.reshape(b, s, nq * hd) @ p["wo"], new_cache
+
+
+def _cache_positions(cache_len: int, s_new: int, cap: int, ring: bool,
+                     device=None) -> torch.Tensor:
+    """(1, cap) absolute positions represented in the cache (for masking)."""
+    slot = torch.arange(cap, device=device)
+    total = cache_len + s_new
+    if ring:
+        # ring buffer: slot i holds the largest position p < total with
+        # p % cap == i; slots not yet written get a huge position (masked).
+        pos = slot + torch.div(total - 1 - slot, cap,
+                               rounding_mode="floor") * cap
+        pos = torch.where((pos < total) & (pos >= 0), pos, 2**30)
+        return pos[None, :]
+    return torch.where(slot < total, slot, 2**30)[None, :]
+
+
+# ---------------------------------------------------------------------------
+# MLP / MoE
+# ---------------------------------------------------------------------------
+
+def init_mlp(generator: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None) -> Tuple[Params, Dict]:
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    dt = _dtype(cfg)
+    if cfg.mlp_variant == "gelu":
+        p = {
+            "wi_up": normal(generator, (d, f), d**-0.5, dt),
+            "wo": normal(generator, (f, d), f**-0.5, dt),
+        }
+        s = {"wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
+        return p, s
+    p = {
+        "wi_gate": normal(generator, (d, f), d**-0.5, dt),
+        "wi_up": normal(generator, (d, f), d**-0.5, dt),
+        "wo": normal(generator, (f, d), f**-0.5, dt),
+    }
+    s = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+         "wo": ("mlp", "embed")}
+    return p, s
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "wi_gate" not in p:
+        return F.gelu(x @ p["wi_up"], approximate="tanh") @ p["wo"]
+    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+
+
+def init_moe(generator: torch.Generator,
+             cfg: ModelConfig) -> Tuple[Params, Dict]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    dt = _dtype(cfg)
+    p = {
+        "router": normal(generator, (d, e), d**-0.5, torch.float32),
+        "wi_gate": normal(generator, (e, d, f), d**-0.5, dt),
+        "wi_up": normal(generator, (e, d, f), d**-0.5, dt),
+        "wo": normal(generator, (e, f, d), f**-0.5, dt),
+    }
+    s = {
+        "router": ("embed", None),
+        "wi_gate": ("experts", "embed", "mlp"),
+        "wi_up": ("experts", "embed", "mlp"),
+        "wo": ("experts", "mlp", "embed"),
+    }
+    return p, s
+
+
+def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig,
+              capacity_factor: float = 1.25) -> Dict[str, torch.Tensor]:
+    """The router of ``moe`` over (T, d) tokens: softmax probabilities, the
+    top-k experts (ties to the lower expert) and their renormalised gates,
+    the capacity ``cap``, and each (token, choice)'s slot ``dest`` =
+    expert * cap + position (``e * cap`` where it overflowed, ``keep``
+    False).  Positions count the (token, choice) pairs in token-major order."""
+    t = xt.shape[0]
+    e, kk = cfg.num_experts, cfg.experts_per_token
+    logits = xt.float() @ p["router"]                           # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[:, :kk], gate_idx[:, :kk]   # (T, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    cap = max(int(math.ceil(t * kk / e * capacity_factor)), 4)
+    flat_idx = gate_idx.reshape(-1)                             # (T*k,)
+    oh = F.one_hot(flat_idx, e)                                 # (T*k, E)
+    pos_all = torch.cumsum(oh, dim=0) - oh
+    pos = pos_all.gather(1, flat_idx[:, None])[:, 0]
+    keep = pos < cap
+    dest = torch.where(keep, flat_idx * cap + pos, e * cap)     # OOB -> drop
+    return {"probs": probs, "gate_vals": gate_vals, "gate_idx": gate_idx,
+            "cap": cap, "keep": keep, "dest": dest}
+
+
+def moe(
+    p: Params, x: torch.Tensor, cfg: ModelConfig,
+    capacity_factor: float = 1.25, dispatch_hint: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k routing with SCATTER/GATHER dispatch.
+
+    Each (token, choice) is copied to its slot ``expert*cap + position`` of
+    an (E*cap, d) expert buffer; overflowing choices go to one spare row
+    past the end, which is dropped, and read back as zero.  The experts run
+    as batched matmuls over (E, cap, d) and the results are gathered back
+    with the same index map.  ``dispatch_hint`` is the reference's sharding
+    knob and changes nothing on one device.  Returns (out, aux_loss)."""
+    b, s, d = x.shape
+    e, kk = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    xt = x.reshape(t, d)
+    r = moe_route(p, xt, cfg, capacity_factor)
+    cap, keep, dest = r["cap"], r["keep"], r["dest"]
+
+    x_rep = xt.repeat_interleave(kk, dim=0)                     # (T*k, d)
+    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_copy(0, dest, x_rep)[: e * cap]
+    xe = buf.reshape(e, cap, d)
+    h = torch.bmm(xe, p["wi_gate"])
+    h = F.silu(h) * torch.bmm(xe, p["wi_up"])
+    ye = torch.bmm(h, p["wo"]).reshape(e * cap, d)
+    y = ye[torch.clamp(dest, max=e * cap - 1)]                  # (T*k, d)
+    y = y.masked_fill(~keep[:, None], 0.0)
+    out = (y.reshape(t, kk, d)
+           * r["gate_vals"][..., None].to(y.dtype)).sum(1).reshape(b, s, d)
+    # load-balancing aux loss (Switch-style)
+    density = F.one_hot(r["gate_idx"], e).amax(1).float().mean(0)
+    p_mean = r["probs"].mean(0)
+    aux = (density * p_mean).sum() * (e ** 2) / kk
+    return out, aux

@@ -1,0 +1,599 @@
+"""Model zoo composer — port of ``src/repro/models/model.py``: builds any of
+the ten architectures from its ``ModelConfig`` with a uniform interface:
+
+    model = build_model(cfg, device="cuda", generator=g)
+    loss, metrics = model.loss(batch)
+    logits, cache = model.prefill(batch, max_len=...)
+    logits, cache = model.decode_step(cache, tokens)
+
+``Model`` is an ``nn.Module`` that owns its weights: each layer keeps its own
+tensors (``blocks``, ``enc_blocks`` and ``cross_blocks`` are
+``nn.ModuleList``s of ``ParamTree``s, whose parameter names are the
+reference's pytree keys), where the reference stacks a leading layer axis
+and scans it.  ``params_from_reference`` carries a reference pytree across.
+
+Families: dense | moe | vlm (prefix-LM over stub patch embeddings) | ssm
+(Mamba-1) | hybrid (Mamba-2 + shared attention, zamba2-style) | encdec
+(audio frames -> encoder, tokens -> decoder with cross-attention).
+
+The serving path is functional, as the reference's is: ``prefill``,
+``prefill_chunked`` and ``decode_step`` return a new ``DecodeCache`` and
+never write the caller's tensors.  ``DecodeCache.length`` is a host int (the
+reference keeps a device scalar): positions and cache slots are computed on
+the host, with no device read a step.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import (
+    BLOCK_ATTN,
+    BLOCK_MAMBA1,
+    BLOCK_MAMBA2,
+    BLOCK_SHARED_ATTN,
+    ModelConfig,
+)
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+
+
+# ---------------------------------------------------------------------------
+# Per-block init
+# ---------------------------------------------------------------------------
+
+def _init_block(generator: torch.Generator, cfg: ModelConfig, kind: str):
+    """(weights, logical specs) of one block, as nested dicts."""
+    def norm():
+        return torch.zeros((cfg.d_model,), dtype=torch.float32,
+                           device=generator.device)
+
+    if kind == BLOCK_ATTN:
+        attn_p, attn_s = L.init_attention(generator, cfg)
+        if cfg.family == "moe":
+            ff_p, ff_s = L.init_moe(generator, cfg)
+        else:
+            ff_p, ff_s = L.init_mlp(generator, cfg)
+        p = {"ln1": norm(), "attn": attn_p, "ln2": norm(), "ff": ff_p}
+        s = {"ln1": ("embed",), "attn": attn_s, "ln2": ("embed",), "ff": ff_s}
+    elif kind == BLOCK_MAMBA1:
+        m_p, m_s = S.init_mamba(generator, cfg)
+        p = {"ln1": norm(), "ssm": m_p}
+        s = {"ln1": ("embed",), "ssm": m_s}
+    elif kind == BLOCK_MAMBA2:
+        # zamba2 geometry: the mamba2 blocks carry no MLP — the MLP lives in
+        # the (single, shared) attention block
+        m_p, m_s = S.init_mamba2(generator, cfg)
+        p = {"ln1": norm(), "ssm": m_p}
+        s = {"ln1": ("embed",), "ssm": m_s}
+    else:
+        raise ValueError(kind)
+    return p, s
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: tensors become parameters under
+    their keys, dicts become sub-trees.  ``tree()`` hands the dict back for
+    the functional layers.  Parameters are created without gradients (the
+    serving path takes none)."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def tree(self) -> Dict:
+        out = dict(self._parameters)
+        out.update((k, m.tree()) for k, m in self._modules.items())
+        return out
+
+
+def _flat_specs(prefix: str, specs: Dict, out: Dict) -> Dict:
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            _flat_specs(f"{prefix}{k}.", v, out)
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Cache containers
+# ---------------------------------------------------------------------------
+
+class DecodeCache(NamedTuple):
+    """Stacked per-layer caches + the fill pointer (a host int)."""
+    kv_k: Optional[torch.Tensor]       # (n_attn, B, cap, Hkv, hd)
+    kv_v: Optional[torch.Tensor]
+    conv: Optional[torch.Tensor]       # (n_ssm, B, conv-1, width)
+    ssm: Optional[torch.Tensor]        # (n_ssm, B, di(, ...), ds)
+    enc_out: Optional[torch.Tensor]    # (B, S_enc, d) — encdec only
+    length: int
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self[:5]
+                   if t is not None)
+
+
+def _cache_capacity(cfg: ModelConfig, max_len: int, ring_mult: int = 1) -> int:
+    if cfg.sliding_window > 0:
+        return min(max_len, ring_mult * cfg.sliding_window)
+    return max_len
+
+
+def _stack(ts):
+    return torch.stack(ts) if ts else None
+
+
+# ---------------------------------------------------------------------------
+# The Model object
+# ---------------------------------------------------------------------------
+
+class Model(nn.Module):
+    """One architecture with its weights.  The fields are the reference's:
+
+    * ``remat`` — the reference's per-block rematerialisation; it changes
+      nothing here: ``torch.utils.checkpoint`` matters only under autograd,
+      which the serving path does not run (the training slice).
+    * ``q_chunk`` — attention runs over query blocks of this many rows when
+      the sequence is a multiple of it.
+    * ``ssm_chunk`` — the selective scan's chunk.
+    * ``moe_capacity`` — the MoE capacity factor.
+    * ``moe_dispatch_hint``, ``seq_parallel`` — GSPMD sharding hints in the
+      reference; identity on one device (the sharding is ported with
+      training).
+    """
+
+    def __init__(self, config: ModelConfig, remat: str = "block",
+                 q_chunk: int = 1024, ssm_chunk: int = 256,
+                 moe_capacity: float = 1.25, moe_dispatch_hint: bool = True,
+                 seq_parallel: bool = False, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.config = config
+        self.remat = remat
+        self.q_chunk = q_chunk
+        self.ssm_chunk = ssm_chunk
+        self.moe_capacity = moe_capacity
+        self.moe_dispatch_hint = moe_dispatch_hint
+        self.seq_parallel = seq_parallel
+        self.device = torch.device(device)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        self.specs = self.init(generator)[1]
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator):
+        """Draws every weight from ``generator`` (on the model's device) with
+        the reference's shapes, scales and dtypes and registers it.  Returns
+        (state dict, logical-axis specs keyed by the same names)."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        cfg = self.config
+        g = generator
+        dt = L.torch_dtype(cfg.dtype)
+        d = cfg.d_model
+        specs: Dict = {"embed": ("vocab", "embed"), "ln_f": ("embed",)}
+        self.embed = nn.Parameter(L.normal(g, (cfg.vocab_size, d), 0.02, dt),
+                                  requires_grad=False)
+        self.ln_f = nn.Parameter(torch.zeros((d,), dtype=torch.float32,
+                                             device=self.device),
+                                 requires_grad=False)
+        if not cfg.tie_embeddings:
+            self.unembed = nn.Parameter(
+                L.normal(g, (d, cfg.vocab_size), d**-0.5, dt),
+                requires_grad=False)
+            specs["unembed"] = ("embed", "vocab")
+
+        def stack(kind, n, name):
+            trees = []
+            for i in range(n):
+                p, s = _init_block(g, cfg, kind)
+                trees.append(ParamTree(p))
+                _flat_specs(f"{name}.{i}.", s, specs)
+            setattr(self, name, nn.ModuleList(trees))
+
+        pattern = cfg.block_pattern()
+        if cfg.family in ("dense", "moe", "vlm"):
+            stack(BLOCK_ATTN, cfg.num_layers, "blocks")
+        elif cfg.family == "ssm":
+            stack(BLOCK_MAMBA1, cfg.num_layers, "blocks")
+        elif cfg.family == "hybrid":
+            stack(BLOCK_MAMBA2, sum(1 for b in pattern if b == BLOCK_MAMBA2),
+                  "blocks")
+            # the single SHARED attention block (weights tied across uses)
+            sp, ss = _init_block(g, cfg, BLOCK_ATTN)
+            self.shared_attn = ParamTree(sp)
+            _flat_specs("shared_attn.", ss, specs)
+        elif cfg.family == "encdec":
+            stack(BLOCK_ATTN, cfg.num_layers, "blocks")
+            stack(BLOCK_ATTN, cfg.encoder_layers, "enc_blocks")
+            # cross-attention re-uses attention geometry (q from decoder,
+            # kv from encoder output)
+            cross = []
+            for i in range(cfg.num_layers):
+                ap, as_ = L.init_attention(g, cfg)
+                cross.append(ParamTree({
+                    "ln": torch.zeros((d,), dtype=torch.float32,
+                                      device=self.device), "attn": ap}))
+                _flat_specs(f"cross_blocks.{i}.",
+                            {"ln": ("embed",), "attn": as_}, specs)
+            self.cross_blocks = nn.ModuleList(cross)
+        else:
+            raise ValueError(cfg.family)
+
+        if cfg.frontend_dim:
+            self.frontend_proj = nn.Parameter(
+                L.normal(g, (cfg.frontend_dim, d), cfg.frontend_dim**-0.5, dt),
+                requires_grad=False)
+            specs["frontend_proj"] = (None, "embed")
+        return self.state_dict(), specs
+
+    # ------------------------------------------------------------- forwards
+    def _attn_block(self, bp, x, positions, kv=None, cache_len=None,
+                    prefix_len=0, attend_cache=False):
+        cfg = self.config
+        h, new_kv = L.attention(
+            bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
+            positions, kv_cache=kv, cache_len=cache_len,
+            q_chunk=self.q_chunk, prefix_len=prefix_len,
+            attend_cache=attend_cache,
+        )
+        x = x + h
+        y = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            ff, aux = L.moe(bp["ff"], y, cfg, self.moe_capacity,
+                            dispatch_hint=self.moe_dispatch_hint)
+        else:
+            ff, aux = L.mlp(bp["ff"], y), 0.0
+        return x + ff, new_kv, aux
+
+    def _mamba_block(self, bp, x, state=None, kind=BLOCK_MAMBA1):
+        cfg = self.config
+        fn = S.mamba if kind == BLOCK_MAMBA1 else S.mamba2
+        h, new_state = fn(
+            bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
+            state=state, chunk=self.ssm_chunk,
+        )
+        return x + h, new_state
+
+    def _cross_block(self, cp, x, enc_out, enc_positions):
+        """Decoder cross-attention: q from x, kv from encoder output (no
+        RoPE, no mask, no softcap)."""
+        cfg = self.config
+        b, s, d = x.shape
+        hd = cfg.resolved_head_dim
+        nq, nkv = cfg.num_heads, cfg.num_kv_heads
+        y = L.rms_norm(x, cp["ln"], cfg.norm_eps)
+        q = (y @ cp["attn"]["wq"]).reshape(b, s, nq, hd)
+        k = (enc_out @ cp["attn"]["wk"]).reshape(b, -1, nkv, hd)
+        v = (enc_out @ cp["attn"]["wv"]).reshape(b, -1, nkv, hd)
+        g = nq // nkv
+        qg = q.reshape(b, s, nkv, g, hd)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                              k.float()) * hd**-0.5
+        w = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
+        return x + o.reshape(b, s, nq * hd) @ cp["attn"]["wo"]
+
+    def _decoder_stack(self, x, positions, caches=None, cache_len=None,
+                       prefix_len=0, enc_out=None, enc_positions=None,
+                       attend_cache=False):
+        """Runs the decoder stack, layer by layer. Returns (x, new_caches,
+        aux)."""
+        cfg = self.config
+        fam = cfg.family
+
+        if fam in ("dense", "moe", "vlm", "encdec"):
+            new_k, new_v, aux = [], [], 0.0
+            for i, blk in enumerate(self.blocks):
+                kv = None if caches is None else (caches.kv_k[i],
+                                                  caches.kv_v[i])
+                x, new_kv, a = self._attn_block(
+                    blk.tree(), x, positions, kv, cache_len, prefix_len,
+                    attend_cache=attend_cache)
+                if fam == "encdec":
+                    x = self._cross_block(self.cross_blocks[i].tree(), x,
+                                          enc_out, enc_positions)
+                aux = aux + a
+                if new_kv is not None:
+                    new_k.append(new_kv[0])
+                    new_v.append(new_kv[1])
+            new_caches = None
+            if caches is not None:
+                new_caches = caches._replace(kv_k=_stack(new_k),
+                                             kv_v=_stack(new_v))
+            return x, new_caches, aux
+
+        if fam == "ssm":
+            new_conv, new_ssm = [], []
+            for i, blk in enumerate(self.blocks):
+                st = None if caches is None else (caches.conv[i],
+                                                  caches.ssm[i])
+                x, (cv, ss) = self._mamba_block(blk.tree(), x, st,
+                                                BLOCK_MAMBA1)
+                new_conv.append(cv)
+                new_ssm.append(ss)
+            new_caches = None
+            if caches is not None:
+                new_caches = caches._replace(conv=_stack(new_conv),
+                                             ssm=_stack(new_ssm))
+            return x, new_caches, 0.0
+
+        if fam == "hybrid":
+            return self._hybrid_stack(x, positions, caches, cache_len,
+                                      attend_cache=attend_cache)
+
+        raise ValueError(fam)
+
+    def _hybrid_stack(self, x, positions, caches, cache_len,
+                      attend_cache=False):
+        """zamba2: mamba2 blocks with a SHARED attention block every
+        ``attn_every`` layers. The shared block's weights are reused at every
+        occurrence; its KV caches are per-occurrence."""
+        cfg = self.config
+        pattern = cfg.block_pattern()
+        n_groups = sum(1 for b in pattern if b == BLOCK_SHARED_ATTN)
+        m_per_group = (cfg.attn_every or 6) - 1
+        n_m = len(self.blocks)
+        shared = self.shared_attn.tree()
+        new_conv, new_ssm, new_k, new_v = [], [], [], []
+
+        def mamba_run(x, start, count):
+            for i in range(start, start + count):
+                st = None if caches is None else (caches.conv[i],
+                                                  caches.ssm[i])
+                x, (cv, ss) = self._mamba_block(self.blocks[i].tree(), x, st,
+                                                BLOCK_MAMBA2)
+                new_conv.append(cv)
+                new_ssm.append(ss)
+            return x
+
+        mi = 0
+        for gi in range(n_groups):
+            x = mamba_run(x, mi, m_per_group)
+            mi += m_per_group
+            kv = None if caches is None else (caches.kv_k[gi],
+                                              caches.kv_v[gi])
+            x, new_kv, _ = self._attn_block(shared, x, positions, kv,
+                                            cache_len,
+                                            attend_cache=attend_cache)
+            if new_kv is not None:
+                new_k.append(new_kv[0])
+                new_v.append(new_kv[1])
+        x = mamba_run(x, mi, n_m - mi)                   # the tail
+        new_caches = None
+        if caches is not None:
+            new_caches = caches._replace(
+                conv=_stack(new_conv), ssm=_stack(new_ssm),
+                kv_k=_stack(new_k), kv_v=_stack(new_v))
+        return x, new_caches, 0.0
+
+    def _positions(self, b: int, s: int, start: int = 0) -> torch.Tensor:
+        return torch.arange(start, start + s,
+                            device=self.device)[None].expand(b, s)
+
+    def _encode(self, frames):
+        """Encoder stack over frontend frame embeddings (bidirectional)."""
+        cfg = self.config
+        frames = torch.as_tensor(frames, device=self.device)
+        x = frames.to(L.torch_dtype(cfg.dtype)) @ self.frontend_proj
+        b, s, _ = x.shape
+        positions = self._positions(b, s)
+        for blk in self.enc_blocks:
+            x, _, _ = self._attn_block(blk.tree(), x, positions, prefix_len=s)
+        return x, positions
+
+    def _embed_inputs(self, batch):
+        """tokens (+ frontend embeddings) -> (x, positions, prefix_len)."""
+        cfg = self.config
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x = self.embed[tokens]
+        if cfg.family == "vlm":
+            front = torch.as_tensor(batch["frontend"], device=self.device)
+            pre = front.to(x.dtype) @ self.frontend_proj
+            x = torch.cat([pre, x], dim=1)
+            prefix = cfg.frontend_tokens
+        else:
+            prefix = 0
+        b, s, _ = x.shape
+        return x, self._positions(b, s), prefix
+
+    def _logits(self, x):
+        cfg = self.config
+        x = L.rms_norm(x, self.ln_f, cfg.norm_eps)
+        w = self.embed.T if cfg.tie_embeddings else self.unembed
+        logits = x @ w
+        if cfg.logit_softcap > 0:
+            c = cfg.logit_softcap
+            logits = c * torch.tanh(logits / c)
+        return logits
+
+    # ------------------------------------------------------------ the loss
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss as a forward pass (no gradients are taken on
+        the serving path): mean next-token NLL over labels >= 0, plus
+        0.01 x the MoE aux loss."""
+        cfg = self.config
+        if cfg.family == "encdec":
+            enc_out, enc_pos = self._encode(batch["frontend"])
+            x, positions, prefix = self._embed_inputs(batch)
+            x, _, aux = self._decoder_stack(
+                x, positions, enc_out=enc_out, enc_positions=enc_pos)
+        else:
+            x, positions, prefix = self._embed_inputs(batch)
+            x, _, aux = self._decoder_stack(x, positions, prefix_len=prefix)
+        logits = self._logits(x)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        if prefix:
+            logits = logits[:, prefix:, :]
+        lg = logits.float()
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = lg.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        nll = ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=self.device)
+        total = nll + 0.01 * aux
+        return total, {"nll": nll, "aux": aux}
+
+    # -------------------------------------------------------------- serving
+    def init_cache(self, batch_size: int, max_len: int,
+                   ring_mult: int = 1) -> DecodeCache:
+        cfg = self.config
+        dt = L.torch_dtype(cfg.dtype)
+        hd = cfg.resolved_head_dim
+        cap = _cache_capacity(cfg, max_len, ring_mult)
+        kv_k = kv_v = conv = ssm_st = None
+        pattern = cfg.block_pattern()
+        n_attn = sum(1 for b in pattern
+                     if b in (BLOCK_ATTN, BLOCK_SHARED_ATTN))
+        n_ssm = len(pattern) - n_attn
+
+        def zeros(shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if n_attn:
+            kv_k = zeros((n_attn, batch_size, cap, cfg.num_kv_heads, hd))
+            kv_v = torch.zeros_like(kv_k)
+        di = cfg.ssm_expand * cfg.d_model
+        if cfg.family == "ssm":
+            conv = zeros((n_ssm, batch_size, cfg.ssm_conv - 1, di))
+            ssm_st = zeros((n_ssm, batch_size, di, cfg.ssm_state),
+                           torch.float32)
+        elif cfg.family == "hybrid":
+            hd2 = S.MAMBA2_HEAD_DIM
+            conv = zeros((n_ssm, batch_size, cfg.ssm_conv - 1,
+                          di + 2 * cfg.ssm_state))
+            ssm_st = zeros((n_ssm, batch_size, di // hd2, hd2, cfg.ssm_state),
+                           torch.float32)
+        return DecodeCache(kv_k=kv_k, kv_v=kv_v, conv=conv, ssm=ssm_st,
+                           enc_out=None, length=0)
+
+    def prefill(self, batch, max_len: Optional[int] = None):
+        """Single-shot prefill: (logits of the last position (B, 1, V), a
+        cache holding the prompt, room for ``max_len`` positions)."""
+        cfg = self.config
+        b, s = batch["tokens"].shape
+        internal = s + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+        cache = self.init_cache(b, max(max_len or 0, internal + 1))
+        if cfg.family == "encdec":
+            enc_out, enc_pos = self._encode(batch["frontend"])
+            cache = cache._replace(enc_out=enc_out)
+            x, positions, prefix = self._embed_inputs(batch)
+            x, cache, _ = self._decoder_stack(
+                x, positions, caches=cache, cache_len=0,
+                enc_out=enc_out, enc_positions=enc_pos)
+        else:
+            x, positions, prefix = self._embed_inputs(batch)
+            x, cache, _ = self._decoder_stack(
+                x, positions, caches=cache, cache_len=0, prefix_len=prefix)
+        cache = cache._replace(length=x.shape[1])
+        return self._logits(x[:, -1:, :]), cache
+
+    def prefill_chunked(self, batch, seg_len: int = 4096,
+                        max_len: Optional[int] = None):
+        """Segmented prefill: the prompt is processed ``seg_len`` tokens at
+        a time against the growing KV cache, bounding attention logits and
+        MoE dispatch buffers to one segment.  SWA archs use a 2x-window ring
+        so every query's window is resident.  Not supported for vlm (prefix
+        handling) or encdec (cross-attn) — those use the single-shot path."""
+        cfg = self.config
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+            raise ValueError(f"prefill_chunked does not serve {cfg.family}")
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        b, s = tokens.shape
+        if s % seg_len:
+            raise ValueError(f"prompt length {s} is not a multiple of "
+                             f"seg_len {seg_len}")
+        if cfg.sliding_window > 0 and seg_len > cfg.sliding_window:
+            raise ValueError("segment must fit the window")
+        # SWA: a 2x-window ring keeps every in-segment query's window
+        # resident; others: full cache
+        cache = self.init_cache(b, max(max_len or 0, s + 1), ring_mult=2)
+        for s0 in range(0, s, seg_len):
+            x = self.embed[tokens[:, s0 : s0 + seg_len]]
+            positions = self._positions(b, seg_len, cache.length)
+            x, cache2, _ = self._decoder_stack(
+                x, positions, caches=cache, cache_len=cache.length,
+                attend_cache=True)
+            cache = cache2._replace(length=cache.length + seg_len)
+        return self._logits(x[:, -1:, :]), cache
+
+    def decode_step(self, cache: DecodeCache, tokens):
+        """tokens: (B, 1) — one decode step against the cache.  Returns
+        (logits (B, 1, V), a new cache); ``cache`` is left as it was."""
+        cfg = self.config
+        tokens = torch.as_tensor(tokens, device=self.device)
+        x = self.embed[tokens]
+        b, s, _ = x.shape
+        positions = self._positions(b, s, cache.length)
+        if cfg.family == "encdec":
+            enc_pos = self._positions(b, cache.enc_out.shape[1])
+            x, cache2, _ = self._decoder_stack(
+                x, positions, caches=cache, cache_len=cache.length,
+                enc_out=cache.enc_out, enc_positions=enc_pos)
+        else:
+            x, cache2, _ = self._decoder_stack(
+                x, positions, caches=cache, cache_len=cache.length)
+        cache2 = cache2._replace(length=cache.length + s,
+                                 enc_out=cache.enc_out)
+        return self._logits(x), cache2
+
+
+def build_model(cfg: ModelConfig, device="cuda",
+                generator: Optional[torch.Generator] = None, **kw) -> Model:
+    """The model of ``cfg`` on ``device`` (the card unless told otherwise),
+    its weights drawn from ``generator`` (seed 0 when None)."""
+    return Model(cfg, device=device, generator=generator, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Weights carried across from the reference
+# ---------------------------------------------------------------------------
+
+_STACKED = ("blocks", "enc_blocks")
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # numpy has no bf16: via f32, exact
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))     # a writable copy
+
+
+def params_from_reference(cfg: ModelConfig, params: Dict) -> Dict:
+    """A state dict for ``Model.load_state_dict`` from the reference's
+    ``model.init`` pytree (numpy arrays, nested dicts): the stacked layer
+    axis of ``blocks``, ``enc_blocks`` and ``cross_blocks`` is unstacked
+    into one entry per layer; ``shared_attn``, ``frontend_proj``, ``embed``,
+    ``unembed`` and ``ln_f`` keep their names.  ``cfg`` is the model's
+    config; ``load_state_dict`` (strict) checks every name and shape."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix, node, layer=None):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}.", v, layer)
+            elif layer is None:
+                out[f"{prefix}{k}"] = _tensor(v)
+            else:
+                for i in range(np.shape(v)[0]):
+                    out[f"{layer}.{i}.{prefix}{k}"] = _tensor(np.asarray(v)[i])
+
+    for k, v in params.items():
+        if k in _STACKED or k == "cross_blocks":
+            walk("", v, layer=k)
+        elif isinstance(v, dict):
+            walk(f"{k}.", v)
+        else:
+            out[k] = _tensor(v)
+    return out

@@ -1,0 +1,227 @@
+"""Selective state-space blocks — port of ``src/repro/models/ssm.py``:
+Mamba-1 (falcon-mamba) and Mamba-2 / SSD (zamba2).
+
+``selective_scan`` keeps the reference's chunking: the (chunk, di, ds) decay
+and input tensors are built one chunk at a time, so peak memory is
+O(chunk * di * ds), never O(S * di * ds).  Within a chunk the recurrence
+h_t = a_t * h_{t-1} + b_t runs step by step where the reference runs an
+associative scan; the two agree up to the reassociation of f32 products and
+sums.
+
+Decode (S=1) reuses the same cell with the carried state: the SSM's "KV
+cache" is the O(1) (conv_state, ssm_state) pair.  The reference's GSPMD
+hints are identity on one device and are left out.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import _dtype, normal, rms_norm
+
+Params = Dict[str, torch.Tensor]
+
+MAMBA2_HEAD_DIM = 64                 # zamba2's SSD head width, fixed
+
+
+def init_mamba(generator: torch.Generator,
+               cfg: ModelConfig) -> Tuple[Params, Dict]:
+    """Mamba-1 block parameters (falcon-mamba geometry)."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    ds = cfg.ssm_state
+    dt_rank = max(di // 16, 1)
+    conv = cfg.ssm_conv
+    dt = _dtype(cfg)
+    dev = generator.device
+    p = {
+        "in_proj": normal(generator, (d, 2 * di), d**-0.5, dt),
+        "conv_w": normal(generator, (conv, di), conv**-0.5, dt),
+        "x_proj": normal(generator, (di, dt_rank + 2 * ds), di**-0.5, dt),
+        "dt_proj": normal(generator, (dt_rank, di), dt_rank**-0.5, dt),
+        # the reference's own numpy draw, reproduced exactly
+        "dt_bias": torch.tensor(
+            np.log(np.expm1(np.random.default_rng(0).uniform(1e-3, 0.1, di))),
+            dtype=torch.float32, device=dev),
+        "a_log": torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                        device=dev).repeat(di, 1)),
+        "d_skip": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": normal(generator, (di, d), di**-0.5, dt),
+    }
+    s = {
+        "in_proj": ("embed", "mlp"),
+        "conv_w": (None, "mlp"),
+        "x_proj": ("mlp", None),
+        "dt_proj": (None, "mlp"),
+        "dt_bias": ("mlp",),
+        "a_log": ("mlp", None),
+        "d_skip": ("mlp",),
+        "out_proj": ("mlp", "embed"),
+    }
+    return p, s
+
+
+def selective_scan(
+    dt_: torch.Tensor,      # (B, S, di) input-dependent step sizes
+    a_mat: torch.Tensor,    # (di, ds) continuous-time decay (negative)
+    xi: torch.Tensor,       # (B, S, di) inputs
+    b_in: torch.Tensor,     # (B, S, ds) input gates
+    c_in: torch.Tensor,     # (B, S, ds) output gates
+    h0: torch.Tensor,       # (B, di, ds) initial state
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked selective scan: h_t = exp(dt_t a) h_{t-1} + (dt_t xi_t) b_t,
+    y_t = <h_t, c_t>.  The (chunk, di, ds) decay/input tensors are built one
+    chunk at a time (a chunk of S when S is not a multiple of ``chunk``).
+    Returns (y (B, S, di), h_last)."""
+    s = xi.shape[1]
+    if s % chunk != 0:
+        chunk = s
+    h = h0
+    ys = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        dtk, xik, bk, ck = dt_[:, sl], xi[:, sl], b_in[:, sl], c_in[:, sl]
+        a_bar = torch.exp(dtk[..., None] * a_mat[None, None])   # (B,c,di,ds)
+        b_bar = (dtk * xik)[..., None] * bk[:, :, None, :]
+        for t in range(a_bar.shape[1]):
+            h = a_bar[:, t] * h + b_bar[:, t]
+            ys.append((h * ck[:, t, None, :]).sum(-1))          # (B, di)
+    return torch.stack(ys, dim=1), h
+
+
+def _causal_conv(xs: torch.Tensor, conv_w: torch.Tensor, state, conv: int):
+    """Depthwise causal conv1d over (B, S, width) with the carried
+    (B, conv-1, width) inputs; returns (silu(conv), new conv state: the last
+    conv-1 padded inputs)."""
+    bsz, s, width = xs.shape
+    if state is not None:
+        pad = torch.cat([state.to(xs.dtype), xs], dim=1)
+    else:
+        pad = F.pad(xs, (0, 0, conv - 1, 0))
+    new_state = pad[:, pad.shape[1] - (conv - 1):, :] if conv > 1 else \
+        xs.new_zeros((bsz, 0, width))
+    xw = pad.unfold(1, conv, 1)                          # (B, S, width, conv)
+    return F.silu((xw * conv_w.T).sum(-1)), new_state
+
+
+def mamba(
+    p: Params,
+    x: torch.Tensor,                      # (B, S, d)
+    cfg: ModelConfig,
+    state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    chunk: int = 256,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Mamba-1 selective SSM. ``state = (conv_state (B, conv-1, di),
+    ssm_state (B, di, ds))`` enables stateful decode. Returns (y, new_state).
+    """
+    bsz, s, d = x.shape
+    di = cfg.ssm_expand * d
+    ds = cfg.ssm_state
+    dt_rank = max(di // 16, 1)
+
+    xz = x @ p["in_proj"]                               # (B, S, 2di)
+    xi, z = xz[..., :di], xz[..., di:]
+    xi, new_conv_state = _causal_conv(
+        xi, p["conv_w"], None if state is None else state[0], cfg.ssm_conv)
+
+    # input-dependent SSM parameters
+    proj = xi @ p["x_proj"]                             # (B, S, dt_rank+2ds)
+    dt_in = proj[..., :dt_rank]
+    b_in = proj[..., dt_rank : dt_rank + ds].float()
+    c_in = proj[..., dt_rank + ds :].float()
+    dt_ = F.softplus((dt_in @ p["dt_proj"]).float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])                          # (di, ds)
+    xf = xi.float()
+
+    h0 = (state[1].float() if state is not None
+          else torch.zeros((bsz, di, ds), dtype=torch.float32,
+                           device=x.device))
+    y, h_last = selective_scan(dt_, a, xf, b_in, c_in, h0, chunk)
+    y = y + xf * p["d_skip"]
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ p["out_proj"]
+    return out, (new_conv_state, h_last.float())
+
+
+def init_mamba2(generator: torch.Generator,
+                cfg: ModelConfig) -> Tuple[Params, Dict]:
+    """Mamba-2 (SSD) block: scalar decay per head; B/C shared across head dims
+    (geometry follows zamba2: d_inner = expand*d, head_dim 64)."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    ds = cfg.ssm_state
+    nh = di // MAMBA2_HEAD_DIM
+    conv = cfg.ssm_conv
+    dt = _dtype(cfg)
+    dev = generator.device
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    p = {
+        "in_proj": normal(generator, (d, 2 * di + 2 * ds + nh), d**-0.5, dt),
+        "conv_w": normal(generator, (conv, di + 2 * ds), conv**-0.5, dt),
+        "dt_bias": zeros(nh),
+        "a_log": zeros(nh),
+        "d_skip": torch.ones((nh,), dtype=torch.float32, device=dev),
+        "norm_w": zeros(di),
+        "out_proj": normal(generator, (di, d), di**-0.5, dt),
+    }
+    s = {
+        "in_proj": ("embed", "mlp"),
+        "conv_w": (None, "mlp"),
+        "dt_bias": (None,),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "norm_w": ("mlp",),
+        "out_proj": ("mlp", "embed"),
+    }
+    return p, s
+
+
+def mamba2(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    chunk: int = 256,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Mamba-2 / SSD with scalar per-head decay. State:
+    (conv_state (B, conv-1, di+2ds), ssm_state (B, nh, hd, ds))."""
+    bsz, s, d = x.shape
+    di = cfg.ssm_expand * d
+    ds = cfg.ssm_state
+    hd = MAMBA2_HEAD_DIM
+    nh = di // hd
+
+    zxbcdt = x @ p["in_proj"]
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di : di + di + 2 * ds]
+    dt_in = zxbcdt[..., zxbcdt.shape[-1] - nh:]
+    xbc, new_conv_state = _causal_conv(
+        xbc, p["conv_w"], None if state is None else state[0], cfg.ssm_conv)
+
+    xif = xbc[..., :di].float()                             # (B, S, di)
+    b_in = xbc[..., di : di + ds].float()                   # (B, S, ds)
+    c_in = xbc[..., di + ds :].float()                      # (B, S, ds)
+    dt_h = F.softplus(dt_in.float() + p["dt_bias"])         # (B, S, nh)
+    # scalar per-head decay repeated over the head's channels for the
+    # shared scan
+    dt_ = dt_h.repeat_interleave(hd, dim=-1)                # (B, S, di)
+    a_mat = (-torch.exp(p["a_log"])).repeat_interleave(hd)[:, None] \
+        * torch.ones((1, ds), dtype=torch.float32, device=x.device)
+    h0 = (state[1].float() if state is not None
+          else torch.zeros((bsz, nh, hd, ds), dtype=torch.float32,
+                           device=x.device))
+    y, h_last = selective_scan(dt_, a_mat, xif, b_in, c_in,
+                               h0.reshape(bsz, di, ds), chunk)
+    y = y + xif * p["d_skip"].repeat_interleave(hd)
+    y = y.to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    return out, (new_conv_state, h_last.reshape(bsz, nh, hd, ds).float())

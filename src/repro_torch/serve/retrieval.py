@@ -5,7 +5,8 @@
 output), builds the Proxima index over it on ``device`` and answers kNN
 queries with ``core.search.graph_search``, in the corpus's original ids
 (``reordering.inv`` undoes the hot-node renumbering).  The device corpus is
-made once and kept.
+made once and kept.  ``stage_times``, if given, receives the build's
+seconds by stage, as ``build_index``'s does.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ class EmbeddingRetriever:
         hot_fraction: float = 0.03,
         search: Optional[SearchConfig] = None,
         device="cuda",
+        stage_times: Optional[dict] = None,
     ):
         n, d = embeddings.shape
         m = pq_subvectors or max(
@@ -59,7 +61,8 @@ class EmbeddingRetriever:
         )
         self.index: ProximaIndex = build_index(cfg, dataset=ds,
                                                reorder_samples=64,
-                                               device=device)
+                                               device=device,
+                                               stage_times=stage_times)
         self._corpus = None
 
     def query(self, q: np.ndarray, k: int = 10):

@@ -1,6 +1,6 @@
 """Shared helpers of the port's tests: carry a reference index (a
-reference tiled corpus, a sharded corpus) across, and a one-rank process
-group for the distributed path."""
+reference tiled corpus, a sharded corpus, a model's weights) across, and a
+one-rank process group for the distributed path."""
 import contextlib
 import dataclasses
 
@@ -69,3 +69,14 @@ def port_sharded(ref_index, shard=None, base=None):
         idx.dataset.base if base is None else base, idx.codebook.centroids,
         int(idx.graph.entry_point), idx.hot_count, 1, shard=shard,
         device="cpu")
+
+
+def port_model(cfg, ref_params, device="cpu", **kw):
+    """The port's Model of ``cfg`` holding the reference's ``model.init``
+    weights (a pytree of numpy or jax arrays), carried across by
+    ``params_from_reference``; ``kw`` are the Model's fields."""
+    from repro_torch.models.model import build_model, params_from_reference
+
+    model = build_model(cfg, device=device, **kw)
+    model.load_state_dict(params_from_reference(cfg, ref_params))
+    return model
