@@ -153,6 +153,33 @@ not printed):
    launches.  Fails on any disagreement, below recall@10 0.5, or if a
    kernel never launched on the retrieval; the models are freed before
    the kernel phase.
+   Train phase (``repro_torch.train``, ``ckpt``, ``distributed``,
+   ``launch/train.py``; ``train_phase``), after the models are freed: (a)
+   one ``make_train_step`` step (2 microbatches) of each architecture's
+   smoke config in f32 (TF32 off), one set of weights and one step-seeded
+   batch on the card and on the CPU: the loss within 1e-5 relative, each
+   leaf's gradient within 1e-4 of its largest |g| (SSM and hybrid 1e-3).
+   (b) StableLM-1.6B at its published width and depth
+   (hf:stabilityai/stablelm-2-1_6b: 24 layers, d 2048, 32 heads, d_ff
+   5,632, vocab 100,352; bf16 weights from seed 0, f32 moments) through
+   the launcher's path (``launch.train.train``): AdamW(lr=1e-3, warmup 5,
+   20 steps), 2 microbatches, ``DataConfig(seq_len=4097, global_batch=4,
+   copy_period=16)`` (train_4k's sequence; its global batch of 256 cut to 4
+   for time), 20 steps: step ms (median of steps 3-20), tokens a second,
+   model TFLOP/s (6 N T plus attention over full 4,096 blocks) and their
+   share of 989, peak memory, loss and grad-norm each step.  Fails on a
+   non-finite loss or unless the mean of the last 5 losses is >= 0.3 below
+   the first.  (c) ``FaultTolerantLoop`` over ``custom_dense_config(100)``
+   (d 704, 11 layers), checkpoints every 5 steps (async) under
+   ``chiprun_out/train_ckpt`` (removed after), a NaN written into ``ln_f``
+   before step 7: fails unless the run ends at step 15 with exactly one
+   restart, ``restore_checkpoint`` of the last checkpoint equals the live
+   state bit for bit, and 5 steps replayed from the checkpoint at step 10
+   give the loop's losses within 1e-3 relative (not bit for bit: the
+   embedding's backward adds with atomics on the card).  (d)
+   ``elastic_restore`` of that checkpoint onto a one-card ``DeviceMesh``
+   (NCCL, world size 1): DTensors placed by the resolved specs whose full
+   tensors equal the live state (a checkpoint of its parameters).
    Every kernel must launch on each path (launches zeroed before each).
 3. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
    M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
@@ -2842,6 +2869,312 @@ def model_failures(rec: dict) -> list:
     return fails
 
 
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_STEPS = 20                 # AdamW warmup max(20 // 20, 5) = 5
+TRAIN_SEQ = 4097                 # train_4k's 4,096 tokens, + 1 for the labels
+TRAIN_BATCH = 4                  # train_4k's global batch of 256, cut for time
+TRAIN_MICROBATCHES = 2
+TRAIN_LOSS_DROP = 0.3            # tests/test_train_ckpt_fault.py's margin
+BF16_PEAK_FLOPS = 989e12         # H100 SXM dense bf16 (NVIDIA data sheet)
+FAULT_PARAMS_M = 100             # custom_dense_config(100): d 704, 11 layers
+FAULT_STEPS = 15
+FAULT_EVERY = 5
+FAULT_AT = 7                     # the step whose forward meets a NaN
+FAULT_REPLAY_FROM = 10
+FAULT_REPLAY_RTOL = 1e-3
+
+
+def _tree_close(got: dict, want: dict, tol: float) -> tuple:
+    """(every leaf within ``tol`` of its largest |want|, the worst such
+    ratio) over two dicts of tensors with the same keys."""
+    worst = 0.0
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        worst = max(worst, float((got[k].cpu() - w).abs().max()) / scale)
+    return worst <= tol, worst
+
+
+def train_zoo(torch, dev, seed: int, log) -> dict:
+    """Each architecture's smoke config in f32 (TF32 off): one set of
+    weights and one batch, one ``make_train_step`` step with 2 microbatches
+    on the card and on the CPU; the losses and the gradients the optimizer
+    is handed."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.data import DataConfig, batch_for_step
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW
+
+    class Spy(AdamW):
+        def apply(self, grads, state, params):
+            self.seen.update(grads)
+            return super().apply(grads, state, params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        kw = dict(q_chunk=64, ssm_chunk=8)
+        cpu = build_model(cfg, device="cpu", generator=torch.Generator(
+            ).manual_seed(seed), **kw)
+        card = build_model(cfg, device=dev, **kw)
+        card.load_state_dict(cpu.state_dict())
+        batch = batch_for_step(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=17, global_batch=4,
+            copy_period=4, family=cfg.family,
+            frontend_tokens=cfg.frontend_tokens,
+            frontend_dim=cfg.frontend_dim, seed=seed), 0)
+        got = {}
+        for side, model in (("card", card), ("cpu", cpu)):
+            opt = Spy(lr=1e-3, warmup_steps=5, total_steps=20)
+            object.__setattr__(opt, "seen", {})
+            state, _ = init_train_state(model, opt)
+            ts, _ = make_train_step(model, opt, microbatches=2)
+            _, m = ts(state, batch)
+            got[side] = (float(m["loss"]), opt.seen)
+        tol = 1e-3 if cfg.family in ("ssm", "hybrid") else 1e-4
+        ok, worst = _tree_close(got["card"][1], got["cpu"][1], tol)
+        lerr = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+        out[arch] = {"loss_rel_err": lerr, "grad_err_of_max": worst,
+                     "grad_tol": tol, "ok": ok and lerr <= 1e-5}
+        del cpu, card
+    errs = {k: [v["loss_rel_err"], v["grad_err_of_max"]]
+            for k, v in out.items()}
+    log(f"train step, card vs CPU (f32, TF32 off, 2 microbatches): loss "
+        f"rel err / worst gradient err of its leaf's max |g| "
+        f"{json.dumps(errs)}; all within: "
+        f"{all(v['ok'] for v in out.values())}")
+    return out
+
+
+def train_full(torch, dev, log) -> dict:
+    """StableLM-1.6B at full width through ``launch.train.train``: the
+    launcher's model, optimizer, data and step, TRAIN_STEPS steps timed
+    from one step's metrics (host floats, so the card has finished) to the
+    next's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+
+    cfg = get_config(TRAIN_ARCH)
+    marks, steps = [], []
+
+    def on_metrics(step, m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        steps.append(dict(m, step=step))
+        log(f"  {cfg.name} step {step:2d} loss {m['loss']:.4f} "
+            f"grad_norm {m['grad_norm']:.4f} lr {m['lr']:.3e}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state, _ = launcher.train(
+        cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+        microbatches=TRAIN_MICROBATCHES, lr=1e-3, device=dev,
+        on_metrics=on_metrics)
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in state.params.values())
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    s = TRAIN_SEQ - 1
+    attn = 12 * cfg.num_layers * s * s * cfg.d_model * TRAIN_BATCH
+    flops = 6 * n * tokens + attn
+    step_s = [b - a for a, b in zip(marks, marks[1:])]     # steps 2-20
+    med = _median(step_s[1:])                              # steps 3-20
+    losses = [x["loss"] for x in steps]
+    rec = {"config": cfg.name, "params": n,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in state.params.values()),
+           "steps": steps, "step_ms": [t * 1e3 for t in step_s],
+           "first_step_s": marks[0] - t0, "step_ms_median": med * 1e3,
+           "tokens_per_step": tokens, "tokens_per_s": tokens / med,
+           "model_flops_per_step": flops, "attention_flops_per_step": attn,
+           "model_tflops_per_s": flops / med / 1e12,
+           "mfu_of_989": flops / med / BF16_PEAK_FLOPS,
+           "peak_bytes": peak, "losses": losses,
+           "finite": all(math.isfinite(x) for x in losses),
+           "last5_mean": sum(losses[-5:]) / 5}
+    rec["drop"] = losses[0] - rec["last5_mean"]
+    del model, state
+    torch.cuda.empty_cache()
+    log(f"{cfg.name} trained ({n:,} parameters, {rec['param_bytes']:,} "
+        f"bytes bf16; {TRAIN_BATCH} x {TRAIN_SEQ - 1} tokens a step, "
+        f"{TRAIN_MICROBATCHES} microbatches, remat per block): "
+        f"step_ms_median={rec['step_ms_median']:.1f} (steps 3-20) "
+        f"tokens_per_s={rec['tokens_per_s']:.0f} "
+        f"model_TFLOP_per_step={flops / 1e12:.2f} "
+        f"(attention {attn / 1e12:.2f}) "
+        f"model_TFLOP_per_s={rec['model_tflops_per_s']:.1f} "
+        f"mfu_of_989={rec['mfu_of_989']:.4f} peak_bytes={peak:,} "
+        f"first_step_s={rec['first_step_s']:.1f}; loss {losses[0]:.4f} -> "
+        f"mean of the last 5 {rec['last5_mean']:.4f} "
+        f"(drop {rec['drop']:.4f}, >= {TRAIN_LOSS_DROP} asked)")
+    return rec
+
+
+def train_fault(torch, dev, repo, out_dir, log) -> dict:
+    """``FaultTolerantLoop`` over ``custom_dense_config(FAULT_PARAMS_M)``
+    with a NaN in ``ln_f`` before step FAULT_AT's forward, checkpoints every
+    FAULT_EVERY steps; the last checkpoint restored against the live state,
+    steps replayed from an earlier one, and an ``elastic_restore`` onto a
+    one-card mesh."""
+    import datetime
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.distributed import sharding as shard_lib
+    from repro_torch.distributed.fault import (
+        FaultConfig, FaultTolerantLoop, elastic_restore)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import custom_dense_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.data import (
+        DataConfig, batch_for_step, device_put_batch)
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = custom_dense_config(FAULT_PARAMS_M)
+    ckpt_dir = repo / "chiprun_out" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    model = build_model(cfg, device=dev, q_chunk=128)
+    opt = AdamW(lr=1e-3, warmup_steps=5, total_steps=FAULT_STEPS)
+    state, specs = init_train_state(model, opt)
+    ts, _ = make_train_step(model, opt)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=129, global_batch=8,
+                      copy_period=16)
+    injected, losses = [], {}
+
+    def step_fn(st, step):
+        if step == FAULT_AT and not injected:
+            injected.append(step)
+            with torch.no_grad():
+                st.params["ln_f"][0] = float("nan")
+        st, m = ts(st, device_put_batch(batch_for_step(dcfg, step), dev))
+        return st, {k: float(v) for k, v in m.items()}
+
+    def on_metrics(step, m):
+        losses[step - 1] = m["loss"]
+
+    rec = {"config": cfg.name, "params": cfg.param_count()}
+    try:
+        t0 = time.perf_counter()
+        loop = FaultTolerantLoop(step_fn, state, FaultConfig(
+            ckpt_dir=str(ckpt_dir), ckpt_every=FAULT_EVERY))
+        loop.run(FAULT_STEPS, on_metrics=on_metrics)
+        torch.cuda.synchronize()
+        rec.update(run_s=time.perf_counter() - t0, restarts=loop.restarts,
+                   final_step=loop.step, losses=losses,
+                   ckpt_bytes=sum(f.stat().st_size for f in
+                                  (ckpt_dir / f"step_{loop.step:08d}")
+                                  .iterdir()))
+        t0 = time.perf_counter()
+        restored, step, _ = ck.restore_checkpoint(str(ckpt_dir), loop.state,
+                                                  validate_digests=True)
+        rec["restore_s"] = time.perf_counter() - t0
+        live = [*loop.state.params.items(), *loop.state.opt.mu.items(),
+                *loop.state.opt.nu.items()]
+        back = [*restored.params.values(), *restored.opt.mu.values(),
+                *restored.opt.nu.values()]
+        rec["restore_step"] = step
+        rec["restore_bit_equal"] = bool(
+            all(torch.equal(a, b) for (_, a), b in zip(live, back))
+            and torch.equal(loop.state.opt.step, restored.opt.step))
+        # replay from an earlier checkpoint
+        st, _, _ = ck.restore_checkpoint(str(ckpt_dir), loop.state,
+                                         step=FAULT_REPLAY_FROM)
+        replay = {}
+        for k in range(FAULT_REPLAY_FROM, FAULT_STEPS):
+            st, m = step_fn(st, k)
+            replay[k] = m["loss"]
+        del st
+        rec["replay_losses"] = replay
+        rec["replay_max_rel_err"] = max(abs(replay[k] - losses[k])
+                                        / abs(losses[k]) for k in replay)
+        # elastic restore onto a one-card mesh
+        (out_dir / "store_train").unlink(missing_ok=True)
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.FileStore(str(out_dir / "store_train"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"),
+                             device_type=dev.type)
+            ck.save_checkpoint(str(ckpt_dir / "params"), loop.step,
+                               loop.state.params)
+            el, el_step, _ = elastic_restore(str(ckpt_dir / "params"),
+                                             loop.state.params, mesh, specs)
+            sh = shard_lib.param_shardings(specs, loop.state.params, mesh)
+            rec["elastic"] = {
+                "step": el_step,
+                "all_dtensor": all(isinstance(t, DTensor)
+                                   for t in el.values()),
+                "placements_follow_specs": all(
+                    tuple(el[k].placements) == sh[k].placements()
+                    for k in sh),
+                "full_equal": all(
+                    torch.equal(el[k].full_tensor(), v)
+                    for k, v in loop.state.params.items())}
+            del el
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del model, state, loop, restored
+    torch.cuda.empty_cache()
+    log(f"fault-tolerant loop ({cfg.name}, {rec['params']:,} parameters, "
+        f"checkpoints of {rec['ckpt_bytes']:,} bytes every {FAULT_EVERY} "
+        f"steps, async; NaN before step {FAULT_AT}): {FAULT_STEPS} steps in "
+        f"{rec['run_s']:.1f} s, final step {rec['final_step']}, restarts "
+        f"{rec['restarts']}; restore of step {rec['restore_step']} in "
+        f"{rec['restore_s']:.2f} s bit-equal to the live state: "
+        f"{rec['restore_bit_equal']}; {len(rec['replay_losses'])} steps "
+        f"replayed from step {FAULT_REPLAY_FROM}: max loss rel err "
+        f"{rec['replay_max_rel_err']:.3g} (bound {FAULT_REPLAY_RTOL}); "
+        f"elastic restore onto a 1x1 mesh: {json.dumps(rec['elastic'])}")
+    return rec
+
+
+def train_phase(torch, dev, repo, out_dir, seed: int, log) -> dict:
+    """The training half on the card: ``train_zoo``, ``train_full`` and
+    ``train_fault``."""
+    rec = {"zoo": train_zoo(torch, dev, seed, log)}
+    rec["full"] = train_full(torch, dev, log)
+    rec["fault"] = train_fault(torch, dev, repo, out_dir, log)
+    return rec
+
+
+def train_failures(rec: dict) -> list:
+    fails = [f"train step {k}: card vs CPU loss rel err "
+             f"{v['loss_rel_err']:.3g} / gradient err "
+             f"{v['grad_err_of_max']:.3g} of max |g| beyond 1e-5 / "
+             f"{v['grad_tol']}" for k, v in rec["zoo"].items()
+             if not v["ok"]]
+    full = rec["full"]
+    if not full["finite"]:
+        fails.append(f"{full['config']}: a loss is not finite")
+    if not full["drop"] >= TRAIN_LOSS_DROP:
+        fails.append(f"{full['config']}: the mean of the last 5 losses is "
+                     f"{full['drop']:.4f} below the first, not "
+                     f">= {TRAIN_LOSS_DROP}")
+    f = rec["fault"]
+    if f["restarts"] != 1 or f["final_step"] != FAULT_STEPS:
+        fails.append(f"fault loop: {f['restarts']} restarts, final step "
+                     f"{f['final_step']} (1 and {FAULT_STEPS} expected)")
+    if not f["restore_bit_equal"] or f["restore_step"] != FAULT_STEPS:
+        fails.append(f"fault loop: checkpoint of step {f['restore_step']} "
+                     f"differs from the live state")
+    if not f["replay_max_rel_err"] <= FAULT_REPLAY_RTOL:
+        fails.append(f"fault loop: replayed losses "
+                     f"{f['replay_max_rel_err']:.3g} from the loop's")
+    el = f["elastic"]
+    if not (el["all_dtensor"] and el["placements_follow_specs"]
+            and el["full_equal"] and el["step"] == FAULT_STEPS):
+        fails.append(f"elastic restore onto a 1x1 mesh: {json.dumps(el)}")
+    return fails
+
+
 def cross_device(torch, idx, gpu_ids, n: int = 64) -> float:
     """Share of the first n queries whose top-10 ids on the CPU (plain
     versions) equal the card's."""
@@ -3153,6 +3486,8 @@ def main(argv=None) -> int:
     models, retr_inputs = model_phase(torch, dev, get_config(SERVE_ARCH),
                                       args.seed, log)
     mark("models")
+    trained = train_phase(torch, dev, repo, out_dir, args.seed, log)
+    mark("train")
 
     scan_pass = int(store.mask(_specs()["range_price_0_9"]).sum())
     kernels = kernel_phase(torch, dev, args.num_base, res["rerank_density"],
@@ -3212,7 +3547,7 @@ def main(argv=None) -> int:
     detail.update(card=card, kernels=kernels, main=res, continuous=cont,
                   filtered=filt, tiled=tiled, ivf=ivf, segmented=segmented,
                   observability=observed, streaming=streamed,
-                  distributed=distributed, models=models)
+                  distributed=distributed, models=models, train=trained)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     failures = []
@@ -3290,6 +3625,7 @@ def main(argv=None) -> int:
     failures.extend(stream_failures(streamed))
     failures.extend(distributed_failures(distributed))
     failures.extend(model_failures(models))
+    failures.extend(train_failures(trained))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -18,9 +18,18 @@ Families: dense | moe | vlm (prefix-LM over stub patch embeddings) | ssm
 
 The serving path is functional, as the reference's is: ``prefill``,
 ``prefill_chunked`` and ``decode_step`` return a new ``DecodeCache`` and
-never write the caller's tensors.  ``DecodeCache.length`` is a host int (the
-reference keeps a device scalar): positions and cache slots are computed on
-the host, with no device read a step.
+never write the caller's tensors, and run under ``torch.no_grad()``: they
+build no autograd graph, whether or not the weights require gradients.
+``DecodeCache.length`` is a host int (the reference keeps a device scalar):
+positions and cache slots are computed on the host, with no device read a
+step.
+
+Training (``repro_torch.train``): ``loss`` is also the module's ``forward``,
+so ``torch.func.functional_call(model, params, (batch,))`` takes the loss of
+any state dict; with ``remat="block"`` each block runs under
+``torch.utils.checkpoint`` whenever autograd records through it.
+``params_to_reference`` re-stacks a state dict into the reference's
+pytree.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (
     BLOCK_ATTN,
@@ -77,8 +87,8 @@ def _init_block(generator: torch.Generator, cfg: ModelConfig, kind: str):
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: tensors become parameters under
     their keys, dicts become sub-trees.  ``tree()`` hands the dict back for
-    the functional layers.  Parameters are created without gradients (the
-    serving path takes none)."""
+    the functional layers.  Parameters are created with ``requires_grad``
+    off; ``train.loop.init_train_state`` turns it on."""
 
     def __init__(self, tree: Dict):
         super().__init__()
@@ -139,16 +149,18 @@ def _stack(ts):
 class Model(nn.Module):
     """One architecture with its weights.  The fields are the reference's:
 
-    * ``remat`` — the reference's per-block rematerialisation; it changes
-      nothing here: ``torch.utils.checkpoint`` matters only under autograd,
-      which the serving path does not run (the training slice).
+    * ``remat`` — "block" runs each block (attention, mamba, the hybrid's
+      shared block, the encoder's) under ``torch.utils.checkpoint`` when
+      autograd records through it, so its activations are recomputed in the
+      backward: the reference's ``jax.checkpoint`` with
+      ``nothing_saveable``.  The gradients are bit-equal to "none"'s.
     * ``q_chunk`` — attention runs over query blocks of this many rows when
       the sequence is a multiple of it.
     * ``ssm_chunk`` — the selective scan's chunk.
     * ``moe_capacity`` — the MoE capacity factor.
     * ``moe_dispatch_hint``, ``seq_parallel`` — GSPMD sharding hints in the
-      reference; identity on one device (the sharding is ported with
-      training).
+      reference; they change nothing here (``distributed.sharding`` resolves
+      the specs, the step is data-parallel with replicated weights).
     """
 
     def __init__(self, config: ModelConfig, remat: str = "block",
@@ -284,6 +296,18 @@ class Model(nn.Module):
         o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
         return x + o.reshape(b, s, nq * hd) @ cp["attn"]["wo"]
 
+    def _remat(self, fn, x):
+        """``fn(x)``; under ``torch.utils.checkpoint`` when ``remat`` is
+        "block" and autograd records through the block's input (the
+        reference's ``_maybe_remat``).  ``fn`` closes over the block's
+        weights, taken from the module when the forward runs, so a recompute
+        in the backward reads the tensors the forward read (also under
+        ``functional_call``)."""
+        if (self.remat == "block" and torch.is_grad_enabled()
+                and x.requires_grad):
+            return checkpoint(fn, x, use_reentrant=False)
+        return fn(x)
+
     def _decoder_stack(self, x, positions, caches=None, cache_len=None,
                        prefix_len=0, enc_out=None, enc_positions=None,
                        attend_cache=False):
@@ -297,12 +321,18 @@ class Model(nn.Module):
             for i, blk in enumerate(self.blocks):
                 kv = None if caches is None else (caches.kv_k[i],
                                                   caches.kv_v[i])
-                x, new_kv, a = self._attn_block(
-                    blk.tree(), x, positions, kv, cache_len, prefix_len,
-                    attend_cache=attend_cache)
-                if fam == "encdec":
-                    x = self._cross_block(self.cross_blocks[i].tree(), x,
-                                          enc_out, enc_positions)
+                cp = (self.cross_blocks[i].tree() if fam == "encdec"
+                      else None)
+
+                def block(x, bp=blk.tree(), cp=cp, kv=kv):
+                    x, new_kv, a = self._attn_block(
+                        bp, x, positions, kv, cache_len, prefix_len,
+                        attend_cache=attend_cache)
+                    if cp is not None:
+                        x = self._cross_block(cp, x, enc_out, enc_positions)
+                    return x, new_kv, a
+
+                x, new_kv, a = self._remat(block, x)
                 aux = aux + a
                 if new_kv is not None:
                     new_k.append(new_kv[0])
@@ -318,8 +348,11 @@ class Model(nn.Module):
             for i, blk in enumerate(self.blocks):
                 st = None if caches is None else (caches.conv[i],
                                                   caches.ssm[i])
-                x, (cv, ss) = self._mamba_block(blk.tree(), x, st,
-                                                BLOCK_MAMBA1)
+
+                def block(x, bp=blk.tree(), st=st):
+                    return self._mamba_block(bp, x, st, BLOCK_MAMBA1)
+
+                x, (cv, ss) = self._remat(block, x)
                 new_conv.append(cv)
                 new_ssm.append(ss)
             new_caches = None
@@ -351,8 +384,11 @@ class Model(nn.Module):
             for i in range(start, start + count):
                 st = None if caches is None else (caches.conv[i],
                                                   caches.ssm[i])
-                x, (cv, ss) = self._mamba_block(self.blocks[i].tree(), x, st,
-                                                BLOCK_MAMBA2)
+
+                def block(x, bp=self.blocks[i].tree(), st=st):
+                    return self._mamba_block(bp, x, st, BLOCK_MAMBA2)
+
+                x, (cv, ss) = self._remat(block, x)
                 new_conv.append(cv)
                 new_ssm.append(ss)
             return x
@@ -363,9 +399,12 @@ class Model(nn.Module):
             mi += m_per_group
             kv = None if caches is None else (caches.kv_k[gi],
                                               caches.kv_v[gi])
-            x, new_kv, _ = self._attn_block(shared, x, positions, kv,
-                                            cache_len,
-                                            attend_cache=attend_cache)
+
+            def block(x, kv=kv):
+                return self._attn_block(shared, x, positions, kv, cache_len,
+                                        attend_cache=attend_cache)
+
+            x, new_kv, _ = self._remat(block, x)
             if new_kv is not None:
                 new_k.append(new_kv[0])
                 new_v.append(new_kv[1])
@@ -389,7 +428,10 @@ class Model(nn.Module):
         b, s, _ = x.shape
         positions = self._positions(b, s)
         for blk in self.enc_blocks:
-            x, _, _ = self._attn_block(blk.tree(), x, positions, prefix_len=s)
+            def block(x, bp=blk.tree()):
+                return self._attn_block(bp, x, positions, prefix_len=s)[0]
+
+            x = self._remat(block, x)
         return x, positions
 
     def _embed_inputs(self, batch):
@@ -419,9 +461,9 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ the loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The training loss as a forward pass (no gradients are taken on
-        the serving path): mean next-token NLL over labels >= 0, plus
-        0.01 x the MoE aux loss."""
+        """The training loss: mean next-token NLL over labels >= 0, plus
+        0.01 x the MoE aux loss.  Autograd records it when gradients are
+        on and the weights require them (``train.loop``)."""
         cfg = self.config
         if cfg.family == "encdec":
             enc_out, enc_pos = self._encode(batch["frontend"])
@@ -432,7 +474,7 @@ class Model(nn.Module):
             x, positions, prefix = self._embed_inputs(batch)
             x, _, aux = self._decoder_stack(x, positions, prefix_len=prefix)
         logits = self._logits(x)
-        labels = torch.as_tensor(batch["labels"], device=self.device)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
         if prefix:
             logits = logits[:, prefix:, :]
         lg = logits.float()
@@ -443,6 +485,10 @@ class Model(nn.Module):
         aux = torch.as_tensor(aux, dtype=torch.float32, device=self.device)
         total = nll + 0.01 * aux
         return total, {"nll": nll, "aux": aux}
+
+    def forward(self, batch):
+        """``loss``: what ``torch.func.functional_call`` runs."""
+        return self.loss(batch)
 
     # -------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, max_len: int,
@@ -477,6 +523,7 @@ class Model(nn.Module):
         return DecodeCache(kv_k=kv_k, kv_v=kv_v, conv=conv, ssm=ssm_st,
                            enc_out=None, length=0)
 
+    @torch.no_grad()
     def prefill(self, batch, max_len: Optional[int] = None):
         """Single-shot prefill: (logits of the last position (B, 1, V), a
         cache holding the prompt, room for ``max_len`` positions)."""
@@ -498,6 +545,7 @@ class Model(nn.Module):
         cache = cache._replace(length=x.shape[1])
         return self._logits(x[:, -1:, :]), cache
 
+    @torch.no_grad()
     def prefill_chunked(self, batch, seg_len: int = 4096,
                         max_len: Optional[int] = None):
         """Segmented prefill: the prompt is processed ``seg_len`` tokens at
@@ -527,6 +575,7 @@ class Model(nn.Module):
             cache = cache2._replace(length=cache.length + seg_len)
         return self._logits(x[:, -1:, :]), cache
 
+    @torch.no_grad()
     def decode_step(self, cache: DecodeCache, tokens):
         """tokens: (B, 1) — one decode step against the cache.  Returns
         (logits (B, 1, V), a new cache); ``cache`` is left as it was."""
@@ -559,7 +608,7 @@ def build_model(cfg: ModelConfig, device="cuda",
 # Weights carried across from the reference
 # ---------------------------------------------------------------------------
 
-_STACKED = ("blocks", "enc_blocks")
+_LAYERED = ("blocks", "enc_blocks", "cross_blocks")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -590,10 +639,57 @@ def params_from_reference(cfg: ModelConfig, params: Dict) -> Dict:
                     out[f"{layer}.{i}.{prefix}{k}"] = _tensor(np.asarray(v)[i])
 
     for k, v in params.items():
-        if k in _STACKED or k == "cross_blocks":
+        if k in _LAYERED:
             walk("", v, layer=k)
         elif isinstance(v, dict):
             walk(f"{k}.", v)
         else:
             out[k] = _tensor(v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# ... and back: the reference's stacked pytree
+# ---------------------------------------------------------------------------
+
+def reference_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """(the reference's pytree path, the layer) of a state-dict name:
+    ``blocks.3.attn.wq`` -> (("blocks", "attn", "wq"), 3), ``embed`` ->
+    (("embed",), None)."""
+    parts = name.split(".")
+    if parts[0] in _LAYERED and len(parts) > 2 and parts[1].isdigit():
+        return (parts[0], *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def stack_layers(params: Dict[str, torch.Tensor]) -> Dict:
+    """The reference's pytree of a state dict (nested dicts; the layers of
+    ``blocks``, ``enc_blocks`` and ``cross_blocks`` stacked on a leading
+    axis), as detached tensors on the parameters' device, dtypes kept."""
+    groups: Dict[Tuple[str, ...], Dict[Optional[int], torch.Tensor]] = {}
+    for name, t in params.items():
+        path, layer = reference_path(name)
+        groups.setdefault(path, {})[layer] = t.detach()
+    out: Dict = {}
+    for path, layers in groups.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = (layers[None] if None in layers else
+                          torch.stack([layers[i] for i in range(len(layers))]))
+    return out
+
+
+def params_to_reference(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of ``params_from_reference``: the reference's pytree of a
+    state dict (``stack_layers``) as numpy arrays on the host.  numpy has no
+    bfloat16, so a bf16 leaf comes back as its exact f32 values."""
+    def leaf(t):
+        t = t.cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else leaf(v)
+                for k, v in node.items()}
+
+    return walk(stack_layers(params))

@@ -971,3 +971,80 @@ def test_cuda_distributed_gloo_ranks_on_one_card(cuda, tmp_path):
         for mode in ("nsp", "fetch"):
             np.testing.assert_array_equal(out[mode], want,
                                           err_msg=f"rank {r} {mode}")
+
+
+# ---- the training half ------------------------------------------------------
+
+def _train_step_grads(model, batch):
+    """(loss, the gradients the optimizer is handed) of one
+    ``make_train_step`` step with 2 microbatches."""
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW
+
+    seen = {}
+
+    class Spy(AdamW):
+        def apply(self, grads, state, params):
+            seen.update(grads)
+            return super().apply(grads, state, params)
+
+    opt = Spy(lr=1e-3, warmup_steps=5, total_steps=20)
+    state, _ = init_train_state(model, opt)
+    _, m = make_train_step(model, opt, microbatches=2)[0](state, batch)
+    return float(m["loss"]), seen
+
+
+def test_cuda_train_step_matches_cpu(cuda):
+    """stablelm-1.6b's smoke config in f32 (TF32 off): the card's step
+    against the CPU's on the same weights and batch, the loss within 1e-5
+    relative and each gradient within 1e-4 of its leaf's largest |g|."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.data import DataConfig, batch_for_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("stablelm-1.6b"),
+                              dtype="float32")
+    cpu = build_model(cfg, device="cpu", q_chunk=64)
+    card = build_model(cfg, device=cuda, q_chunk=64)
+    card.load_state_dict(cpu.state_dict())
+    batch = batch_for_step(DataConfig(vocab_size=cfg.vocab_size, seq_len=33,
+                                      global_batch=4, copy_period=8), 0)
+    l_card, g_card = _train_step_grads(card, batch)
+    l_cpu, g_cpu = _train_step_grads(cpu, batch)
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k, g in g_cpu.items():
+        assert g_card[k].is_cuda
+        torch.testing.assert_close(g_card[k].cpu(), g, rtol=1e-4,
+                                   atol=1e-4 * float(g.abs().max()))
+
+
+def test_cuda_checkpoint_roundtrip(cuda, tmp_path):
+    """A train state on the card saved asynchronously (host copies made
+    before the next step writes the parameters in place) and restored onto
+    the card bit for bit."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.data import DataConfig, batch_for_step
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = get_smoke_config("stablelm-1.6b")
+    model = build_model(cfg, device=cuda, q_chunk=64)
+    opt = AdamW(lr=1e-3, warmup_steps=5, total_steps=20)
+    state, _ = init_train_state(model, opt)
+    ts, _ = make_train_step(model, opt)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=33, global_batch=4,
+                      copy_period=8)
+    state, _ = ts(state, batch_for_step(dcfg, 0))
+    want = {k: v.detach().clone() for k, v in state.params.items()}
+    t = ck.save_checkpoint(str(tmp_path), 1, state, async_mode=True)
+    state, _ = ts(state, batch_for_step(dcfg, 1))     # writes in place
+    t.join(timeout=120)
+    assert not t.is_alive()
+    back, step, _ = ck.restore_checkpoint(str(tmp_path), state,
+                                          validate_digests=True)
+    assert step == 1 and int(back.opt.step) == 1
+    for k, v in want.items():
+        assert back.params[k].is_cuda and torch.equal(back.params[k], v), k
