@@ -38,7 +38,8 @@ not printed):
    launches per kernel a round, bytes handed to the collectives a round,
    each round collective's time); then a (2, 2) mesh of 4 gloo processes
    on the one card (``mesh_rank``; each loads only its own data shard,
-   written once as ``.npy``), nsp and fetch at E=1 (QPS, seconds); then
+   written once as ``.npy``), nsp and fetch at E=1 over the first
+   MESH_QUERIES (1,024) queries (QPS, seconds); then
    ``python -m repro_torch.launch.serve`` at its defaults.  Fails unless
    every world-size-1 run's ids equal the flat search's as sorted sets,
    its recall@10 is >= 0.5, each round launched the lookup (twice in nsp),
@@ -64,7 +65,7 @@ not printed):
    recall@10 >= 0.5, the engine's ids equal ``Searcher.search``'s, 64
    queries on the CPU over the same tiles equal the card's in >= 95% of
    rows, and the merges equal the batches.  Then two A/B comparisons of
-   ten alternating pairs of 512 queries through ``Searcher.search``: the
+   AB_PAIRS (6) alternating pairs of 512 queries through ``Searcher.search``: the
    cluster tiles at full fan-out unrolled (``use_vmap=False``) against
    batched, and the flat index against the batched tiles (QPS of each
    pair, medians and spread, launches and rounds a 256-query batch).
@@ -179,7 +180,24 @@ not printed):
    embedding's backward adds with atomics on the card).  (d)
    ``elastic_restore`` of that checkpoint onto a one-card ``DeviceMesh``
    (NCCL, world size 1): DTensors placed by the resolved specs whose full
-   tensors equal the live state (a checkpoint of its parameters).
+   tensors equal the live state (a checkpoint of its parameters).  (e)
+   The sharded step (``train_sharded``): (b)'s model, optimizer and data
+   with the state held by ``shard_state`` and SHARDED_STEPS steps through
+   ``make_train_step(..., mesh, param_shardings=...)`` on a (1, 1) NCCL
+   mesh (NCCL takes one rank a card; the multi-rank meshes are the CPU
+   tests' gloo ones): fails unless its losses are within 1e-3 relative of
+   (b)'s first steps (whether they are bit-equal is printed); step ms and
+   peak bytes.  (f) The dry-run (``start_dryrun``, three processes of
+   their own started as the train phase starts, after the phases that
+   measure QPS and latency on the host; fake tensors over fake process
+   groups, no card): ``python -m repro_torch.launch.dryrun`` over
+   StableLM-1.6B's train_4k cell on the (16, 16) and (2, 16, 16)
+   production meshes, and (b)'s own cell on a (1, 1) mesh: fails unless
+   both production records are "ok" with FLOPs and collective bytes and
+   the (1, 1) trace's peak bytes are within 25% of (e)'s measured peak;
+   per-device FLOPs, collective bytes by kind, peak bytes, bottleneck, and
+   the (1, 1) trace's dot FLOPs beside (b)'s model FLOPs and (e)'s step ms
+   are printed.
    Every kernel must launch on each path (launches zeroed before each).
 3. Kernel phase: each kernel at the main path's shapes (Q=256 queries, D=128,
    M=32, C=256, dsub=4, R=64 neighbours, L=128 list, a 1M-row base) against
@@ -248,7 +266,9 @@ REORDER_SAMPLES = 128            # build_index's default trace sample
 SHARD_QUERIES = 2048             # of the 10,000, for the smoke's time
 NUM_TILES = 4
 TILED_VARIANTS = (("cluster", 0), ("cluster", 2), ("hash", 0))
-AB_PAIRS = 10                    # alternating A/B pairs of the fan-out
+# alternating A/B pairs of the fan-out (10 until the sharded-training
+# phases: the smoke's time limit's cut of the A/B's depth, PERF.md)
+AB_PAIRS = 6
 AB_QUERIES = 512                 # queries an arm of a pair
 IVF_NLIST = 64                   # fig11's IVF-PQ baseline
 IVF_NPROBES = (2, 8, 16)
@@ -1027,6 +1047,9 @@ def continuous_phase(torch, idx, batch_ids, batch_dists, log) -> dict:
 
 DIST_RUNS = (("nsp", 1), ("nsp", 4), ("fetch", 1), ("fetch", 4))
 MESH_SHAPE = (2, 2)              # (data, model) gloo ranks on the one card
+# the gloo mesh's queries, the first of the world-size-1 runs' SHARD_QUERIES
+# (2,048 until the sharded-training phases: the smoke's time limit's cut)
+MESH_QUERIES = 1024
 MESH_MODES = ("nsp", "fetch")    # at E=1
 ROUND_COLLECTIVES = ("adjacency", "scores", "codes", "exact")
 
@@ -1234,7 +1257,7 @@ def distributed_phase(torch, dev, idx, out_dir, repo, log) -> tuple:
             np.save(work / f"{f}{s}.npy", getattr(part, f).numpy())
     np.savez(work / "replicated.npz", **{f: getattr(part, f).numpy() for f in (
         "centroids", "hot_adjacency", "hot_codes", "hot_base")})
-    np.save(work / "queries.npy", queries)
+    np.save(work / "queries.npy", queries[:MESH_QUERIES])
     (work / "meta.json").write_text(json.dumps({
         "entry_point": part.entry_point, "hot_count": part.hot_count,
         "num_vertices": part.num_vertices, "device": dev.type,
@@ -1272,9 +1295,10 @@ def distributed_phase(torch, dev, idx, out_dir, repo, log) -> tuple:
             wall = max(rec[mode]["wall_s"] for rec in recs)
             t = recs[0][mode]["traffic"]
             mesh_rec[mode] = {
-                "qps": len(queries) / wall, "wall_s": wall,
-                "equals_world_1": all(np.array_equal(x, world1[mode, 1])
-                                      for x in ids),
+                "qps": MESH_QUERIES / wall, "wall_s": wall,
+                "equals_world_1": all(
+                    np.array_equal(x, world1[mode, 1][:MESH_QUERIES])
+                    for x in ids),
                 "rounds_rank0": t["rounds"],
                 "ms_per_round": wall * 1e3 / t["rounds"],
                 "collective_bytes_per_round_rank0": {
@@ -3136,12 +3160,198 @@ def train_fault(torch, dev, repo, out_dir, log) -> dict:
     return rec
 
 
+SHARDED_STEPS = 3                # the sharded step's, against train_full's
+SHARDED_RTOL = 1e-3              # its losses against train_full's, relative
+# launch.dryrun's --mesh: (16, 16) and (2, 16, 16), a process each
+DRYRUN_MESHES = ("single", "multi")
+DRYRUN_PEAK_TOL = 0.25           # the traced (1, 1) cell's peak vs the card's
+
+
+def start_dryrun(repo, out_dir) -> list:
+    """Starts the dry-run as processes of its own (fake process groups,
+    fake tensors, no card) that run beside the card-bound train phase:
+    ``launch.dryrun`` over TRAIN_ARCH's train_4k cell, one process for each
+    production mesh of DRYRUN_MESHES, and ``dryrun_anchor`` (the train
+    phase's own cell on a (1, 1) mesh).  Returns [(name, process, its
+    output file)]."""
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    cmds = {
+        mesh: [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh", mesh,
+               "--force", "--out", str(out_dir / f"dryrun_torch_{mesh}.json")]
+        for mesh in DRYRUN_MESHES}
+    cmds.update({
+        "anchor": [sys.executable, "-c",
+                   "import sys, chip_smoke; chip_smoke.dryrun_anchor("
+                   "sys.argv[1])", str(out_dir / "dryrun_anchor.json")]})
+    import atexit
+
+    procs = []
+    atexit.register(lambda: [p.kill() for _, p, _ in procs
+                             if p.poll() is None])
+    for name, cmd in cmds.items():
+        f = open(out_dir / f"dryrun_{name}.log", "w")
+        procs.append((name, subprocess.Popen(
+            cmd, cwd=str(repo), env=env, stdout=f, stderr=subprocess.STDOUT),
+            f))
+    return procs
+
+
+def dryrun_anchor(out: str) -> None:
+    """Traces the train phase's own cell (TRAIN_ARCH, TRAIN_BATCH x
+    TRAIN_SEQ - 1 tokens, TRAIN_MICROBATCHES, the launcher's q_chunk) on a
+    (1, 1) mesh with ``launch.dryrun.lower_cell``; writes the record to
+    ``out``.  Run in a process of its own (``start_dryrun``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import fake_mesh, lower_cell
+
+    shape = ShapeConfig("train_phase", TRAIN_SEQ - 1, TRAIN_BATCH, "train")
+    with fake_mesh((1, 1), ("data", "model")) as mesh:
+        rec = lower_cell(TRAIN_ARCH, shape, mesh,
+                         model_kw={"q_chunk": max(TRAIN_SEQ - 1, 64)},
+                         microbatches=TRAIN_MICROBATCHES)
+    Path(out).write_text(json.dumps(rec, indent=1))
+
+
+def finish_dryrun(procs, out_dir, sharded, full, log) -> dict:
+    """Waits for ``start_dryrun``'s processes and reads their records: the
+    production cells' (status, per-device FLOPs, collective bytes, peak,
+    bottleneck), and the anchor's traced peak against the sharded step's
+    measured peak and its per-device dot FLOPs beside the step's model
+    FLOPs and measured ms."""
+    rcs = {}
+    for name, p, f in procs:
+        try:
+            rcs[name] = p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rcs[name] = "timeout"
+        f.close()
+    rec = {"returncodes": rcs, "cells": {}}
+    cells = {}
+    for mesh in DRYRUN_MESHES:
+        path = out_dir / f"dryrun_torch_{mesh}.json"
+        if path.exists():
+            cells.update(json.loads(path.read_text()))
+    if cells:
+        for key, cell in cells.items():
+            c = {"status": cell["status"]}
+            if cell["status"] == "ok":
+                rl = cell["roofline"]
+                c.update(trace_s=cell["trace_s"],
+                         microbatches=cell["microbatches"],
+                         flops_per_device=rl["flops"],
+                         coll_bytes_per_device=rl["coll_bytes"],
+                         coll_breakdown=rl["coll_breakdown"],
+                         peak_bytes=cell["memory"]["peak_memory_in_bytes"],
+                         temp_bytes=cell["memory"]["temp_size_in_bytes"],
+                         bottleneck=rl["bottleneck"],
+                         compute_s=rl["compute_s"],
+                         collective_s=rl["collective_s"],
+                         memory_s=rl["memory_s"],
+                         useful_ratio=rl["useful_ratio"])
+            rec["cells"][key] = c
+            log(f"dry-run {key}: {json.dumps(c)}")
+    path = out_dir / "dryrun_anchor.json"
+    if path.exists():
+        a = json.loads(path.read_text())
+        peak = a["memory"]["peak_memory_in_bytes"]
+        rec["anchor"] = {
+            "traced_peak_bytes": peak,
+            "measured_peak_bytes": sharded["peak_bytes"],
+            "peak_rel_err": abs(peak - sharded["peak_bytes"])
+            / sharded["peak_bytes"],
+            "traced_dot_flops": a["roofline"]["flops"],
+            "model_flops_per_step": full["model_flops_per_step"],
+            "step_ms_median": sharded["step_ms_median"],
+            "trace_s": a["trace_s"],
+            "coll_bytes": a["roofline"]["coll_bytes"]}
+        log(f"dry-run of the train phase's cell on a (1, 1) mesh: "
+            f"{json.dumps(rec['anchor'])}")
+    return rec
+
+
+def train_sharded(torch, dev, out_dir, full, log) -> dict:
+    """StableLM-1.6B as ``train_full`` (its model, optimizer and data), its
+    state held by ``shard_state`` and SHARDED_STEPS steps through
+    ``make_train_step(..., mesh, param_shardings=...)`` on a (1, 1) NCCL
+    mesh (NCCL takes one rank a card); its losses against ``train_full``'s
+    first steps."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.train.data import (
+        DataConfig, batch_for_step, device_put_batch)
+    from repro_torch.train.loop import (
+        init_train_state, make_train_step, shard_state, state_shardings)
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = get_config(TRAIN_ARCH)
+    (out_dir / "store_sharded").unlink(missing_ok=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(out_dir / "store_sharded"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        torch.cuda.empty_cache()
+        model = build_model(cfg, device=dev, q_chunk=max(TRAIN_SEQ - 1, 64))
+        opt = AdamW(lr=1e-3, warmup_steps=max(TRAIN_STEPS // 20, 5),
+                    total_steps=TRAIN_STEPS)
+        state, specs = init_train_state(model, opt)
+        sh = state_shardings(specs, state, mesh)
+        state = shard_state(state, specs, mesh)
+        ts, _ = make_train_step(model, opt, mesh, TRAIN_MICROBATCHES,
+                                param_shardings=sh.params)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, copy_period=16,
+                          family=cfg.family)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks, losses = [time.perf_counter()], []
+        for step in range(SHARDED_STEPS):
+            state, m = ts(state, device_put_batch(batch_for_step(dcfg, step),
+                                                  dev))
+            losses.append(float(m["loss"]))
+            marks.append(time.perf_counter())
+        peak = torch.cuda.max_memory_allocated()
+        del model, state
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want = full["losses"][:SHARDED_STEPS]
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    rec = {"losses": losses, "unsharded_losses": want,
+           "max_rel_err": max(abs(a - b) / abs(b)
+                              for a, b in zip(losses, want)),
+           "bit_equal": losses == want, "step_ms": step_ms,
+           "step_ms_median": _median(step_ms[1:]), "peak_bytes": peak}
+    log(f"{cfg.name} sharded step on a (1, 1) NCCL mesh (shard_state, "
+        f"param_shardings; {TRAIN_BATCH} x {TRAIN_SEQ - 1} tokens, "
+        f"{TRAIN_MICROBATCHES} microbatches, bf16): losses {losses} vs the "
+        f"unsharded run's {want}: max rel err {rec['max_rel_err']:.3g} "
+        f"(bound {SHARDED_RTOL}), bit-equal {rec['bit_equal']}; step_ms "
+        f"{[round(t, 1) for t in step_ms]} (median of steps 2-"
+        f"{SHARDED_STEPS} {rec['step_ms_median']:.1f}) peak_bytes={peak:,}")
+    return rec
+
+
 def train_phase(torch, dev, repo, out_dir, seed: int, log) -> dict:
-    """The training half on the card: ``train_zoo``, ``train_full`` and
-    ``train_fault``."""
+    """The training half on the card: the dry-run started
+    (``start_dryrun``), ``train_zoo``, ``train_full``, ``train_sharded``,
+    ``train_fault``, then the dry-run's records (``finish_dryrun``)."""
+    dryrun = start_dryrun(repo, out_dir)
     rec = {"zoo": train_zoo(torch, dev, seed, log)}
     rec["full"] = train_full(torch, dev, log)
+    rec["sharded"] = train_sharded(torch, dev, out_dir, rec["full"], log)
     rec["fault"] = train_fault(torch, dev, repo, out_dir, log)
+    rec["dryrun"] = finish_dryrun(dryrun, out_dir, rec["sharded"],
+                                  rec["full"], log)
     return rec
 
 
@@ -3172,6 +3382,22 @@ def train_failures(rec: dict) -> list:
     if not (el["all_dtensor"] and el["placements_follow_specs"]
             and el["full_equal"] and el["step"] == FAULT_STEPS):
         fails.append(f"elastic restore onto a 1x1 mesh: {json.dumps(el)}")
+    sh = rec["sharded"]
+    if not sh["max_rel_err"] <= SHARDED_RTOL:
+        fails.append(f"sharded step: losses {sh['losses']} vs "
+                     f"{sh['unsharded_losses']} beyond {SHARDED_RTOL}")
+    dr = rec["dryrun"]
+    if any(rc != 0 for rc in dr["returncodes"].values()):
+        fails.append(f"dry-run processes: {dr['returncodes']}")
+    ok = [k for k, c in dr["cells"].items() if c["status"] == "ok"
+          and c["flops_per_device"] > 0 and c["coll_bytes_per_device"] > 0]
+    if len(ok) != 2:
+        fails.append(f"dry-run: {len(ok)} ok production cells, not 2: "
+                     f"{json.dumps(dr['cells'])}")
+    a = dr.get("anchor")
+    if a is None or not a["peak_rel_err"] <= DRYRUN_PEAK_TOL:
+        fails.append(f"dry-run of the train phase's cell: traced peak vs "
+                     f"the card's beyond {DRYRUN_PEAK_TOL}: {json.dumps(a)}")
     return fails
 
 

@@ -113,12 +113,18 @@ def save_checkpoint(
     async_mode: bool = False,
     keep: int = 3,
 ) -> threading.Thread | None:
-    """Persist ``state`` under ``directory/step_{step:08d}``."""
-    os.makedirs(directory, exist_ok=True)
+    """Persist ``state`` under ``directory/step_{step:08d}``.  A sharded
+    state (DTensors) is written whole: every rank of the process group
+    calls this (the shards are gathered), and rank 0 writes."""
+    import torch.distributed as dist
+
     # copied to the host BEFORE handing off: the caller's next step updates
     # the parameters in place
     host_leaves = [(n, _NAMES[t.dtype], _host(t))
                    for n, t in _flatten_with_paths(state)]
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    os.makedirs(directory, exist_ok=True)
 
     def write():
         final = os.path.join(directory, f"step_{step:08d}")

@@ -16,19 +16,43 @@ axis names), so ``tuple(reference_spec) == port_spec``; ``NamedSharding``
 pairs one with its mesh, and ``placements`` turns it into DTensor
 ``Shard`` / ``Replicate`` placements over a ``DeviceMesh``.
 
-Left out: ``hint``, ``param_hint``, ``param_hints`` and
-``activation_hints`` (reference lines 46-120) only constrain GSPMD, and the
-port's step is data-parallel with replicated parameters (``train.loop``):
-they come with sharded execution (ROADMAP).  ``abstract_mesh`` is JAX's: a
-``{name: size}`` map takes its place.
+The hints (reference lines 46-120) are where sharded execution sets the
+layout, with explicit collectives over the mesh's groups where GSPMD would
+insert them.  Outside ``activation_hints`` every hint and every collective
+below is the identity, and so is a collective over an axis of size 1, so
+the one-device paths run the ops they ran before.  Inside it the model runs
+on each rank's **local** tensors (``train.loop``'s sharded step):
+
+  * ``param_hint`` all-gathers a weight's FSDP ("data") shard just before
+    use and keeps its "model" shard; its backward reduce-scatters the
+    cotangent back to the shard (the reference's custom-VJP constraint on
+    the value and on its cotangent).  It reads the resolved spec from the
+    local leaf (``tag``), since a local shape cannot say which dims were
+    sharded.
+  * ``hint(x, spec_fn)`` takes an activation that is batch-sharded and
+    whole on every other dim to ``spec_fn``'s layout: the dims the spec
+    names "model" are split (the backward all-gathers).
+  * tensor parallelism is Megatron's: ``region_in`` / ``region_out`` around
+    a layer whose work is split over "model" (identity / all-reduce of the
+    cotangent in, all-reduce / identity out; with sequence parallelism an
+    all-gather / reduce-scatter of the sequence dim instead), and
+    ``gather`` / ``all_reduce`` / ``partial`` for what runs inside.  Inside
+    a region each rank's cotangents are partial sums over "model", which
+    the region's entry and every ``partial`` weight add up.
+
+``abstract_mesh`` is JAX's: a ``{name: size}`` map takes its place.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 Spec = Tuple
+
+_HINT_MESH = None
 
 
 class NamedSharding(NamedTuple):
@@ -44,7 +68,28 @@ def axis_sizes(mesh) -> Dict[str, int]:
     """``{axis name: size}`` of a ``DeviceMesh`` or of such a map."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return {a: n for a, (n, _, _) in mesh_info(mesh).items()}
+
+
+_MESH_INFO: Dict[int, Tuple[Any, Dict]] = {}
+
+
+def mesh_info(mesh) -> Dict[str, Tuple[int, int, Any]]:
+    """``{axis: (size, this rank's index, process group or None)}`` of a
+    ``DeviceMesh``, read once (outside any ``FakeTensorMode``: the mesh
+    keeps its ranks in a real tensor) and kept with the mesh."""
+    hit = _MESH_INFO.get(id(mesh))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        shape = tuple(mesh.mesh.shape)
+        info = {a: (n, mesh.get_local_rank(a),
+                    mesh.get_group(a) if n > 1 else None)
+                for a, n in zip(mesh.mesh_dim_names, shape)}
+    _MESH_INFO[id(mesh)] = (mesh, info)
+    return info
 
 
 def placements(spec: Spec, mesh) -> tuple:
@@ -265,3 +310,308 @@ def cache_shardings(mesh, cache, cfg, seq_shard: bool = False):
     return type(cache)(*(
         None if v is None else NamedSharding(mesh, spec_for(f, v))
         for f, v in zip(cache._fields, cache)))
+
+
+# ---------------------------------------------------------------------------
+# Hints: sharded execution on local tensors
+# ---------------------------------------------------------------------------
+
+class activation_hints:
+    """Context manager under which the model runs sharded over ``mesh`` (a
+    ``DeviceMesh``): the hints below set the layout with collectives over
+    its groups.  Outside it they are the identity (one-device paths stay
+    as they are).  The backward of a step must run inside it too: a block's
+    recompute under remat runs its hints again."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        global _HINT_MESH
+        self._old = _HINT_MESH
+        _HINT_MESH = self.mesh
+        return self.mesh
+
+    def __exit__(self, *exc):
+        global _HINT_MESH
+        _HINT_MESH = self._old
+        return False
+
+
+def hint_mesh():
+    """The mesh of the enclosing ``activation_hints``, or None."""
+    return _HINT_MESH
+
+
+class Axis(NamedTuple):
+    group: Any
+    size: int
+    rank: int
+
+
+def mesh_axis(name: str) -> Optional[Axis]:
+    """(process group, size, this rank's index) of the hint mesh's axis
+    ``name``; None outside ``activation_hints``, for an axis the mesh
+    lacks, and for one of size 1, where there is nothing to communicate."""
+    mesh = _HINT_MESH
+    if mesh is None:
+        return None
+    size, rank, group = mesh_info(mesh).get(name, (1, 0, None))
+    return None if size == 1 else Axis(group, size, rank)
+
+
+def _ag(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((ax.size * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=ax.group)
+    return out.movedim(0, dim)
+
+
+def _rs(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // ax.size, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=ax.group)
+    return out.movedim(0, dim)
+
+
+def _ar(x: torch.Tensor, ax: Axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=ax.group)
+    return out
+
+
+def _chunk(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    n = x.shape[dim] // ax.size
+    return x.narrow(dim, ax.rank * n, n).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax, grad_sum):
+        ctx.dim, ctx.ax, ctx.grad_sum = dim, ax, grad_sum
+        return _ag(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = (_rs(g, ctx.dim, ctx.ax) if ctx.grad_sum
+             else _chunk(g, ctx.dim, ctx.ax))
+        return g, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _rs(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ag(g, ctx.dim, ctx.ax), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _chunk(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ag(g, ctx.dim, ctx.ax), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, grad_sum):
+        ctx.ax, ctx.grad_sum = ax, grad_sum
+        return _ar(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_ar(g, ctx.ax) if ctx.grad_sum else g), None, None
+
+
+class _Partial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ar(g, ctx.ax), None
+
+
+def gather(x: torch.Tensor, dim: int, axis: str = "model",
+           grad: str = "sum") -> torch.Tensor:
+    """``x`` all-gathered along ``dim`` over ``axis``.  The cotangent is
+    reduce-scattered (``grad="sum"``: each rank's use added a partial sum)
+    or sliced (``"slice"``: every rank's use was the same whole
+    computation)."""
+    ax = mesh_axis(axis)
+    return x if ax is None else _Gather.apply(x, dim, ax, grad == "sum")
+
+
+def reduce_scatter(x: torch.Tensor, dim: int,
+                   axis: str = "model") -> torch.Tensor:
+    """The sum over ``axis`` of ``x``, this rank's slice of ``dim``; the
+    cotangent is all-gathered."""
+    ax = mesh_axis(axis)
+    return x if ax is None else _ReduceScatter.apply(x, dim, ax)
+
+
+def split(x: torch.Tensor, dim: int, axis: str = "model") -> torch.Tensor:
+    """This rank's slice of ``dim`` of a tensor every rank of ``axis``
+    holds whole; the cotangent is all-gathered."""
+    ax = mesh_axis(axis)
+    return x if ax is None else _Split.apply(x, dim, ax)
+
+
+def all_reduce(x: torch.Tensor, axis: str = "model",
+               grad: str = "identity") -> torch.Tensor:
+    """The sum over ``axis`` of ``x``.  Its cotangent passes through
+    (``"identity"``: what follows is the same on every rank, out of a
+    region) or is all-reduced too (``"sum"``: what follows is split, inside
+    a region)."""
+    ax = mesh_axis(axis)
+    return x if ax is None else _AllReduce.apply(x, ax, grad == "sum")
+
+
+def all_reduce_max(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The elementwise max over ``axis`` (no gradient)."""
+    ax = mesh_axis(axis)
+    return x if ax is None else _ar(x.detach(), ax, dist.ReduceOp.MAX)
+
+
+def partial(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """``x`` itself; its cotangent, a partial sum on each rank of
+    ``axis``, is all-reduced."""
+    ax = mesh_axis(axis)
+    return x if ax is None else _Partial.apply(x, ax)
+
+
+def region_in(x: torch.Tensor, split_work: bool, sp: bool) -> torch.Tensor:
+    """Into a layer, from the residual layout (batch-sharded; with sequence
+    parallelism ``sp`` the sequence dim split over "model" too) to the
+    whole sequence on every "model" rank.  ``split_work``: the layer splits
+    its work over "model" (a tensor-parallel region), so the cotangents
+    that come back are partial sums."""
+    if sp:
+        return gather(x, 1, "model", "sum" if split_work else "slice")
+    return partial(x) if split_work else x
+
+
+def region_out(y: torch.Tensor, split_work: bool, sp: bool) -> torch.Tensor:
+    """Out of a layer, back to the residual layout: a region's partial sums
+    are all-reduced (reduce-scattered along the sequence under ``sp``); a
+    whole result is sliced along the sequence under ``sp``."""
+    if sp:
+        return (reduce_scatter(y, 1) if split_work else split(y, 1))
+    return all_reduce(y) if split_work else y
+
+
+def seq_partial(w: torch.Tensor, sp: bool) -> torch.Tensor:
+    """A weight used on this rank's slice of the sequence (the norms under
+    sequence parallelism): its gradient is a partial sum over "model"."""
+    return partial(w) if sp else w
+
+
+def spec_axes(spec: Spec) -> set:
+    """Every mesh axis a spec names."""
+    return {a for e in spec for a in entry_axes(e)}
+
+
+def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a ``shape`` tensor placed by a
+    resolved ``spec`` over ``mesh`` (a ``DeviceMesh`` or ``{name:
+    size}``)."""
+    sizes = axis_sizes(mesh)
+    return tuple(n // int(np.prod([sizes[a] for a in entry_axes(e)]))
+                 for n, e in zip(shape, spec))
+
+
+def tag(t: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """Marks a local tensor as the shard of a weight of resolved ``spec``
+    (``param_hint`` reads it); returns ``t``."""
+    t._shard_spec = tuple(spec)
+    return t
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes a spec entry names (None, an axis, or a tuple of
+    them), major first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def param_hint(x: torch.Tensor, logical: Tuple[Optional[str], ...]):
+    """A weight as the layer uses it: its FSDP ("data") shard all-gathered,
+    its "model" shard kept; the cotangent is reduce-scattered back to the
+    shard.  The resolved spec is the one ``tag`` put on the local leaf
+    (``logical`` names the weight's axes, as in the reference); a tensor
+    without one is used as it is."""
+    spec = getattr(x, "_shard_spec", None)
+    if _HINT_MESH is None or spec is None:
+        return x
+    out = x
+    for i, e in enumerate(spec):
+        if "data" in entry_axes(e):
+            out = gather(out, i, "data")
+    if out is x:
+        return x
+    return tag(out, tuple("model" if "model" in entry_axes(e) else None
+                          for e in spec))
+
+
+def param_hints(p: dict, logical: dict) -> dict:
+    """param_hint over a dict of weights (missing keys pass through)."""
+    return {k: param_hint(v, logical[k]) if k in logical else v
+            for k, v in p.items()}
+
+
+def model_dim(w: torch.Tensor) -> Optional[int]:
+    """The dim of a hinted weight that is split over "model" (None when it
+    is whole, or outside a "model" axis of size > 1)."""
+    spec = getattr(w, "_shard_spec", None)
+    if spec is None or mesh_axis("model") is None:
+        return None
+    dims = [i for i, e in enumerate(spec) if "model" in entry_axes(e)]
+    return dims[0] if dims else None
+
+
+def whole(w: torch.Tensor, grad: str = "sum") -> torch.Tensor:
+    """A hinted weight whole over "model": gathered if it is split there.
+    ``grad`` as in ``gather``; inside a region (``"sum"``) a weight that is
+    already whole gets its partial cotangents added (``partial``)."""
+    d = model_dim(w)
+    if d is not None:
+        return gather(w, d, "model", grad)
+    return partial(w) if grad == "sum" else w
+
+
+def local_block(w: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """This "model" rank's ``n`` entries of ``dim`` of a hinted weight, for
+    a region: the shard itself when the weight is split there, else a slice
+    of the whole weight."""
+    if model_dim(w) == dim:
+        return w
+    ax = mesh_axis("model")
+    return whole(w).narrow(dim, ax.rank * n, n)
+
+
+def hint(x: torch.Tensor, spec_fn) -> torch.Tensor:
+    """An activation in ``spec_fn``'s layout.  ``x`` is this rank's rows of
+    the batch (the step shards it over the batch axes) and whole on every
+    other dim; the dims ``spec_fn(mesh, global shape)`` names "model" are
+    split (``split``: the cotangent is all-gathered)."""
+    mesh = _HINT_MESH
+    if mesh is None:
+        return x
+    sizes = axis_sizes(mesh)
+    bsize = int(np.prod([sizes[a] for a in batch_axes(mesh)]))
+    spec = spec_fn(mesh, (x.shape[0] * bsize, *x.shape[1:]))
+    for i, e in enumerate(spec):
+        if "model" in entry_axes(e):
+            x = split(x, i, "model")
+    return x

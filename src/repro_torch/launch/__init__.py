@@ -1,4 +1,5 @@
 """Port of ``repro.launch``: device meshes over ``torch.distributed``
-(``mesh.py``), the serving launcher (``serve.py``) and the training
-launcher (``train.py``).  The dry-run comes after sharded execution and the
-roofline twin (ROADMAP)."""
+(``mesh.py``), the serving launcher (``serve.py``), the training launcher
+(``train.py``) and the dry-run of the train cells on the production meshes
+(``dryrun.py``; its prefill and decode cells wait for sharded serving,
+ROADMAP)."""

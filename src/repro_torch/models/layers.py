@@ -10,9 +10,22 @@ axes).  ``init_*`` take a ``torch.Generator`` where the reference takes a
 PRNG key: the shapes, scales and dtypes are the reference's, the values are
 other draws from the same distributions.
 
-The reference's GSPMD hints (``shard_lib.param_hints`` / ``hint``) are
-identity on one device and are left out here; ``moe``'s ``dispatch_hint`` is
-accepted and changes nothing.
+The reference's hint points are kept (``shard_lib.param_hints``): outside
+``activation_hints`` they are the identity and each function runs the ops
+it runs on one device.  Inside it (``train.loop``'s sharded step) the
+weights are each rank's local shards and the layers are tensor-parallel
+over "model", Megatron's way: q / k / v / the MLP's inputs / d_inner /
+experts column-parallel with no collective, ``wo`` and the down
+projections row-parallel with their outputs summed over "model" (``sp``:
+reduce-scattered along the sequence, the input all-gathered), inside
+``shard_lib.region_in`` / ``region_out``.  A rank's q heads are a
+contiguous block of ``wq``'s columns, each mapped to its kv head ``h //
+g``; where kv heads do not split over "model" (GQA / MQA) the rank uses
+the kv heads its q heads need.  A layer whose dims do not split (the
+divisibility fallback) runs whole on every rank, its weights gathered.
+``moe``'s capacity and slot positions are the global ones (the routing is
+gathered over "data"), and ``dispatch_hint`` splits the expert buffer's
+capacity slots over "data" (``moe_out_spec``).
 
 Logical axis vocabulary:
     "embed"   — d_model
@@ -34,12 +47,13 @@ weights are cast to V's dtype before the PV product; GELU is the tanh form
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shard_lib
 
 Params = Dict[str, torch.Tensor]
 
@@ -114,6 +128,53 @@ def init_attention(generator: torch.Generator,
     return p, s
 
 
+ATTN_SPECS = {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+              "wv": ("embed", "kv"), "wo": ("heads", "embed")}
+
+
+class HeadPlan(NamedTuple):
+    """How a rank runs attention: its weights (``wq`` / ``wo`` for its q
+    heads, ``wk`` / ``wv`` for the kv heads it projects), its q heads, the
+    kv heads it projects, the block ``(first, count)`` of those its q heads
+    attend to (None: all), and whether the work is split over "model"."""
+    w: Params
+    nq: int
+    nkv: int
+    kv_sel: Optional[Tuple[int, int]]
+    split: bool
+
+
+def head_plan(p: Params, cfg: ModelConfig) -> HeadPlan:
+    """The ``HeadPlan`` of hinted attention weights ``p``: every head on
+    one device; inside ``activation_hints`` a contiguous block of q heads
+    per "model" rank when the heads split (their kv heads with them, or
+    whole kv projections when the kv heads do not split), else the whole
+    attention on every rank."""
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    ax = shard_lib.mesh_axis("model")
+    if ax is None:
+        return HeadPlan(p, nq, nkv, None, False)
+    m, g = ax.size, nq // nkv
+
+    def whole():
+        return HeadPlan({k: shard_lib.whole(w, "slice")
+                         for k, w in p.items()}, nq, nkv, None, False)
+
+    if nq % m or shard_lib.model_dim(p["wq"]) != 1:
+        return whole()
+    nq_l = nq // m
+    if nkv % m == 0 and shard_lib.model_dim(p["wk"]) == 1:
+        return HeadPlan(p, nq_l, nkv // m, None, True)
+    if nq_l % g == 0:
+        n_kv = nq_l // g
+    elif g % nq_l == 0:
+        n_kv = 1
+    else:
+        return whole()
+    w = dict(p, wk=shard_lib.whole(p["wk"]), wv=shard_lib.whole(p["wv"]))
+    return HeadPlan(w, nq_l, nkv, (ax.rank * nq_l // g, n_kv), True)
+
+
 def _attn_mask(q_pos, k_pos, sliding_window: int, prefix_len: int = 0):
     """(..., Sq, Sk) boolean mask from (..., Sq) and (..., Sk) positions.
     Causal, optional sliding window, optional bidirectional prefix
@@ -137,15 +198,22 @@ def attention(
     q_chunk: int = 1024,
     prefix_len: int = 0,
     attend_cache: bool = False,
+    sp: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """GQA attention. With ``kv_cache=(k,v)`` of shape (B, C, Hkv, hd) this is
     a decode/prefill-extend step: new k/v are written at ``cache_len`` (a
     host int) and attention runs over the cache. Returns (out, new_cache);
-    the new cache is a new pair of tensors, the caller's are not written."""
+    the new cache is a new pair of tensors, the caller's are not written.
+    ``sp``: ``x`` and the output are sequence-parallel (``positions`` cover
+    the whole sequence)."""
+    hp = head_plan(shard_lib.param_hints(p, ATTN_SPECS), cfg)
+    if hp.split and kv_cache is not None:
+        raise NotImplementedError("tensor-parallel serving is not ported")
+    p = hp.w
+    x = shard_lib.region_in(x, hp.split, sp)
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
-    nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    g = nq // nkv
+    nq, nkv = hp.nq, hp.nkv
 
     q = (x @ p["wq"]).reshape(b, s, nq, hd)
     k = (x @ p["wk"]).reshape(b, s, nkv, hd)
@@ -189,6 +257,11 @@ def attention(
         k_all, v_all = k, v
         k_pos_all = positions
 
+    if hp.kv_sel is not None:
+        k_all = k_all.narrow(2, *hp.kv_sel)
+        v_all = v_all.narrow(2, *hp.kv_sel)
+        nkv = hp.kv_sel[1]
+    g = nq // nkv
     # grouped heads: (B, S, Hkv, G, hd)
     qg = q.reshape(b, s, nkv, g, hd)
     k_pos_all = k_pos_all.expand(b, k_pos_all.shape[-1])
@@ -212,7 +285,8 @@ def attention(
             for i in range(0, s, q_chunk)], dim=1)
     else:
         out = attend_chunk(qg, positions)
-    return out.reshape(b, s, nq * hd) @ p["wo"], new_cache
+    out = out.reshape(b, s, nq * hd) @ p["wo"]
+    return shard_lib.region_out(out, hp.split, sp), new_cache
 
 
 def _cache_positions(cache_len: int, s_new: int, cap: int, ring: bool,
@@ -256,10 +330,21 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig,
     return p, s
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+MLP_SPECS = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+             "wo": ("mlp", "embed")}
+
+
+def mlp(p: Params, x: torch.Tensor, sp: bool = False) -> torch.Tensor:
+    """SwiGLU (or GELU) MLP; inside ``activation_hints`` column-parallel
+    in, row-parallel out when the hidden dim splits over "model"."""
+    p = shard_lib.param_hints(p, MLP_SPECS)
+    split = shard_lib.model_dim(p["wi_up"]) == 1
+    x = shard_lib.region_in(x, split, sp)
     if "wi_gate" not in p:
-        return F.gelu(x @ p["wi_up"], approximate="tanh") @ p["wo"]
-    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+        y = F.gelu(x @ p["wi_up"], approximate="tanh") @ p["wo"]
+    else:
+        y = (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+    return shard_lib.region_out(y, split, sp)
 
 
 def init_moe(generator: torch.Generator,
@@ -287,9 +372,15 @@ def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig,
     top-k experts (ties to the lower expert) and their renormalised gates,
     the capacity ``cap``, and each (token, choice)'s slot ``dest`` =
     expert * cap + position (``e * cap`` where it overflowed, ``keep``
-    False).  Positions count the (token, choice) pairs in token-major order."""
+    False).  Positions count the (token, choice) pairs in token-major order.
+    Inside ``activation_hints`` the tokens are this "data" rank's and the
+    order is the global one: ``cap`` comes from the global token count and
+    the positions from a cumsum over every rank's choices, gathered over
+    "data" (a rank's own ``cap`` would drop other tokens)."""
     t = xt.shape[0]
     e, kk = cfg.num_experts, cfg.experts_per_token
+    dat = shard_lib.mesh_axis("data")
+    nd, j = (dat.size, dat.rank) if dat is not None else (1, 0)
     logits = xt.float() @ p["router"]                           # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
@@ -297,20 +388,30 @@ def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig,
     gate_vals, gate_idx = gate_vals[:, :kk], gate_idx[:, :kk]   # (T, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    cap = max(int(math.ceil(t * kk / e * capacity_factor)), 4)
+    cap = max(int(math.ceil(t * nd * kk / e * capacity_factor)), 4)
     flat_idx = gate_idx.reshape(-1)                             # (T*k,)
-    oh = F.one_hot(flat_idx, e)                                 # (T*k, E)
-    pos_all = torch.cumsum(oh, dim=0) - oh
-    pos = pos_all.gather(1, flat_idx[:, None])[:, 0]
+    with torch.no_grad():
+        every = shard_lib.gather(flat_idx, 0, "data")           # global order
+        oh = F.one_hot(every, e)                                # (T*k, E)
+        pos_all = torch.cumsum(oh, dim=0) - oh
+        pos = pos_all.gather(1, every[:, None])[:, 0]
+        pos = pos[j * t * kk:(j + 1) * t * kk]
     keep = pos < cap
     dest = torch.where(keep, flat_idx * cap + pos, e * cap)     # OOB -> drop
     return {"probs": probs, "gate_vals": gate_vals, "gate_idx": gate_idx,
             "cap": cap, "keep": keep, "dest": dest}
 
 
+MOE_SPECS = {"router": ("embed", None),
+             "wi_gate": ("experts", "embed", "mlp"),
+             "wi_up": ("experts", "embed", "mlp"),
+             "wo": ("experts", "mlp", "embed")}
+
+
 def moe(
     p: Params, x: torch.Tensor, cfg: ModelConfig,
     capacity_factor: float = 1.25, dispatch_hint: bool = True,
+    sp: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k routing with SCATTER/GATHER dispatch.
 
@@ -318,28 +419,71 @@ def moe(
     an (E*cap, d) expert buffer; overflowing choices go to one spare row
     past the end, which is dropped, and read back as zero.  The experts run
     as batched matmuls over (E, cap, d) and the results are gathered back
-    with the same index map.  ``dispatch_hint`` is the reference's sharding
-    knob and changes nothing on one device.  Returns (out, aux_loss)."""
-    b, s, d = x.shape
+    with the same index map.  Returns (out, aux_loss).
+
+    Inside ``activation_hints`` it runs on this rank's tokens (its rows of
+    the batch, the whole sequence) with the one-device step's routing
+    (``moe_route``).  Experts split over "model" (or, when they do not
+    divide, the hidden dim does): each rank fills the slots of its experts
+    from its tokens, the slots of all "data" ranks are summed (with
+    ``dispatch_hint``, reduce-scattered so each rank runs its share of the
+    capacity, ``moe_out_spec``), and the outputs are summed over "model" by
+    ``region_out``.  The load-balancing loss is the global one; inside a
+    region only "model" rank 0 takes its gradient, so it is counted once.
+    On one device ``dispatch_hint`` changes nothing."""
+    p = shard_lib.param_hints(p, MOE_SPECS)
     e, kk = cfg.num_experts, cfg.experts_per_token
+    mod, dat = shard_lib.mesh_axis("model"), shard_lib.mesh_axis("data")
+    ed = shard_lib.model_dim(p["wi_gate"])
+    split = ed is not None
+    if mod is not None and not split:
+        p = {k: shard_lib.whole(w, "slice") for k, w in p.items()}
+    if split:
+        p = dict(p, router=shard_lib.partial(p["router"]))
+    x = shard_lib.region_in(x, split, sp)
+    b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     r = moe_route(p, xt, cfg, capacity_factor)
     cap, keep, dest = r["cap"], r["keep"], r["dest"]
+    e_l = e
+    if ed == 0:                         # this rank's experts only
+        e_l = e // mod.size
+        e0 = mod.rank * e_l
+        flat_idx = r["gate_idx"].reshape(-1)
+        keep = keep & (flat_idx >= e0) & (flat_idx < e0 + e_l)
+        dest = torch.where(keep, dest - e0 * cap, e_l * cap)
 
     x_rep = xt.repeat_interleave(kk, dim=0)                     # (T*k, d)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_copy(0, dest, x_rep)[: e * cap]
-    xe = buf.reshape(e, cap, d)
+    buf = torch.zeros((e_l * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_copy(0, dest, x_rep)[: e_l * cap]
+    xe = buf.reshape(e_l, cap, d)
+    by_cap = (dispatch_hint and dat is not None
+              and shard_lib.moe_out_spec(shard_lib.hint_mesh(),
+                                         (e, cap, d))[1] == "data")
+    if by_cap:
+        xe = shard_lib.reduce_scatter(xe, 1, "data")
+    else:
+        xe = shard_lib.all_reduce(xe, "data", grad="sum")
     h = torch.bmm(xe, p["wi_gate"])
     h = F.silu(h) * torch.bmm(xe, p["wi_up"])
-    ye = torch.bmm(h, p["wo"]).reshape(e * cap, d)
-    y = ye[torch.clamp(dest, max=e * cap - 1)]                  # (T*k, d)
+    ye = torch.bmm(h, p["wo"])
+    if by_cap:
+        ye = shard_lib.gather(ye, 1, "data")
+    ye = ye.reshape(e_l * cap, d)
+    y = ye[torch.clamp(dest, max=e_l * cap - 1)]                # (T*k, d)
     y = y.masked_fill(~keep[:, None], 0.0)
     out = (y.reshape(t, kk, d)
            * r["gate_vals"][..., None].to(y.dtype)).sum(1).reshape(b, s, d)
-    # load-balancing aux loss (Switch-style)
-    density = F.one_hot(r["gate_idx"], e).amax(1).float().mean(0)
-    p_mean = r["probs"].mean(0)
+    # load-balancing aux loss (Switch-style), over every rank's tokens
+    density = F.one_hot(r["gate_idx"], e).amax(1).float()
+    if dat is None:
+        density, p_mean = density.mean(0), r["probs"].mean(0)
+    else:
+        n = float(t * dat.size)
+        density = shard_lib.all_reduce(density.sum(0), "data") / n
+        p_mean = shard_lib.all_reduce(r["probs"].sum(0), "data") / n
     aux = (density * p_mean).sum() * (e ** 2) / kk
-    return out, aux
+    if split and mod.rank != 0:
+        aux = aux.detach()
+    return shard_lib.region_out(out, split, sp), aux

@@ -24,6 +24,11 @@ build no autograd graph, whether or not the weights require gradients.
 positions and cache slots are computed on the host, with no device read a
 step.
 
+Sharded training (``train.loop``'s sharded step) runs ``loss`` inside
+``distributed.sharding.activation_hints`` on each rank's local weight
+shards, with the layers tensor-parallel (``models/layers.py``), the vocabulary split over "model" in the embedding
+and the cross-entropy, and ``seq_parallel`` live.
+
 Training (``repro_torch.train``): ``loss`` is also the module's ``forward``,
 so ``torch.func.functional_call(model, params, (batch,))`` takes the loss of
 any state dict; with ``remat="block"`` each block runs under
@@ -47,6 +52,7 @@ from repro_torch.configs.base import (
     BLOCK_SHARED_ATTN,
     ModelConfig,
 )
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
@@ -149,8 +155,9 @@ def _stack(ts):
 class Model(nn.Module):
     """One architecture with its weights.  The fields are the reference's:
 
-    * ``remat`` — "block" runs each block (attention, mamba, the hybrid's
-      shared block, the encoder's) under ``torch.utils.checkpoint`` when
+    * ``remat`` — "block" runs each block (attention, mamba, the
+      encoder's; not the hybrid's shared block, which the reference runs
+      outside its remat scans) under ``torch.utils.checkpoint`` when
       autograd records through it, so its activations are recomputed in the
       backward: the reference's ``jax.checkpoint`` with
       ``nothing_saveable``.  The gradients are bit-equal to "none"'s.
@@ -158,9 +165,12 @@ class Model(nn.Module):
       the sequence is a multiple of it.
     * ``ssm_chunk`` — the selective scan's chunk.
     * ``moe_capacity`` — the MoE capacity factor.
-    * ``moe_dispatch_hint``, ``seq_parallel`` — GSPMD sharding hints in the
-      reference; they change nothing here (``distributed.sharding`` resolves
-      the specs, the step is data-parallel with replicated weights).
+    * ``moe_dispatch_hint`` — inside ``activation_hints``, the expert
+      buffer's capacity slots split over "data" (``models.layers.moe``).
+    * ``seq_parallel`` — inside ``activation_hints``, the residual stream's
+      sequence split over "model" between the tensor-parallel layers
+      (``seq_parallel_spec``), when "model" divides it.
+    Both change nothing on one device.
     """
 
     def __init__(self, config: ModelConfig, remat: str = "block",
@@ -250,51 +260,66 @@ class Model(nn.Module):
         return self.state_dict(), specs
 
     # ------------------------------------------------------------- forwards
+    def _norm(self, x, w, sp=False):
+        """RMSNorm by a norm weight of the residual stream (FSDP-gathered
+        inside ``activation_hints``; a partial sum under ``sp``)."""
+        w = shard_lib.seq_partial(shard_lib.param_hint(w, ("embed",)), sp)
+        return L.rms_norm(x, w, self.config.norm_eps)
+
     def _attn_block(self, bp, x, positions, kv=None, cache_len=None,
-                    prefix_len=0, attend_cache=False):
+                    prefix_len=0, attend_cache=False, sp=False):
         cfg = self.config
         h, new_kv = L.attention(
-            bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
+            bp["attn"], self._norm(x, bp["ln1"], sp), cfg,
             positions, kv_cache=kv, cache_len=cache_len,
             q_chunk=self.q_chunk, prefix_len=prefix_len,
-            attend_cache=attend_cache,
+            attend_cache=attend_cache, sp=sp,
         )
         x = x + h
-        y = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        y = self._norm(x, bp["ln2"], sp)
         if cfg.family == "moe":
             ff, aux = L.moe(bp["ff"], y, cfg, self.moe_capacity,
-                            dispatch_hint=self.moe_dispatch_hint)
+                            dispatch_hint=self.moe_dispatch_hint, sp=sp)
         else:
-            ff, aux = L.mlp(bp["ff"], y), 0.0
+            ff, aux = L.mlp(bp["ff"], y, sp=sp), 0.0
         return x + ff, new_kv, aux
 
-    def _mamba_block(self, bp, x, state=None, kind=BLOCK_MAMBA1):
+    def _mamba_block(self, bp, x, state=None, kind=BLOCK_MAMBA1, sp=False):
         cfg = self.config
         fn = S.mamba if kind == BLOCK_MAMBA1 else S.mamba2
         h, new_state = fn(
-            bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
-            state=state, chunk=self.ssm_chunk,
+            bp["ssm"], self._norm(x, bp["ln1"], sp), cfg,
+            state=state, chunk=self.ssm_chunk, sp=sp,
         )
         return x + h, new_state
 
-    def _cross_block(self, cp, x, enc_out, enc_positions):
+    def _cross_block(self, cp, x, enc_out, enc_positions, sp=False,
+                     enc_sp=False):
         """Decoder cross-attention: q from x, kv from encoder output (no
-        RoPE, no mask, no softcap)."""
+        RoPE, no mask, no softcap); tensor-parallel as ``L.attention``."""
         cfg = self.config
-        b, s, d = x.shape
         hd = cfg.resolved_head_dim
-        nq, nkv = cfg.num_heads, cfg.num_kv_heads
-        y = L.rms_norm(x, cp["ln"], cfg.norm_eps)
-        q = (y @ cp["attn"]["wq"]).reshape(b, s, nq, hd)
-        k = (enc_out @ cp["attn"]["wk"]).reshape(b, -1, nkv, hd)
-        v = (enc_out @ cp["attn"]["wv"]).reshape(b, -1, nkv, hd)
+        y = self._norm(x, cp["ln"], sp)
+        hp = L.head_plan(shard_lib.param_hints(cp["attn"], L.ATTN_SPECS),
+                         cfg)
+        a, nq, nkv = hp.w, hp.nq, hp.nkv
+        y = shard_lib.region_in(y, hp.split, sp)
+        enc_out = shard_lib.region_in(enc_out, hp.split, enc_sp)
+        b, s, d = y.shape
+        q = (y @ a["wq"]).reshape(b, s, nq, hd)
+        k = (enc_out @ a["wk"]).reshape(b, -1, nkv, hd)
+        v = (enc_out @ a["wv"]).reshape(b, -1, nkv, hd)
+        if hp.kv_sel is not None:
+            k, v = k.narrow(2, *hp.kv_sel), v.narrow(2, *hp.kv_sel)
+            nkv = hp.kv_sel[1]
         g = nq // nkv
         qg = q.reshape(b, s, nkv, g, hd)
         logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                               k.float()) * hd**-0.5
         w = torch.softmax(logits, dim=-1)
         o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
-        return x + o.reshape(b, s, nq * hd) @ cp["attn"]["wo"]
+        o = o.reshape(b, s, nq * hd) @ a["wo"]
+        return x + shard_lib.region_out(o, hp.split, sp)
 
     def _remat(self, fn, x):
         """``fn(x)``; under ``torch.utils.checkpoint`` when ``remat`` is
@@ -310,9 +335,10 @@ class Model(nn.Module):
 
     def _decoder_stack(self, x, positions, caches=None, cache_len=None,
                        prefix_len=0, enc_out=None, enc_positions=None,
-                       attend_cache=False):
+                       attend_cache=False, sp=False, enc_sp=False):
         """Runs the decoder stack, layer by layer. Returns (x, new_caches,
-        aux)."""
+        aux).  ``sp`` / ``enc_sp``: ``x`` / ``enc_out`` are
+        sequence-parallel (``positions`` cover the whole sequence)."""
         cfg = self.config
         fam = cfg.family
 
@@ -327,9 +353,10 @@ class Model(nn.Module):
                 def block(x, bp=blk.tree(), cp=cp, kv=kv):
                     x, new_kv, a = self._attn_block(
                         bp, x, positions, kv, cache_len, prefix_len,
-                        attend_cache=attend_cache)
+                        attend_cache=attend_cache, sp=sp)
                     if cp is not None:
-                        x = self._cross_block(cp, x, enc_out, enc_positions)
+                        x = self._cross_block(cp, x, enc_out, enc_positions,
+                                              sp=sp, enc_sp=enc_sp)
                     return x, new_kv, a
 
                 x, new_kv, a = self._remat(block, x)
@@ -350,7 +377,7 @@ class Model(nn.Module):
                                                   caches.ssm[i])
 
                 def block(x, bp=blk.tree(), st=st):
-                    return self._mamba_block(bp, x, st, BLOCK_MAMBA1)
+                    return self._mamba_block(bp, x, st, BLOCK_MAMBA1, sp=sp)
 
                 x, (cv, ss) = self._remat(block, x)
                 new_conv.append(cv)
@@ -363,12 +390,12 @@ class Model(nn.Module):
 
         if fam == "hybrid":
             return self._hybrid_stack(x, positions, caches, cache_len,
-                                      attend_cache=attend_cache)
+                                      attend_cache=attend_cache, sp=sp)
 
         raise ValueError(fam)
 
     def _hybrid_stack(self, x, positions, caches, cache_len,
-                      attend_cache=False):
+                      attend_cache=False, sp=False):
         """zamba2: mamba2 blocks with a SHARED attention block every
         ``attn_every`` layers. The shared block's weights are reused at every
         occurrence; its KV caches are per-occurrence."""
@@ -386,7 +413,7 @@ class Model(nn.Module):
                                                   caches.ssm[i])
 
                 def block(x, bp=self.blocks[i].tree(), st=st):
-                    return self._mamba_block(bp, x, st, BLOCK_MAMBA2)
+                    return self._mamba_block(bp, x, st, BLOCK_MAMBA2, sp=sp)
 
                 x, (cv, ss) = self._remat(block, x)
                 new_conv.append(cv)
@@ -400,11 +427,11 @@ class Model(nn.Module):
             kv = None if caches is None else (caches.kv_k[gi],
                                               caches.kv_v[gi])
 
-            def block(x, kv=kv):
-                return self._attn_block(shared, x, positions, kv, cache_len,
-                                        attend_cache=attend_cache)
-
-            x, new_kv, _ = self._remat(block, x)
+            # the reference scans the mamba blocks under remat and runs the
+            # shared block as it is
+            x, new_kv, _ = self._attn_block(shared, x, positions, kv,
+                                            cache_len,
+                                            attend_cache=attend_cache, sp=sp)
             if new_kv is not None:
                 new_k.append(new_kv[0])
                 new_v.append(new_kv[1])
@@ -420,28 +447,44 @@ class Model(nn.Module):
         return torch.arange(start, start + s,
                             device=self.device)[None].expand(b, s)
 
-    def _encode(self, frames):
+    def _encode(self, frames, sp=False):
         """Encoder stack over frontend frame embeddings (bidirectional)."""
         cfg = self.config
         frames = torch.as_tensor(frames, device=self.device)
-        x = frames.to(L.torch_dtype(cfg.dtype)) @ self.frontend_proj
+        proj = shard_lib.param_hint(self.frontend_proj, (None, "embed"))
+        x = frames.to(L.torch_dtype(cfg.dtype)) @ proj
         b, s, _ = x.shape
         positions = self._positions(b, s)
+        x = self._residual_hint(x, sp)
         for blk in self.enc_blocks:
             def block(x, bp=blk.tree()):
-                return self._attn_block(bp, x, positions, prefix_len=s)[0]
+                return self._attn_block(bp, x, positions, prefix_len=s,
+                                        sp=sp)[0]
 
             x = self._remat(block, x)
         return x, positions
 
     def _embed_inputs(self, batch):
-        """tokens (+ frontend embeddings) -> (x, positions, prefix_len)."""
+        """tokens (+ frontend embeddings) -> (x, positions, prefix_len).
+        Inside ``activation_hints`` a vocabulary split over "model" is
+        looked up where it lies, masked, and summed over "model"."""
         cfg = self.config
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        x = self.embed[tokens]
+        emb = shard_lib.param_hint(self.embed, ("vocab", "embed"))
+        if shard_lib.model_dim(emb) == 0:
+            v_l = emb.shape[0]
+            v0 = shard_lib.mesh_axis("model").rank * v_l
+            here = (tokens >= v0) & (tokens < v0 + v_l)
+            x = emb[(tokens - v0).clamp(0, v_l - 1)]
+            x = shard_lib.all_reduce(
+                torch.where(here[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device)))
+        else:
+            x = emb[tokens]
         if cfg.family == "vlm":
             front = torch.as_tensor(batch["frontend"], device=self.device)
-            pre = front.to(x.dtype) @ self.frontend_proj
+            proj = shard_lib.param_hint(self.frontend_proj, (None, "embed"))
+            pre = front.to(x.dtype) @ proj
             x = torch.cat([pre, x], dim=1)
             prefix = cfg.frontend_tokens
         else:
@@ -449,39 +492,97 @@ class Model(nn.Module):
         b, s, _ = x.shape
         return x, self._positions(b, s), prefix
 
+    def _unembed(self):
+        """(the unembedding as the logits use it, (d, V) — this rank's
+        vocabulary block inside ``activation_hints`` when the vocabulary
+        splits over "model" —, whether it splits)."""
+        if self.config.tie_embeddings:
+            w = shard_lib.param_hint(self.embed, ("vocab", "embed"))
+            return w.T, shard_lib.model_dim(w) == 0
+        w = shard_lib.param_hint(self.unembed, ("embed", "vocab"))
+        return w, shard_lib.model_dim(w) == 1
+
     def _logits(self, x):
+        return self._head(x)[0]
+
+    def _head(self, x, sp=False):
+        """(the logits — this rank's vocabulary block when it splits —,
+        whether it splits)."""
         cfg = self.config
-        x = L.rms_norm(x, self.ln_f, cfg.norm_eps)
-        w = self.embed.T if cfg.tie_embeddings else self.unembed
-        logits = x @ w
+        x = self._norm(x, self.ln_f, sp)
+        w, split = self._unembed()
+        logits = shard_lib.region_in(x, split, sp) @ w
         if cfg.logit_softcap > 0:
             c = cfg.logit_softcap
             logits = c * torch.tanh(logits / c)
-        return logits
+        return logits, split
+
+    def _residual_hint(self, x, sp):
+        """The residual stream into its sequence-parallel layout when
+        ``sp`` (``seq_parallel_spec``)."""
+        return shard_lib.hint(x, shard_lib.seq_parallel_spec) if sp else x
+
+    def _sp(self, seq: int) -> bool:
+        """Whether the residual stream of a ``seq``-long sequence is
+        sequence-parallel: ``seq_parallel`` set, inside
+        ``activation_hints`` with a "model" axis that divides ``seq``."""
+        ax = shard_lib.mesh_axis("model")
+        return bool(self.seq_parallel and ax is not None
+                    and seq % ax.size == 0)
 
     # ------------------------------------------------------------ the loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss: mean next-token NLL over labels >= 0, plus
         0.01 x the MoE aux loss.  Autograd records it when gradients are
-        on and the weights require them (``train.loop``)."""
+        on and the weights require them (``train.loop``).
+
+        Inside ``activation_hints`` it runs on this rank's rows of the
+        batch and its shards of the weights: the residual stream
+        sequence-parallel when ``seq_parallel``, the logits this rank's
+        vocabulary block when it splits, the cross-entropy over the split
+        vocabulary (f32 logits, the max and the sum of exponentials and the
+        label's logit summed over "model"), and the mean over every rank's
+        labels >= 0 (sums over the batch axes).  The value is the global
+        loss on every rank; the gradients are this rank's share, which the
+        collectives' backwards add up.  Outside it every collective is the
+        identity."""
         cfg = self.config
+        enc_out = enc_pos = None
+        enc_sp = False
         if cfg.family == "encdec":
-            enc_out, enc_pos = self._encode(batch["frontend"])
-            x, positions, prefix = self._embed_inputs(batch)
-            x, _, aux = self._decoder_stack(
-                x, positions, enc_out=enc_out, enc_positions=enc_pos)
-        else:
-            x, positions, prefix = self._embed_inputs(batch)
-            x, _, aux = self._decoder_stack(x, positions, prefix_len=prefix)
-        logits = self._logits(x)
+            frames = torch.as_tensor(batch["frontend"], device=self.device)
+            enc_sp = self._sp(frames.shape[1])
+            enc_out, enc_pos = self._encode(frames, sp=enc_sp)
+        x, positions, prefix = self._embed_inputs(batch)
+        sp = self._sp(x.shape[1])
+        x = self._residual_hint(x, sp)
+        x, _, aux = self._decoder_stack(
+            x, positions, prefix_len=prefix, enc_out=enc_out,
+            enc_positions=enc_pos, sp=sp, enc_sp=enc_sp)
+        logits, split = self._head(x, sp)
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         if prefix:
             logits = logits[:, prefix:, :]
         lg = logits.float()
-        lse = torch.logsumexp(lg, dim=-1)
-        ll = lg.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        if split:
+            v_l = lg.shape[-1]
+            v0 = shard_lib.mesh_axis("model").rank * v_l
+            mx = shard_lib.all_reduce_max(lg.amax(-1, keepdim=True))
+            lse = torch.log(shard_lib.all_reduce(
+                torch.exp(lg - mx).sum(-1))) + mx[..., 0]
+            here = (labels >= v0) & (labels < v0 + v_l)
+            ll = lg.gather(-1, (labels - v0).clamp(0, v_l - 1)[..., None])
+            ll = shard_lib.all_reduce(ll[..., 0] * here)
+        else:
+            lse = torch.logsumexp(lg, dim=-1)
+            ll = lg.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
         mask = (labels >= 0).float()
-        nll = ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        num, den = ((lse - ll) * mask).sum(), mask.sum()
+        mesh = shard_lib.hint_mesh()
+        for a in shard_lib.batch_axes(mesh) if mesh is not None else ():
+            num, den = (shard_lib.all_reduce(num, a),
+                        shard_lib.all_reduce(den, a))
+        nll = num / torch.clamp(den, min=1.0)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=self.device)
         total = nll + 0.01 * aux
         return total, {"nll": nll, "aux": aux}
@@ -693,3 +794,33 @@ def params_to_reference(params: Dict[str, torch.Tensor]) -> Dict:
                 for k, v in node.items()}
 
     return walk(stack_layers(params))
+
+
+# ---------------------------------------------------------------------------
+# Input specs (dry-run stand-ins)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, torch.Tensor]:
+    """The model's inputs for a shape cell (``configs.SHAPES``) as tensors
+    on the ``meta`` device, with the reference's shapes and dtypes:
+    ``train`` / ``prefill`` feed whole sequences; ``decode`` feeds one
+    token against a cache of ``seq_len`` (built by the caller)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def sd(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    i32, f32 = torch.int32, torch.float32
+    batch: Dict[str, torch.Tensor] = {}
+    if shape.kind in ("train", "prefill"):
+        batch["tokens"] = sd((b, s), i32)
+        if shape.kind == "train":
+            batch["labels"] = sd((b, s), i32)
+        if cfg.family == "vlm":
+            batch["frontend"] = sd((b, cfg.frontend_tokens,
+                                    cfg.frontend_dim), f32)
+        if cfg.family == "encdec":
+            batch["frontend"] = sd((b, s, cfg.frontend_dim), f32)
+    else:  # decode: one new token, cache of seq_len supplied separately
+        batch["tokens"] = sd((b, 1), i32)
+    return batch

@@ -9,8 +9,18 @@ associative scan; the two agree up to the reassociation of f32 products and
 sums.
 
 Decode (S=1) reuses the same cell with the carried state: the SSM's "KV
-cache" is the O(1) (conv_state, ssm_state) pair.  The reference's GSPMD
-hints are identity on one device and are left out.
+cache" is the O(1) (conv_state, ssm_state) pair.
+
+The reference's hint points are kept (``shard_lib.param_hints``): the
+identity on one device.  Inside ``activation_hints`` the blocks are
+tensor-parallel over d_inner on "model" (``ssm_state_spec``): each rank
+projects, convolves and scans its block of channels (Mamba-2: its block of
+heads), from an ``in_proj`` gathered whole and sliced (its columns
+interleave x / z, and Mamba-2's B / C / dt, which a contiguous shard would
+mix); Mamba-1's ``x_proj`` is row-parallel, summed over "model"; Mamba-2's
+gated norm sums its squares over "model"; ``out_proj`` is row-parallel
+(``shard_lib.region_out``).  When d_inner (Mamba-2: the head count) does
+not split, the block runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shard_lib
 from repro_torch.models.layers import _dtype, normal, rms_norm
 
 Params = Dict[str, torch.Tensor]
@@ -115,14 +126,28 @@ def mamba(
     cfg: ModelConfig,
     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     chunk: int = 256,
+    sp: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Mamba-1 selective SSM. ``state = (conv_state (B, conv-1, di),
     ssm_state (B, di, ds))`` enables stateful decode. Returns (y, new_state).
     """
-    bsz, s, d = x.shape
-    di = cfg.ssm_expand * d
+    di = cfg.ssm_expand * x.shape[-1]
     ds = cfg.ssm_state
     dt_rank = max(di // 16, 1)
+    p = shard_lib.param_hints(p, MAMBA_SPECS)
+    ax = shard_lib.mesh_axis("model")
+    split = ax is not None and di % ax.size == 0
+    if split:
+        di_l = di // ax.size
+        w_in = shard_lib.whole(p["in_proj"])
+        lo = ax.rank * di_l
+        p = dict(p, in_proj=torch.cat([w_in[:, lo:lo + di_l],
+                                       w_in[:, di + lo:di + lo + di_l]], 1))
+        di = di_l
+    elif ax is not None:
+        p = {k: shard_lib.whole(w, "slice") for k, w in p.items()}
+    x = shard_lib.region_in(x, split, sp)
+    bsz, s, d = x.shape
 
     xz = x @ p["in_proj"]                               # (B, S, 2di)
     xi, z = xz[..., :di], xz[..., di:]
@@ -131,6 +156,8 @@ def mamba(
 
     # input-dependent SSM parameters
     proj = xi @ p["x_proj"]                             # (B, S, dt_rank+2ds)
+    if split:
+        proj = shard_lib.all_reduce(proj, grad="sum")   # row-parallel
     dt_in = proj[..., :dt_rank]
     b_in = proj[..., dt_rank : dt_rank + ds].float()
     c_in = proj[..., dt_rank + ds :].float()
@@ -144,7 +171,7 @@ def mamba(
     y, h_last = selective_scan(dt_, a, xf, b_in, c_in, h0, chunk)
     y = y + xf * p["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"]
+    out = shard_lib.region_out(y @ p["out_proj"], split, sp)
     return out, (new_conv_state, h_last.float())
 
 
@@ -190,14 +217,40 @@ def mamba2(
     cfg: ModelConfig,
     state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     chunk: int = 256,
+    sp: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Mamba-2 / SSD with scalar per-head decay. State:
     (conv_state (B, conv-1, di+2ds), ssm_state (B, nh, hd, ds))."""
-    bsz, s, d = x.shape
-    di = cfg.ssm_expand * d
+    di = cfg.ssm_expand * x.shape[-1]
     ds = cfg.ssm_state
     hd = MAMBA2_HEAD_DIM
     nh = di // hd
+    p = shard_lib.param_hints(p, MAMBA2_SPECS)
+    ax = shard_lib.mesh_axis("model")
+    split = ax is not None and nh % ax.size == 0
+    if split:
+        nh_l = nh // ax.size
+        di_l = nh_l * hd
+        lo = ax.rank * di_l
+        w_in, conv_w = shard_lib.whole(p["in_proj"]), shard_lib.whole(
+            p["conv_w"])
+        bc = slice(2 * di, 2 * di + 2 * ds)
+        h0_ = 2 * di + 2 * ds + ax.rank * nh_l
+        p = dict(
+            p,
+            in_proj=torch.cat([w_in[:, lo:lo + di_l],
+                               w_in[:, di + lo:di + lo + di_l], w_in[:, bc],
+                               w_in[:, h0_:h0_ + nh_l]], 1),
+            conv_w=torch.cat([conv_w[:, lo:lo + di_l],
+                              conv_w[:, di:di + 2 * ds]], 1),
+            norm_w=shard_lib.local_block(p["norm_w"], 0, di_l),
+            **{k: shard_lib.local_block(p[k], 0, nh_l)
+               for k in ("dt_bias", "a_log", "d_skip")})
+        di, nh = di_l, nh_l
+    elif ax is not None:
+        p = {k: shard_lib.whole(w, "slice") for k, w in p.items()}
+    x = shard_lib.region_in(x, split, sp)
+    bsz, s, d = x.shape
 
     zxbcdt = x @ p["in_proj"]
     z = zxbcdt[..., :di]
@@ -222,6 +275,29 @@ def mamba2(
                                h0.reshape(bsz, di, ds), chunk)
     y = y + xif * p["d_skip"].repeat_interleave(hd)
     y = y.to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    if split:
+        y = _rms_norm_split(y * F.silu(z), p["norm_w"], cfg.norm_eps,
+                            di * ax.size)
+    else:
+        y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    out = shard_lib.region_out(y @ p["out_proj"], split, sp)
     return out, (new_conv_state, h_last.reshape(bsz, nh, hd, ds).float())
+
+
+def _rms_norm_split(x: torch.Tensor, w: torch.Tensor, eps: float,
+                    width: int) -> torch.Tensor:
+    """``rms_norm`` over a last dim of ``width`` split over "model": the
+    squares are summed over the ranks."""
+    dt = x.dtype
+    x32 = x.float()
+    ss = shard_lib.all_reduce((x32 * x32).sum(-1, keepdim=True), grad="sum")
+    return ((x32 * torch.rsqrt(ss / width + eps)) * (1.0 + w.float())).to(dt)
+
+
+MAMBA_SPECS = {"in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"),
+               "x_proj": ("mlp", None), "dt_proj": (None, "mlp"),
+               "dt_bias": ("mlp",), "a_log": ("mlp", None),
+               "d_skip": ("mlp",), "out_proj": ("mlp", "embed")}
+MAMBA2_SPECS = {"in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"),
+                "dt_bias": (None,), "a_log": (None,), "d_skip": (None,),
+                "norm_w": ("mlp",), "out_proj": ("mlp", "embed")}

@@ -14,19 +14,33 @@ reference's do.  The update is in place: the returned state holds the same
 tensors.
 
 On a mesh whose batch axes (``("pod", "data")`` or ``("data",)``) hold more
-than one rank, the step is data-parallel with replicated parameters: each
-rank takes its rows of every microbatch, and the loss and the gradients are
-averaged with ``all_reduce`` over the batch axes' group.  This is the
-reference's GSPMD step's arithmetic when every rank's rows hold the same
-number of labels >= 0 (the step-seeded pipeline has no masked labels); the
-MoE load-balancing term is then each rank's own.  Sharded execution (FSDP of
-``embed`` over ``data``, tensor parallelism on ``model``) is not ported:
-``distributed.sharding`` resolves the specs; nothing shards the step yet.
+than one rank, the step shards the batch: each rank takes its rows of every
+microbatch.  Two ways, as the reference's ``param_shardings`` says:
+
+* without it the parameters are replicated and the step is data-parallel:
+  the loss and the gradients are averaged with ``all_reduce`` over the
+  batch axes' group.  This is the reference's GSPMD step's arithmetic when
+  every rank's rows hold the same number of labels >= 0 (the step-seeded
+  pipeline has no masked labels); the MoE load-balancing term is then each
+  rank's own.
+* with it (``state_shardings(...).params``) the step is sharded: the state
+  holds each rank's shards (``shard_state``: DTensors placed by the
+  resolved specs), and the model runs on the local shards inside
+  ``sharding.activation_hints`` — FSDP of "embed" over "data" (weights
+  all-gathered before use, gradients reduce-scattered back to the shard
+  each microbatch and added into f32 shards, the reference's
+  ``constrain_grads``) and tensor parallelism on "model" (models/layers.py).
+  The loss is the global one (its sums run over the batch axes), gradients
+  of weights replicated over a batch axis are all-reduced over it once per
+  step, and AdamW updates the shards with the global norm: each rank's
+  square-sums, each leaf's weighted by 1 / the ranks that hold the same
+  shard, summed over the mesh's axes (``AdamW.apply``'s ``sq_norm``).
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.func import functional_call
@@ -64,31 +78,72 @@ def _batch_groups(mesh) -> Tuple[list, int, int]:
     major to minor); ([], 1, 0) without a mesh."""
     if mesh is None:
         return [], 1, 0
-    sizes = shard_lib.axis_sizes(mesh)
+    info = shard_lib.mesh_info(mesh)
     groups, n, rank = [], 1, 0
     for a in shard_lib.batch_axes(mesh):
-        n, rank = n * sizes[a], rank * sizes[a] + mesh.get_local_rank(a)
-        if sizes[a] > 1:
-            groups.append(mesh.get_group(a))
+        size, local, group = info[a]
+        n, rank = n * size, rank * size + local
+        if size > 1:
+            groups.append(group)
     return groups, n, rank
 
 
+def shard_state(state: TrainState, specs, mesh) -> TrainState:
+    """``state`` held as each rank's shards: parameters and both moments
+    become DTensors placed by their resolved specs over ``mesh``, each
+    rank's storage its share, copied out of the whole tensor (every rank
+    passes the same whole state); a tensor no axis splits keeps its
+    storage.  The step counter stays as it is."""
+    from torch.distributed.tensor import DTensor
+
+    sh = state_shardings(specs, state, mesh)
+    info = shard_lib.mesh_info(mesh)
+
+    def local(t, spec):
+        t = t.detach()
+        for i, e in enumerate(spec):
+            n, r = 1, 0
+            for a in shard_lib.entry_axes(e):        # major axis first
+                n, r = n * info[a][0], r * info[a][0] + info[a][1]
+            if n > 1:
+                size = t.shape[i] // n
+                t = t.narrow(i, r * size, size).clone()
+        return t
+
+    def put(tensors, shardings):
+        return {k: DTensor.from_local(local(t, shardings[k].spec), mesh,
+                                      shardings[k].placements(),
+                                      run_check=False)
+                for k, t in tensors.items()}
+
+    return TrainState(params=put(state.params, sh.params), opt=AdamWState(
+        step=state.opt.step, mu=put(state.opt.mu, sh.opt.mu),
+        nu=put(state.opt.nu, sh.opt.nu)))
+
+
+def local_shards(tensors: Dict[str, torch.Tensor]) -> Dict[str,
+                                                          torch.Tensor]:
+    """Each DTensor's local shard (its storage, not a copy); other tensors
+    as they are."""
+    from torch.distributed.tensor import DTensor
+
+    return {k: t.to_local() if isinstance(t, DTensor) else t
+            for k, t in tensors.items()}
+
+
 def make_train_step(model: Model, optimizer: AdamW, mesh=None,
-                    microbatches: int = 1):
+                    microbatches: int = 1, param_shardings=None):
     """Returns (train_step, the batch's spec).  ``mesh``: a ``DeviceMesh``
-    or None (one device)."""
+    or None (one device).  ``param_shardings``: the parameters'
+    ``NamedSharding``s (``state_shardings(...).params``) for the sharded
+    step, whose state holds the shards (``shard_state``, or each rank's
+    local shards as plain tensors); None keeps the parameters replicated."""
+    if param_shardings is not None:
+        return _sharded_train_step(model, optimizer, mesh, microbatches,
+                                   param_shardings)
     groups, n_ranks, rank = _batch_groups(mesh)
     bspec = shard_lib.batch_spec(mesh) if mesh is not None else None
-
-    def rows(x: torch.Tensor) -> torch.Tensor:
-        """(mb, this rank's rows of each microbatch, ...)."""
-        b = x.shape[0]
-        if b % (microbatches * n_ranks):
-            raise ValueError(f"batch {b} does not split into {microbatches} "
-                             f"microbatches over {n_ranks} ranks")
-        x = x.reshape(microbatches, n_ranks, b // (microbatches * n_ranks),
-                      *x.shape[1:])
-        return x[:, rank]
+    rows = _rows(microbatches, n_ranks, rank)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         params = state.params
@@ -133,6 +188,86 @@ def make_train_step(model: Model, optimizer: AdamW, mesh=None,
                                                             **om}
 
     return train_step, bspec
+
+
+def _rows(microbatches: int, n_ranks: int, rank: int):
+    def rows(x: torch.Tensor) -> torch.Tensor:
+        """(mb, this rank's rows of each microbatch, ...)."""
+        b = x.shape[0]
+        if b % (microbatches * n_ranks):
+            raise ValueError(f"batch {b} does not split into {microbatches} "
+                             f"microbatches over {n_ranks} ranks")
+        x = x.reshape(microbatches, n_ranks, b // (microbatches * n_ranks),
+                      *x.shape[1:])
+        return x[:, rank]
+
+    return rows
+
+
+def _sharded_train_step(model: Model, optimizer: AdamW, mesh, microbatches,
+                        param_shardings):
+    sizes = shard_lib.axis_sizes(mesh)
+    specs = {k: sh.spec for k, sh in param_shardings.items()}
+    _, n_ranks, rank = _batch_groups(mesh)
+    rows = _rows(microbatches, n_ranks, rank)
+    # the batch axes a weight is replicated over: its gradient is summed
+    # over them after the microbatches (over "data" the reduce-scatter of
+    # each use has summed it already)
+    reduce_over = {k: [a for a in shard_lib.batch_axes(mesh)
+                       if sizes[a] > 1 and a not in shard_lib.spec_axes(spec)]
+                   for k, spec in specs.items()}
+    norm_weights = {k: 1.0 / float(np.prod(
+        [n for a, n in sizes.items() if a not in shard_lib.spec_axes(spec)]))
+        for k, spec in specs.items()}
+    groups = {a: shard_lib.mesh_info(mesh)[a][2] for a in sizes}
+    mesh_groups = [a for a, n in sizes.items() if n > 1]
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        local = local_shards(state.params)
+        leaves = {k: shard_lib.tag(t.detach().requires_grad_(), specs[k])
+                  for k, t in local.items()}
+        mbs = {k: rows(torch.as_tensor(v, device=model.device))
+               for k, v in batch.items()}
+        gsum = None
+        lsum = 0.0
+        with shard_lib.activation_hints(mesh):
+            for j in range(microbatches):
+                loss, _ = functional_call(
+                    model, leaves, ({k: v[j] for k, v in mbs.items()},))
+                g = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+                loss = loss.detach()
+                if microbatches == 1:
+                    gsum, lsum = list(g), loss
+                    break
+                if gsum is None:
+                    gsum = [gi.float() for gi in g]
+                else:
+                    for a, gi in zip(gsum, g):
+                        a.add_(gi)
+                lsum = lsum + loss
+                del g
+        grads = dict(zip(leaves, gsum))
+        for k, axes in reduce_over.items():
+            for a in axes:
+                dist.all_reduce(grads[k], group=groups[a])
+        if microbatches > 1:
+            grads = {k: a.div_(microbatches) for k, a in grads.items()}
+            lsum = lsum / microbatches
+        opt = AdamWState(step=state.opt.step, mu=local_shards(state.opt.mu),
+                         nu=local_shards(state.opt.nu))
+        # the whole gradient's squared norm: each entry counted once
+        sq = sum(torch.sum(torch.square(g.float())) * norm_weights[k]
+                 for k, g in grads.items())
+        for a in mesh_groups:
+            dist.all_reduce(sq, group=groups[a])
+        _, new_opt, om = optimizer.apply(grads, opt, local, sq_norm=sq)
+        return TrainState(params=state.params, opt=AdamWState(
+            step=new_opt.step, mu=state.opt.mu, nu=state.opt.nu)), {
+            "loss": lsum, **om}
+
+    return train_step, shard_lib.batch_spec(mesh)
 
 
 def make_serve_step(model: Model, mesh=None, seq_shard: bool = False):

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,14 +73,20 @@ class AdamW:
                 for k, p in params.items()})
 
     @torch.no_grad()
-    def apply(self, grads: Tensors, state: AdamWState,
-              params: Tensors) -> Tuple[Tensors, AdamWState, Dict]:
+    def apply(self, grads: Tensors, state: AdamWState, params: Tensors,
+              sq_norm: Optional[torch.Tensor] = None
+              ) -> Tuple[Tensors, AdamWState, Dict]:
         """One update of ``params`` and the moments, in place, from
         ``grads`` (any float dtype).  Returns (params, the new state,
-        {"grad_norm", "lr"} as device scalars)."""
+        {"grad_norm", "lr"} as device scalars).
+
+        ``sq_norm``: the whole gradient's squared norm, where ``grads`` are
+        not all of it (``train.loop``'s sharded step passes the sum over
+        its mesh); None takes it from ``grads``."""
         g32 = {k: g.float() for k, g in grads.items()}
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
-                               for g in g32.values()))
+        if sq_norm is None:
+            sq_norm = sum(torch.sum(torch.square(g)) for g in g32.values())
+        gnorm = torch.sqrt(sq_norm)
         clip = torch.tensor(self.clip_norm, dtype=torch.float32,
                             device=gnorm.device)
         scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)

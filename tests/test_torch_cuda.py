@@ -1048,3 +1048,61 @@ def test_cuda_checkpoint_roundtrip(cuda, tmp_path):
     assert step == 1 and int(back.opt.step) == 1
     for k, v in want.items():
         assert back.params[k].is_cuda and torch.equal(back.params[k], v), k
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "granite-34b",
+                                  "granite-moe-3b-a800m", "paligemma-3b",
+                                  "zamba2-1.2b", "seamless-m4t-medium",
+                                  "falcon-mamba-7b"])
+def test_cuda_sharded_step_on_one_rank_mesh(cuda, tmp_path, arch):
+    """The sharded step (``shard_state``, ``param_shardings``) on a (1, 1)
+    NCCL mesh against the unsharded step on the card: two steps of the
+    smoke config (bf16, 2 microbatches), the same losses and parameters
+    bit for bit (every collective is over an axis of size 1)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.train.data import DataConfig, batch_for_step
+    from repro_torch.train.loop import (
+        init_train_state, local_shards, make_train_step, shard_state,
+        state_shardings)
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = get_smoke_config(arch)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=33, global_batch=4,
+                      copy_period=8, family=cfg.family,
+                      frontend_tokens=cfg.frontend_tokens,
+                      frontend_dim=cfg.frontend_dim)
+    out = []
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for sharded in (False, True):
+            model = build_model(cfg, device=cuda, q_chunk=64, ssm_chunk=8)
+            opt = AdamW(lr=1e-3, warmup_steps=5, total_steps=20)
+            state, specs = init_train_state(model, opt)
+            if sharded:
+                sh = state_shardings(specs, state, mesh)
+                state = shard_state(state, specs, mesh)
+                ts, _ = make_train_step(model, opt, mesh, 2,
+                                        param_shardings=sh.params)
+            else:
+                ts, _ = make_train_step(model, opt, microbatches=2)
+            losses = []
+            for step in range(2):
+                state, m = ts(state, batch_for_step(dcfg, step))
+                losses.append(float(m["loss"]))
+            out.append((losses, {k: t.detach().clone() for k, t in
+                                 local_shards(state.params).items()}))
+    finally:
+        dist.destroy_process_group()
+    (l0, p0), (l1, p1) = out
+    assert l0 == l1
+    for k, v in p0.items():
+        assert torch.equal(p1[k], v), k
