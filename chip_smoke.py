@@ -144,7 +144,21 @@ not printed):
    decode steps (prefill ms, median decode ms, tokens a second, KV-cache
    bytes, peak memory); the same requests on an f32 copy, its decode
    logits against one teacher-forced forward within 1e-3 of the largest
-   |logit|.  Then ``examples/image_retrieval.py`` at scale: 16,384
+   |logit|.  Then the same requests through the sharded serving steps
+   (``serve_sharded``: ``serve_params``, ``make_prefill_step``,
+   ``make_serve_step``): on a (1, 1) NCCL mesh, 32 greedy steps whose
+   tokens, logits and cache must equal the unsharded run's bit for bit
+   (prefill and decode ms beside the unsharded ones); then a (2, 2) mesh
+   of 4 gloo processes on the one card (``serve_mesh_rank``: the model
+   from the same seed, each rank 4 rows, 4 q heads, 160 of the cache's 320
+   positions and 128,608 of the vocabulary), 8 decode steps fed the
+   one-rank greedy tokens: fails unless every rank exits 0, each greedy
+   token is the one-rank token or a tie within the zoo's bf16 bar, and the
+   logits are no further from an f32 copy's (fed the same tokens) than
+   the one-rank bf16 run's are, plus that bar's atol (ms a step,
+   collective bytes a step, the cache's local bytes; the logits' distance
+   from the one-rank run's).  Then
+   ``examples/image_retrieval.py`` at scale: 16,384
    synthetic images (512 classes x 32, class centres N(0, 1), noise 0.3,
    4 prompt tokens) embedded 64 at a time and pooled over the patches,
    indexed by ``EmbeddingRetriever(metric="angular")`` on the card (PQ 32
@@ -187,14 +201,18 @@ not printed):
    mesh (NCCL takes one rank a card; the multi-rank meshes are the CPU
    tests' gloo ones): fails unless its losses are within 1e-3 relative of
    (b)'s first steps (whether they are bit-equal is printed); step ms and
-   peak bytes.  (f) The dry-run (``start_dryrun``, three processes of
+   peak bytes.  (f) The dry-run (``start_dryrun``, four processes of
    their own started as the train phase starts, after the phases that
    measure QPS and latency on the host; fake tensors over fake process
    groups, no card): ``python -m repro_torch.launch.dryrun`` over
    StableLM-1.6B's train_4k cell on the (16, 16) and (2, 16, 16)
-   production meshes, and (b)'s own cell on a (1, 1) mesh: fails unless
-   both production records are "ok" with FLOPs and collective bytes and
-   the (1, 1) trace's peak bytes are within 25% of (e)'s measured peak;
+   production meshes, (b)'s own cell on a (1, 1) mesh, and the serving
+   cells on (16, 16) (``dryrun_serve``: StableLM's prefill_32k and
+   decode_32k, PaliGemma's decode_32k): fails unless both production
+   records and the three serving cells are "ok" with FLOPs and collective
+   bytes and the (1, 1) trace's peak bytes are within 25% of (e)'s
+   measured peak (each serving cell's bottleneck, collective bytes by
+   kind, traced peak and ``kv_bytes_local`` are printed);
    per-device FLOPs, collective bytes by kind, peak bytes, bottleneck, and
    the (1, 1) trace's dot FLOPs beside (b)'s model FLOPs and (e)'s step ms
    are printed.
@@ -2531,6 +2549,8 @@ SERVE_BATCH = 8                  # requests: 256 patches + 32 prompt tokens
 SERVE_PROMPT = 32
 SERVE_STEPS = 32                 # greedy decode steps
 SERVE_TF_RTOL = 1e-3             # f32 decode vs teacher forcing, of max|logit|
+SERVE_MESH_SHAPE = (2, 2)        # (data, model) gloo ranks on the one card
+SERVE_MESH_STEPS = 8             # of SERVE_STEPS, on that mesh: cut for time
 # 512 classes x 32 images = 16,384.  Not 256 x 64: with 64 a class the
 # retriever's build list (2R = 64) holds only the point's own class, the
 # graph falls into 256 cliques and recall@10 collapses, in the reference as
@@ -2661,12 +2681,8 @@ def serve_phase(torch, dev, cfg, seed: int, log) -> tuple:
     rec["params"] = sum(p.numel() for p in model.parameters())
     rec["param_bytes"] = sum(p.numel() * p.element_size()
                              for p in model.parameters())
-    g = torch.Generator(device=dev).manual_seed(seed + 1)
-    front = torch.randn((SERVE_BATCH, cfg.frontend_tokens, cfg.frontend_dim),
-                        generator=g, device=dev)
-    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
-                         generator=g, device=dev)
-    batch = {"tokens": toks, "frontend": front}
+    batch = _serve_inputs(torch, dev, cfg, seed)
+    toks, front = batch["tokens"], batch["frontend"]
     internal = cfg.frontend_tokens + SERVE_PROMPT
     max_len = internal + SERVE_STEPS
 
@@ -2734,6 +2750,316 @@ def serve_phase(torch, dev, cfg, seed: int, log) -> tuple:
         f"{scale:.3g} (bound {SERVE_TF_RTOL} x): "
         f"{rec['f32_teacher_forcing']['ok']}")
     return rec, model
+
+
+def _greedy(torch, prefill, step, steps: int, gather=None, forced=None):
+    """Greedy serving through ``prefill()`` and ``step(cache, tokens)``:
+    (prefill seconds, each step's seconds, the greedy tokens (B, steps +
+    1) — each logits row's argmax, the prefill's first —, the logits (B,
+    V) of the prefill and of every step, the last cache).  ``gather``
+    makes a sharded step's logits whole; ``forced`` (B, >= steps) feeds
+    those tokens instead of the greedy ones (teacher forcing)."""
+    gather = gather or (lambda x: x)
+    sync = (torch.cuda.synchronize if torch.cuda.is_available()
+            else (lambda: None))
+    sync()
+    t = time.perf_counter()
+    lg, cache = prefill()
+    lg = gather(lg)[:, -1]
+    sync()
+    prefill_s = time.perf_counter() - t
+    logits, toks, step_s = [lg], [lg.argmax(-1, keepdim=True)], []
+    for i in range(steps):
+        feed = toks[-1] if forced is None else forced[:, i : i + 1]
+        t = time.perf_counter()
+        lg, cache = step(cache, feed)
+        lg = gather(lg)[:, -1]
+        toks.append(lg.argmax(-1, keepdim=True))
+        sync()
+        step_s.append(time.perf_counter() - t)
+        logits.append(lg)
+    return prefill_s, step_s, torch.cat(toks, 1), logits, cache
+
+
+def _serve_inputs(torch, dev, cfg, seed: int) -> dict:
+    """``serve_phase``'s SERVE_BATCH requests (a seeded generator on the
+    card)."""
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    front = torch.randn((SERVE_BATCH, cfg.frontend_tokens, cfg.frontend_dim),
+                        generator=g, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                         generator=g, device=dev)
+    return {"tokens": toks, "frontend": front}
+
+
+def _traffic_bytes(counter) -> int:
+    return sum(v for k, v in counter.items() if k != "collectives")
+
+
+def serve_sharded(torch, dev, model, unsharded: dict, seed: int, out_dir,
+                  repo, log) -> dict:
+    """``serve_phase``'s requests through the sharded serving steps
+    (``train.loop.serve_params`` / ``make_prefill_step`` /
+    ``make_serve_step``).  On a (1, 1) NCCL mesh in this process, on
+    ``model``'s own weights: SERVE_STEPS greedy steps, whose tokens and
+    logits must equal the unsharded run's bit for bit (every collective is
+    over an axis of size 1); prefill ms and decode ms a step beside
+    ``unsharded``'s.  Then a SERVE_MESH_SHAPE mesh of gloo rank processes
+    on the one card (``serve_mesh_rank``): the same model from the same
+    seed, each rank its rows of the batch, its q heads, its block of the
+    cache's positions (1 kv head) and of the vocabulary; SERVE_MESH_STEPS
+    decode steps teacher-forced on the one-rank greedy tokens.  Its
+    greedy tokens against the one-rank ones: each must be the same, or a
+    tie within the zoo's bf16 bar (``_zoo_tol``) in the one-rank logits.
+    Its logits against an f32 copy of the model fed the same tokens: no
+    further from them than the one-rank bf16 run's, plus that bar's atol
+    (at full width bf16 itself is ~4x the bar from f32, PERF.md; the
+    distance from the one-rank run's, and whether it is within the bar,
+    are printed)."""
+    import datetime
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.loop import (
+        make_prefill_step, make_serve_step, serve_params)
+
+    from repro_torch.models.model import build_model
+
+    cfg = model.config
+    batch = _serve_inputs(torch, dev, cfg, seed)
+    max_len = cfg.frontend_tokens + SERVE_PROMPT + SERVE_STEPS
+    one = _greedy(torch, lambda: model.prefill(batch, max_len=max_len),
+                  model.decode_step, SERVE_STEPS)
+    # an f32 copy fed the same tokens: how far bf16 itself is from f32
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(seed))
+    m32.load_state_dict(model.state_dict())
+    f32 = [x.cpu() for x in _greedy(
+        torch, lambda: m32.prefill(batch, max_len=max_len), m32.decode_step,
+        SERVE_MESH_STEPS, forced=one[2])[3]]
+    del m32
+    torch.cuda.empty_cache()
+    rec = {"unsharded_prefill_ms": unsharded["prefill_ms"],
+           "unsharded_decode_ms_median": unsharded["decode_ms_median"]}
+    (out_dir / "store_serve").unlink(missing_ok=True)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        store=dist.FileStore(str(out_dir / "store_serve"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        params = serve_params(model, mesh)
+        prefill = make_prefill_step(model, mesh, max_len=max_len)
+        step = make_serve_step(model, mesh)
+
+        def run():
+            return _greedy(torch, lambda: prefill(params, batch),
+                           lambda c, t: step(params, c, t), SERVE_STEPS)
+
+        run()                                        # untimed: warm-up
+        prefill_s, step_s, toks, logits, cache = run()
+    finally:
+        dist.destroy_process_group()
+    rec["mesh_1x1"] = {
+        "prefill_ms": prefill_s * 1e3,
+        "decode_ms_median": _median(step_s) * 1e3,
+        "tokens_equal": bool(torch.equal(toks, one[2])),
+        "logits_bit_equal": all(torch.equal(a, b)
+                                for a, b in zip(logits, one[3])),
+        "cache_bit_equal": all(
+            torch.equal(a, b) for a, b in zip(cache[:5], one[4][:5])
+            if a is not None),
+        "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(logits, one[3]))}
+    r = rec["mesh_1x1"]
+    log(f"{cfg.name} sharded serving on a (1, 1) NCCL mesh (serve_params, "
+        f"make_prefill_step, make_serve_step; {SERVE_STEPS} greedy steps): "
+        f"prefill_ms={r['prefill_ms']:.2f} (unsharded "
+        f"{rec['unsharded_prefill_ms']:.2f}) decode_ms_median="
+        f"{r['decode_ms_median']:.3f} (unsharded "
+        f"{rec['unsharded_decode_ms_median']:.3f}); tokens equal "
+        f"{r['tokens_equal']}, logits bit-equal {r['logits_bit_equal']}, "
+        f"cache bit-equal {r['cache_bit_equal']}")
+    del params, cache, logits
+
+    work = out_dir / "serve_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.save({k: v.cpu() for k, v in batch.items()}, work / "batch.pt")
+    torch.save(one[2].cpu(), work / "forced.pt")
+    (work / "meta.json").write_text(json.dumps({
+        "seed": seed, "max_len": max_len, "device": dev.type,
+        "config": dataclasses.asdict(cfg)}))
+    ranks = math.prod(SERVE_MESH_SHAPE)
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.serve_mesh_rank(sys.argv[1:]))", str(rank),
+         str(work)], cwd=repo, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(ranks)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=900)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    (out_dir / "serve_mesh_ranks.log").write_text("\n".join(
+        f"== rank {i} (exit {proc.returncode})\n{text}"
+        for i, (proc, text) in enumerate(zip(procs, logs))))
+    m = rec["mesh"] = {"shape": list(SERVE_MESH_SHAPE),
+                       "exit_codes": [p.returncode for p in procs],
+                       "s": time.perf_counter() - t0}
+    if all(c == 0 for c in m["exit_codes"]):
+        ranks_rec = [json.loads((work / f"rank{i}.json").read_text())
+                     for i in range(ranks)]
+        got = torch.load(work / "logits.pt")
+        rtol, atol = _zoo_tol(cfg)
+        want = [x.float().cpu() for x in one[3][:SERVE_MESH_STEPS + 1]]
+        got = [x.float() for x in got]
+        want_tok = one[2][:, :SERVE_MESH_STEPS + 1].cpu()
+        mism, ties = 0, 0
+        t = torch.tensor(ranks_rec[0]["tokens"])
+        for i, j in zip(*torch.nonzero(t != want_tok, as_tuple=True)):
+            mism += 1
+            a = want[j][i, want_tok[i, j]]
+            b = want[j][i, t[i, j]]
+            ties += bool(abs(a - b) <= atol + rtol * abs(a))
+        m.update(
+            one_rank_bf16_vs_f32=max(float((a - b).abs().max())
+                                     for a, b in zip(want, f32)),
+            mesh_bf16_vs_f32=max(float((a - b).abs().max())
+                                 for a, b in zip(got, f32)),
+            ranks_agree=all(r_["tokens"] == ranks_rec[0]["tokens"]
+                            for r_ in ranks_rec),
+            within_zoo_bar=all(torch.allclose(a, b, rtol=rtol, atol=atol)
+                               for a, b in zip(got, want)),
+            max_abs_err=max(float((a - b).abs().max())
+                            for a, b in zip(got, want)),
+            rtol=rtol, atol=atol, token_mismatches=mism,
+            mismatches_within_bar=ties,
+            tokens_ok=mism == ties, tokens_compared=int(t.numel()),
+            ranks=ranks_rec)
+        m["logits_ok"] = (m["mesh_bf16_vs_f32"]
+                          <= m["one_rank_bf16_vs_f32"] + atol)
+        r0 = ranks_rec[0]
+        log(f"{cfg.name} sharded serving on a {SERVE_MESH_SHAPE} gloo mesh "
+            f"({ranks} processes, one card; {SERVE_MESH_STEPS} decode steps "
+            f"on the one-rank tokens): logits max abs err from one rank's "
+            f"{m['max_abs_err']:.3g} (within rtol {rtol} / atol {atol}: "
+            f"{m['within_zoo_bar']}); from an f32 copy fed the same tokens: "
+            f"mesh {m['mesh_bf16_vs_f32']:.3g}, one rank "
+            f"{m['one_rank_bf16_vs_f32']:.3g} (the mesh within one rank's "
+            f"+ {atol}: {m['logits_ok']}), greedy tokens that differ "
+            f"{mism} of "
+            f"{m['tokens_compared']} ({ties} ties within the bar), the "
+            f"ranks' tokens agree {m['ranks_agree']}; rank 0: rows "
+            f"{r0['rows']}, q heads "
+            f"{r0['q_heads']}, vocab block {r0['vocab_block']}, cache "
+            f"{json.dumps(r0['cache_local_shapes'])} = "
+            f"{r0['cache_local_bytes']:,} bytes, prefill_ms "
+            f"{r0['prefill_ms']:.1f}, decode_ms_median "
+            f"{r0['decode_ms_median']:.1f}, collective bytes a step "
+            f"{r0['collective_bytes_per_step']:,} "
+            f"({json.dumps(r0['collective_bytes_by_kind_per_step'])}), "
+            f"weights {r0['param_local_bytes']:,} bytes, peak "
+            f"{r0['peak_bytes']:,}")
+    log(f"sharded serving gloo mesh: exit codes {m['exit_codes']}, "
+        f"{m['s']:.1f} s (rank logs in serve_mesh_ranks.log)")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_mesh_rank(argv) -> int:
+    """One rank of ``serve_sharded``'s gloo mesh (``python -c "import
+    chip_smoke; chip_smoke.serve_mesh_rank([rank, dir])"`` from the repo
+    root): the config and seed in ``dir``/meta.json on its device, its
+    shards placed by ``serve_params`` and the whole weights freed, the
+    requests in ``dir``/batch.pt prefilled and SERVE_MESH_STEPS decode
+    steps fed the tokens in ``dir``/forced.pt; its greedy tokens, its
+    cache's local bytes, ms a step and collective bytes a step into
+    ``dir``/rank<r>.json, the gathered logits (rank 0) into
+    ``dir``/logits.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    rank, work = int(argv[0]), Path(argv[1])
+    meta = json.loads((work / "meta.json").read_text())
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(work / "store"),
+                                     math.prod(SERVE_MESH_SHAPE)),
+        rank=rank, world_size=math.prod(SERVE_MESH_SHAPE),
+        timeout=datetime.timedelta(seconds=600))
+    try:
+        from repro_torch.configs import ModelConfig
+        from repro_torch.distributed import sharding as shard_lib
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.model import build_model
+        from repro_torch.train.loop import (
+            make_prefill_step, make_serve_step, serve_params)
+
+        dev = torch.device(meta["device"])
+        cuda = dev.type == "cuda"
+        cfg = ModelConfig(**meta["config"])
+        mesh = make_mesh(SERVE_MESH_SHAPE, ("data", "model"),
+                         device_type=dev.type)
+        model = build_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(meta["seed"]))
+        params = serve_params(model, mesh)
+        model.to("meta")
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        batch = {k: v.to(dev) for k, v in torch.load(
+            work / "batch.pt").items()}
+        forced = torch.load(work / "forced.pt").to(dev)
+        prefill = make_prefill_step(model, mesh, max_len=meta["max_len"])
+        step = make_serve_step(model, mesh)
+        traffic = []
+
+        def stepped(cache, tok):
+            before = dict(shard_lib.TRAFFIC)
+            out = step(params, cache, tok)
+            traffic.append({k: v - before.get(k, 0)
+                            for k, v in shard_lib.TRAFFIC.items()})
+            return out
+
+        prefill_s, step_s, toks, logits, cache = _greedy(
+            torch, lambda: prefill(params, batch), stepped,
+            SERVE_MESH_STEPS, lambda x: shard_lib.full_tensor(x, mesh),
+            forced)
+        per_step = {k: _median([t.get(k, 0) for t in traffic])
+                    for k in traffic[0] if k != "collectives"}
+        rec = {
+            "tokens": toks.cpu().tolist(),
+            "rows": SERVE_BATCH // SERVE_MESH_SHAPE[0],
+            "q_heads": cfg.num_heads // SERVE_MESH_SHAPE[1],
+            "vocab_block": int(params["unembed"].shape[-1]),
+            "cache_local_shapes": {
+                f: list(getattr(cache, f).shape) for f in ("kv_k", "kv_v")},
+            "cache_local_bytes": cache.nbytes(),
+            "param_local_bytes": sum(t.numel() * t.element_size()
+                                     for t in params.values()),
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms": [t * 1e3 for t in step_s],
+            "decode_ms_median": _median(step_s) * 1e3,
+            "collective_bytes_per_step": _traffic_bytes(per_step),
+            "collective_bytes_by_kind_per_step": per_step,
+            "collectives_per_step": _median([t.get("collectives", 0)
+                                             for t in traffic]),
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+        if rank == 0:
+            torch.save([x.cpu() for x in logits], work / "logits.pt")
+        (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def retrieval_phase(torch, dev, model, seed: int, log) -> tuple:
@@ -2859,13 +3185,17 @@ def retrieval_phase(torch, dev, model, seed: int, log) -> tuple:
     return rec, captured
 
 
-def model_phase(torch, dev, serve_cfg, seed: int, log) -> tuple:
+def model_phase(torch, dev, serve_cfg, seed: int, out_dir, repo,
+                log) -> tuple:
     """The model zoo on the card (``zoo_phase``), PaliGemma served at
-    ``serve_cfg``'s width (``serve_phase``) and its image embeddings
-    retrieved through the four kernels (``retrieval_phase``).  Frees every
-    model before it returns (record, the retriever's kernel arguments)."""
+    ``serve_cfg``'s width (``serve_phase``), sharded (``serve_sharded``),
+    and its image embeddings retrieved through the four kernels
+    (``retrieval_phase``).  Frees every model before it returns (record,
+    the retriever's kernel arguments)."""
     rec = {"zoo": zoo_phase(torch, dev, seed, log)}
     rec["serve"], model = serve_phase(torch, dev, serve_cfg, seed, log)
+    rec["sharded"] = serve_sharded(torch, dev, model, rec["serve"], seed,
+                                   out_dir, repo, log)
     rec["retrieval"], captured = retrieval_phase(torch, dev, model, seed, log)
     del model
     torch.cuda.empty_cache()
@@ -2876,6 +3206,25 @@ def model_failures(rec: dict) -> list:
     fails = [f"model zoo {k}: card vs CPU max abs err {v['max_abs_err']:.3g}"
              f" beyond rtol {v['rtol']} / atol {v['atol']}"
              for k, v in rec["zoo"].items() if not v["ok"]]
+    sh = rec["sharded"]
+    r = sh["mesh_1x1"]
+    if not (r["tokens_equal"] and r["logits_bit_equal"]
+            and r["cache_bit_equal"]):
+        fails.append(f"sharded serving on (1, 1) differs from unsharded: "
+                     f"{json.dumps(r)}")
+    m = sh["mesh"]
+    if any(c != 0 for c in m["exit_codes"]):
+        fails.append(f"sharded serving gloo mesh: exit codes "
+                     f"{m['exit_codes']}")
+    elif not (m["logits_ok"] and m["tokens_ok"] and m["ranks_agree"]):
+        fails.append(f"sharded serving gloo mesh: logits max abs err "
+                     f"{m['max_abs_err']:.3g}, from the f32 copy's "
+                     f"{m['mesh_bf16_vs_f32']:.3g} against one rank's "
+                     f"{m['one_rank_bf16_vs_f32']:.3g} (ok "
+                     f"{m['logits_ok']}), "
+                     f"{m['token_mismatches']} greedy tokens differ, "
+                     f"{m['mismatches_within_bar']} of them ties; ranks "
+                     f"agree {m['ranks_agree']}")
     tf = rec["serve"]["f32_teacher_forcing"]
     if not tf["ok"]:
         fails.append(f"{rec['serve']['config']} f32 decode vs teacher "
@@ -3165,6 +3514,9 @@ SHARDED_RTOL = 1e-3              # its losses against train_full's, relative
 # launch.dryrun's --mesh: (16, 16) and (2, 16, 16), a process each
 DRYRUN_MESHES = ("single", "multi")
 DRYRUN_PEAK_TOL = 0.25           # the traced (1, 1) cell's peak vs the card's
+# the serving cells the dry-run traces on the (16, 16) mesh
+DRYRUN_SERVE_CELLS = ((TRAIN_ARCH, "prefill_32k"), (TRAIN_ARCH, "decode_32k"),
+                      (SERVE_ARCH, "decode_32k"))
 
 
 def start_dryrun(repo, out_dir) -> list:
@@ -3184,7 +3536,10 @@ def start_dryrun(repo, out_dir) -> list:
     cmds.update({
         "anchor": [sys.executable, "-c",
                    "import sys, chip_smoke; chip_smoke.dryrun_anchor("
-                   "sys.argv[1])", str(out_dir / "dryrun_anchor.json")]})
+                   "sys.argv[1])", str(out_dir / "dryrun_anchor.json")],
+        "serve": [sys.executable, "-c",
+                  "import sys, chip_smoke; chip_smoke.dryrun_serve("
+                  "sys.argv[1])", str(out_dir / "dryrun_serve.json")]})
     import atexit
 
     procs = []
@@ -3213,6 +3568,32 @@ def dryrun_anchor(out: str) -> None:
                          model_kw={"q_chunk": max(TRAIN_SEQ - 1, 64)},
                          microbatches=TRAIN_MICROBATCHES)
     Path(out).write_text(json.dumps(rec, indent=1))
+
+
+def dryrun_serve(out: str) -> None:
+    """Traces DRYRUN_SERVE_CELLS on the (16, 16) production mesh with
+    ``launch.dryrun.lower_cell`` (a cell that raises is recorded with
+    ``status: "error"``); writes the records to ``out``.  Run in a process
+    of its own (``start_dryrun``)."""
+    import traceback
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.dryrun import (
+        PRODUCTION_MESHES, fake_mesh, lower_cell)
+
+    recs = {}
+    shape, axes = PRODUCTION_MESHES[False]
+    with fake_mesh(shape, axes) as mesh:
+        for arch, cell in DRYRUN_SERVE_CELLS:
+            key = f"{arch}|{cell}|16x16"
+            try:
+                recs[key] = lower_cell(arch, SHAPES[cell], mesh)
+            except Exception as e:
+                recs[key] = {"status": "error",
+                             "error": f"{type(e).__name__}: {e}",
+                             "trace": traceback.format_exc()[-2000:]}
+            Path(out).write_text(json.dumps(recs, indent=1))
 
 
 def finish_dryrun(procs, out_dir, sharded, full, log) -> dict:
@@ -3254,6 +3635,27 @@ def finish_dryrun(procs, out_dir, sharded, full, log) -> dict:
                          useful_ratio=rl["useful_ratio"])
             rec["cells"][key] = c
             log(f"dry-run {key}: {json.dumps(c)}")
+    rec["serve_cells"] = {}
+    path = out_dir / "dryrun_serve.json"
+    for key, cell in (json.loads(path.read_text()).items()
+                      if path.exists() else ()):
+        c = {"status": cell["status"]}
+        if cell["status"] == "ok":
+            rl = cell["roofline"]
+            c.update(trace_s=cell["trace_s"], bottleneck=rl["bottleneck"],
+                     coll_breakdown=rl["coll_breakdown"],
+                     flops_per_device=rl["flops"],
+                     peak_bytes=cell["memory"]["peak_memory_in_bytes"],
+                     temp_bytes=cell["memory"]["temp_size_in_bytes"],
+                     kv_bytes_local=cell["kv_bytes_local"],
+                     cache_bytes_local=cell["cache_bytes_local"],
+                     compute_s=rl["compute_s"], memory_s=rl["memory_s"],
+                     collective_s=rl["collective_s"],
+                     useful_ratio=rl["useful_ratio"])
+        else:
+            c["error"] = cell.get("error")
+        rec["serve_cells"][key] = c
+        log(f"dry-run serving cell {key}: {json.dumps(c)}")
     path = out_dir / "dryrun_anchor.json"
     if path.exists():
         a = json.loads(path.read_text())
@@ -3394,6 +3796,11 @@ def train_failures(rec: dict) -> list:
     if len(ok) != 2:
         fails.append(f"dry-run: {len(ok)} ok production cells, not 2: "
                      f"{json.dumps(dr['cells'])}")
+    want = {f"{a}|{c}|16x16" for a, c in DRYRUN_SERVE_CELLS}
+    ok = {k for k, c in dr["serve_cells"].items() if c["status"] == "ok"}
+    if ok != want:
+        fails.append(f"dry-run serving cells not ok: "
+                     f"{json.dumps(dr['serve_cells'])}")
     a = dr.get("anchor")
     if a is None or not a["peak_rel_err"] <= DRYRUN_PEAK_TOL:
         fails.append(f"dry-run of the train phase's cell: traced peak vs "
@@ -3710,7 +4117,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
 
     models, retr_inputs = model_phase(torch, dev, get_config(SERVE_ARCH),
-                                      args.seed, log)
+                                      args.seed, out_dir, repo, log)
     mark("models")
     trained = train_phase(torch, dev, repo, out_dir, args.seed, log)
     mark("train")

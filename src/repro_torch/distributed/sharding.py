@@ -40,10 +40,22 @@ on each rank's **local** tensors (``train.loop``'s sharded step):
     a region each rank's cotangents are partial sums over "model", which
     the region's entry and every ``partial`` weight add up.
 
+Serving runs the same way (``train.loop.make_serve_step`` /
+``make_prefill_step``): the decode cache is placed by ``cache_shardings``
+(``init_cache`` inside the hints makes each rank's leaves, ``shard_cache``
+/ ``gather_cache`` place a whole one and gather it back), every local leaf
+carries its resolved spec (``tag``), and the attention and SSM layers read
+it.  A batch the batch axes do not divide is whole on every rank
+(``activation_hints(mesh, batch_split=False)``): the cache's sequence
+splits over "data" instead, and ``batch_axis`` is None.  On a gloo group a
+tensor on the card goes through host memory; ``TRAFFIC`` counts the bytes
+handed to the collectives, by kind.
+
 ``abstract_mesh`` is JAX's: a ``{name: size}`` map takes its place.
 """
 from __future__ import annotations
 
+import collections
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -53,6 +65,11 @@ import torch.distributed as dist
 Spec = Tuple
 
 _HINT_MESH = None
+_BATCH_SPLIT = True
+
+# bytes handed to the collectives below, by kind (the output of a gather or
+# a reduce-scatter, the tensor of an all-reduce), and their number
+TRAFFIC: collections.Counter = collections.Counter()
 
 
 class NamedSharding(NamedTuple):
@@ -321,26 +338,45 @@ class activation_hints:
     ``DeviceMesh``): the hints below set the layout with collectives over
     its groups.  Outside it they are the identity (one-device paths stay
     as they are).  The backward of a step must run inside it too: a block's
-    recompute under remat runs its hints again."""
+    recompute under remat runs its hints again.  ``batch_split``: each rank
+    holds its rows of the batch (its block over the batch axes); False, the
+    whole batch (a serving batch the axes do not divide)."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, batch_split: bool = True):
         self.mesh = mesh
+        self.batch_split = batch_split
 
     def __enter__(self):
-        global _HINT_MESH
-        self._old = _HINT_MESH
-        _HINT_MESH = self.mesh
+        global _HINT_MESH, _BATCH_SPLIT
+        self._old = _HINT_MESH, _BATCH_SPLIT
+        _HINT_MESH, _BATCH_SPLIT = self.mesh, self.batch_split
         return self.mesh
 
     def __exit__(self, *exc):
-        global _HINT_MESH
-        _HINT_MESH = self._old
+        global _HINT_MESH, _BATCH_SPLIT
+        _HINT_MESH, _BATCH_SPLIT = self._old
         return False
 
 
 def hint_mesh():
     """The mesh of the enclosing ``activation_hints``, or None."""
     return _HINT_MESH
+
+
+def batch_entry():
+    """The spec entry of the batch dim inside ``activation_hints``: the
+    batch axes when each rank holds its rows, else None (also outside)."""
+    if _HINT_MESH is None or not _BATCH_SPLIT:
+        return None
+    return _entry(batch_axes(_HINT_MESH))
+
+
+def global_batch(rows: int) -> int:
+    """The global batch of a rank's ``rows`` of it."""
+    if batch_entry() is None:
+        return rows
+    sizes = axis_sizes(_HINT_MESH)
+    return rows * int(np.prod([sizes[a] for a in batch_axes(_HINT_MESH)]))
 
 
 class Axis(NamedTuple):
@@ -360,24 +396,53 @@ def mesh_axis(name: str) -> Optional[Axis]:
     return None if size == 1 else Axis(group, size, rank)
 
 
+def batch_axis(name: str) -> Optional[Axis]:
+    """``mesh_axis(name)`` where the batch splits over it; None where every
+    rank of the axis holds the same rows (``batch_split=False``)."""
+    return mesh_axis(name) if _BATCH_SPLIT else None
+
+
+def _staged(x: torch.Tensor, ax: Axis) -> bool:
+    """Whether ``x`` goes through host memory: a tensor on the card over a
+    gloo group."""
+    return x.is_cuda and dist.get_backend(ax.group) == "gloo"
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    TRAFFIC[kind] += t.numel() * t.element_size()
+    TRAFFIC["collectives"] += 1
+
+
 def _ag(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    dev = x.device
     x = x.movedim(dim, 0).contiguous()
+    staged = _staged(x, ax)
+    if staged:
+        x = x.cpu()
     out = x.new_empty((ax.size * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=ax.group)
-    return out.movedim(0, dim)
+    _count("all-gather", out)
+    return (out.to(dev) if staged else out).movedim(0, dim)
 
 
 def _rs(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    dev = x.device
     x = x.movedim(dim, 0).contiguous()
+    staged = _staged(x, ax)
+    if staged:
+        x = x.cpu()
     out = x.new_empty((x.shape[0] // ax.size, *x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, group=ax.group)
-    return out.movedim(0, dim)
+    _count("reduce-scatter", out)
+    return (out.to(dev) if staged else out).movedim(0, dim)
 
 
 def _ar(x: torch.Tensor, ax: Axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    out = x.contiguous().clone()
+    staged = _staged(x, ax)
+    out = x.contiguous().cpu() if staged else x.contiguous().clone()
     dist.all_reduce(out, op=op, group=ax.group)
-    return out
+    _count("all-reduce", out)
+    return out.to(x.device) if staged else out
 
 
 def _chunk(x: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
@@ -510,6 +575,32 @@ def region_out(y: torch.Tensor, split_work: bool, sp: bool) -> torch.Tensor:
     return all_reduce(y) if split_work else y
 
 
+def summed_product(x: torch.Tensor, w: torch.Tensor,
+                   grad: str = "identity") -> torch.Tensor:
+    """``all_reduce(x @ w, "model", grad)``: a row-parallel product, this
+    rank's block of the contraction summed over "model".  Serving (autograd
+    off) on a low-precision ``x`` keeps each rank's partial product in f32
+    and casts the sum once, as one device's product accumulates in f32 and
+    rounds once (partials rounded to bf16 before the sum move the logits
+    by several bf16 steps over a deep model); training keeps the
+    all-reduce in the activations' dtype."""
+    ax = mesh_axis("model")
+    if (ax is not None and x.dtype != torch.float32
+            and not torch.is_grad_enabled()):
+        return _ar(x.float() @ w.float(), ax).to(x.dtype)
+    return all_reduce(x @ w, grad=grad)
+
+
+def row_out(x: torch.Tensor, w: torch.Tensor, split_work: bool,
+            sp: bool) -> torch.Tensor:
+    """``region_out(x @ w, split_work, sp)``: a layer's output projection
+    back to the residual layout, a row-parallel one summed by
+    ``summed_product``."""
+    if split_work and not sp:
+        return summed_product(x, w)
+    return region_out(x @ w, split_work, sp)
+
+
 def seq_partial(w: torch.Tensor, sp: bool) -> torch.Tensor:
     """A weight used on this rank's slice of the sequence (the norms under
     sequence parallelism): its gradient is a partial sum over "model"."""
@@ -528,6 +619,86 @@ def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     sizes = axis_sizes(mesh)
     return tuple(n // int(np.prod([sizes[a] for a in entry_axes(e)]))
                  for n, e in zip(shape, spec))
+
+
+def _split_of(mesh, entry) -> Tuple[int, int]:
+    """(how many blocks a dim of spec ``entry`` is cut into over ``mesh``,
+    this rank's block), the major axis first."""
+    info = mesh_info(mesh)
+    n, r = 1, 0
+    for a in entry_axes(entry):
+        size, rank, _ = info[a]
+        n, r = n * size, r * size + rank
+    return n, r
+
+
+def local_shard(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's shard of a whole tensor ``t`` placed by the resolved
+    ``spec`` over ``mesh`` (a ``DeviceMesh``): a copy of its block where a
+    dim is split, ``t`` itself (detached) where none is."""
+    t = t.detach()
+    for i, e in enumerate(spec):
+        n, r = _split_of(mesh, e)
+        if n > 1:
+            size = t.shape[i] // n
+            t = t.narrow(i, r * size, size).clone()
+    return t
+
+
+def full_tensor(t: torch.Tensor, mesh, spec: Optional[Spec] = None
+                ) -> torch.Tensor:
+    """The whole tensor of this rank's shard ``t`` (of ``spec``, else the
+    one ``tag`` put on it), all-gathered over ``mesh``'s groups, the minor
+    axis of a dim first.  Every rank of the mesh must call it."""
+    spec = getattr(t, "_shard_spec", ()) if spec is None else spec
+    info = mesh_info(mesh)
+    for i, e in enumerate(spec):
+        for a in reversed(entry_axes(e)):
+            size, rank, group = info[a]
+            if size > 1:
+                t = _ag(t, i, Axis(group, size, rank))
+    return t
+
+
+def shard_cache(cache, mesh, cfg):
+    """A whole ``DecodeCache`` as this rank's leaves, placed by
+    ``cache_shardings`` and tagged with their specs."""
+    sh = cache_shardings(mesh, cache, cfg)
+    return cache._replace(**{
+        f: tag(local_shard(v, s.spec, mesh), s.spec)
+        for f, v, s in zip(cache._fields, cache, sh)
+        if isinstance(v, torch.Tensor)})
+
+
+def gather_cache(cache, mesh):
+    """The whole ``DecodeCache`` of this rank's tagged leaves (every rank
+    calls it)."""
+    return cache._replace(**{f: full_tensor(v, mesh)
+                             for f, v in zip(cache._fields, cache)
+                             if isinstance(v, torch.Tensor)})
+
+
+def split_of(entry) -> Tuple[int, int]:
+    """(blocks, this rank's block) of a dim of spec ``entry`` over the hint
+    mesh; (1, 0) outside ``activation_hints``."""
+    return (1, 0) if _HINT_MESH is None else _split_of(_HINT_MESH, entry)
+
+
+def live_axes(entry) -> Tuple[str, ...]:
+    """The axes of a spec entry that hold more than one rank of the hint
+    mesh: the ones a collective must run over."""
+    return tuple(a for a in entry_axes(entry) if mesh_axis(a) is not None)
+
+
+def reshard(t: torch.Tensor, src: Optional[int], dst: Optional[int],
+            axis: str = "model") -> torch.Tensor:
+    """``t`` split along dim ``src`` over ``axis`` (None: whole) as split
+    along ``dst`` (None: whole): gathered, then this rank's block taken."""
+    if src == dst:
+        return t
+    if src is not None:
+        t = gather(t, src, axis)
+    return t if dst is None else split(t, dst, axis)
 
 
 def tag(t: torch.Tensor, spec: Spec) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""Multi-pod dry-run of the train cells — twin of
-``src/repro/launch/dryrun.py``: traces each (architecture x train shape)
-cell's sharded step on the production meshes and records memory, dot
-FLOPs, collective bytes and the roofline terms, per device.
+"""Multi-pod dry-run — twin of ``src/repro/launch/dryrun.py``: traces each
+(architecture x input shape) cell's sharded step on the production meshes
+and records memory, dot FLOPs, collective bytes and the roofline terms,
+per device.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch all --shape all --mesh both --out results/dryrun_torch.json
@@ -18,10 +18,18 @@ rank's local shards, and ``train.loop``'s sharded step runs on them with
 and the peak of the bytes the step holds besides its state and batch).  The record has the
 reference's keys, ``trace_s`` for ``lower_s`` and no ``compile_s``.
 
-Prefill and decode cells are sharded serving, which is not ported yet:
-they are recorded with ``status: "not_ported"``.  A process holds one
-default process group, so the module sets up its own (one per mesh) and
-runs as its own process.
+Prefill and decode cells run the sharded serving steps the same way
+(``train.loop.make_prefill_step`` / ``make_serve_step`` on the weights'
+local shards): a prefill cell prefills ``seq_len`` tokens into a cache of
+``seq_len + 8`` positions (``prefill_chunked`` in segments of
+``CHUNKED_PREFILL_SEG`` for ``CHUNKED_PREFILL``); a decode cell takes one
+step against a cache of ``seq_len`` positions from ``init_cache`` (this
+rank's leaves, placed by ``cache_shardings``), filled to ``seq_len - 1``
+so the step writes the last slot and attends every position (the
+reference's length is an abstract scalar), plus an encoder output for
+encdec.  ``kv_bytes_local``, the decode cache's bytes over the chips,
+feeds the memory term.  A process holds one default process group, so the
+module sets up its own (one per mesh) and runs as its own process.
 """
 import argparse
 import contextlib
@@ -44,7 +52,8 @@ from repro_torch.models.model import build_model, input_specs
 from repro_torch.roofline import analysis as roofline
 from repro_torch.roofline.trace_count import LiveBytes, TraceCount
 from repro_torch.train.loop import (
-    TrainState, init_train_state, make_train_step, state_shardings,
+    TrainState, init_train_state, make_prefill_step, make_serve_step,
+    make_train_step, state_shardings,
 )
 from repro_torch.train.optimizer import AdamW, AdamWState
 
@@ -59,8 +68,8 @@ SEQ_PARALLEL_TRAIN = {
 # models prefer the data-sharded dispatch buffer
 MOE_DISPATCH_HINT = {"mixtral-8x22b": True, "granite-moe-3b-a800m": False}
 
-# prefill cells that the reference serves segmented (its table; prefill is
-# not ported yet)
+# prefill cells whose single-shot buffers exceed HBM: segmented prefill
+# (the reference's table); vlm / encdec keep the single-shot path
 CHUNKED_PREFILL = {
     "granite-moe-3b-a800m", "mixtral-8x22b", "zamba2-1.2b",
 }
@@ -68,9 +77,6 @@ CHUNKED_PREFILL_SEG = 4096
 
 PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
-
-NOT_PORTED = ("sharded serving (prefill, decode, cache_shardings' "
-              "sequence-sharded KV) is not ported: ROADMAP Queue 1, item 1")
 
 
 def _cell_microbatches(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
@@ -121,13 +127,13 @@ def lower_cell(
     base = {"arch": arch, "shape": shape.name,
             "mesh": "x".join(str(s) for s in sizes.values()),
             "chips": chips}
-    if shape.kind != "train":
-        return dict(base, status="not_ported", reason=NOT_PORTED)
     model_kw = dict(model_kw or {})
-    if arch in SEQ_PARALLEL_TRAIN:
+    if shape.kind == "train" and arch in SEQ_PARALLEL_TRAIN:
         model_kw.setdefault("seq_parallel", True)
     if arch in MOE_DISPATCH_HINT:
         model_kw.setdefault("moe_dispatch_hint", MOE_DISPATCH_HINT[arch])
+    if shape.kind != "train":
+        return _serve_cell(arch, shape, mesh, model_kw, cfg, base)
     mb = microbatches or _cell_microbatches(cfg, shape, mesh)
     t0 = time.time()
     with FakeTensorMode():
@@ -174,6 +180,86 @@ def lower_cell(
     return dict(base, status="ok", trace_s=round(trace_s, 1),
                 microbatches=mb, model_kw=model_kw, memory=mem_rec,
                 roofline=rl.to_dict(), coll_calls=counts.coll_calls,
+                param_count=cfg.param_count(),
+                active_param_count=cfg.active_param_count(),
+                dtype=str(torch_dtype(cfg.dtype)))
+
+
+def _whole_bytes(t: torch.Tensor, sizes) -> int:
+    """The bytes of the whole tensor of a rank's tagged shard."""
+    n = int(np.prod([sizes[a] for e in t._shard_spec
+                     for a in shard_lib.entry_axes(e)]))
+    return t.numel() * t.element_size() * n
+
+
+def _serve_cell(arch, shape, mesh, model_kw, cfg, base) -> Dict[str, Any]:
+    """A prefill or decode cell (``lower_cell``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    sizes = shard_lib.axis_sizes(mesh)
+    chips = base["chips"]
+    b = shape.global_batch
+    bsize = int(np.prod([sizes[a] for a in shard_lib.batch_axes(mesh)]))
+    kv_bytes_local = 0.0
+    t0 = time.time()
+    with FakeTensorMode():
+        model = build_model(cfg, device="cpu", **model_kw)
+        full = dict(model.named_parameters())
+        sh = shard_lib.param_shardings(model.specs, full, mesh)
+        params = {k: shard_lib.tag(torch.empty(
+            shard_lib.local_shape(p.shape, sh[k].spec, sizes),
+            dtype=p.dtype), sh[k].spec) for k, p in full.items()}
+        del full
+        batch = {k: torch.empty(v.shape, dtype=v.dtype)
+                 for k, v in input_specs(cfg, shape).items()}
+        if shape.kind == "prefill":
+            seg = CHUNKED_PREFILL_SEG if arch in CHUNKED_PREFILL else 0
+            step = make_prefill_step(model, mesh, seg_len=seg,
+                                     max_len=shape.seq_len + 8)
+            args = (params, batch)
+            held = []
+        else:
+            with shard_lib.activation_hints(mesh,
+                                            batch_split=b % bsize == 0):
+                cache = model.init_cache(b, shape.seq_len)
+                if cfg.family == "encdec":
+                    spec = (shard_lib.batch_entry(), None, None)
+                    cache = cache._replace(enc_out=shard_lib.tag(
+                        torch.empty(shard_lib.local_shape(
+                            (b, shape.seq_len, cfg.d_model), spec, sizes),
+                            dtype=torch_dtype(cfg.dtype)), spec))
+            cache = cache._replace(length=shape.seq_len - 1)
+            held = [t for t in cache[:5] if t is not None]
+            kv_bytes_local = float(sum(
+                _whole_bytes(t, sizes) for t in held)) / chips
+            step = make_serve_step(model, mesh)
+            args = (params, cache, batch["tokens"])
+        counts, mem = TraceCount(), LiveBytes()
+        mem.exclude([*params.values(), *held, *batch.values()])
+        with mem, counts:
+            logits, out_cache = step(*args)
+    trace_s = time.time() - t0
+    param_bytes = _nbytes(params.values())
+    batch_bytes = _nbytes(batch.values()) // (bsize if b % bsize == 0
+                                              else 1)
+    cache_bytes = _nbytes([t for t in out_cache[:5] if t is not None])
+    arg = param_bytes + batch_bytes + _nbytes(held)
+    mem_rec = {"argument_size_in_bytes": arg,
+               "output_size_in_bytes": _nbytes([logits]) + cache_bytes,
+               "temp_size_in_bytes": mem.peak,
+               "peak_memory_in_bytes": arg + mem.peak}
+    tokens = b * (shape.seq_len if shape.kind == "prefill" else 1)
+    model_flops = roofline.decode_model_flops(cfg.active_param_count(),
+                                              tokens)
+    hbm = roofline.analytic_hbm_bytes(cfg, shape, mesh,
+                                      kv_cache_bytes=kv_bytes_local)
+    rl = roofline.analyze(counts, chips=chips, model_flops=model_flops,
+                          hbm_bytes_per_device=hbm)
+    return dict(base, status="ok", trace_s=round(trace_s, 1),
+                microbatches=1, model_kw=model_kw, memory=mem_rec,
+                roofline=rl.to_dict(), coll_calls=counts.coll_calls,
+                kv_bytes_local=kv_bytes_local,
+                cache_bytes_local=cache_bytes,
                 param_count=cfg.param_count(),
                 active_param_count=cfg.active_param_count(),
                 dtype=str(torch_dtype(cfg.dtype)))

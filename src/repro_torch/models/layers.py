@@ -25,7 +25,12 @@ the kv heads its q heads need.  A layer whose dims do not split (the
 divisibility fallback) runs whole on every rank, its weights gathered.
 ``moe``'s capacity and slot positions are the global ones (the routing is
 gathered over "data"), and ``dispatch_hint`` splits the expert buffer's
-capacity slots over "data" (``moe_out_spec``).
+capacity slots over "data" (``moe_out_spec``).  Serving under the hints
+(``train.loop.make_serve_step``) runs ``attention`` on this rank's shard
+of the KV cache, laid out by ``cache_shardings``; where the batch is whole
+on every rank (``batch_split=False``) ``moe`` routes as on one device; a
+row-parallel output's partial sums are added in f32
+(``shard_lib.row_out``).
 
 Logical axis vocabulary:
     "embed"   — d_model
@@ -205,10 +210,19 @@ def attention(
     host int) and attention runs over the cache. Returns (out, new_cache);
     the new cache is a new pair of tensors, the caller's are not written.
     ``sp``: ``x`` and the output are sequence-parallel (``positions`` cover
-    the whole sequence)."""
+    the whole sequence).
+
+    Inside ``activation_hints`` the cache is this rank's shard, tagged with
+    its ``cache_shardings`` spec (batch, positions, kv heads, hd), which
+    sets the layout: kv heads over "model" (each rank its heads' slice,
+    the heads' own region), or positions split over "model" and / or
+    "data" (each rank holds a contiguous block of slots of every kv head;
+    a write lands on the rank that owns the slot, and attention over the
+    cache combines the ranks' softmax sums: ``_softmax_pv``).  Where the q
+    heads split over "model" and the positions do too, a rank gathers
+    every q head, attends them over its slice, and keeps its own heads'
+    output for its ``wo`` block."""
     hp = head_plan(shard_lib.param_hints(p, ATTN_SPECS), cfg)
-    if hp.split and kv_cache is not None:
-        raise NotImplementedError("tensor-parallel serving is not ported")
     p = hp.w
     x = shard_lib.region_in(x, hp.split, sp)
     b, s, d = x.shape
@@ -222,25 +236,30 @@ def attention(
     k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
+    seq = ()                     # the mesh axes the attended positions span
     if kv_cache is not None:
         ck, cv = kv_cache
-        cap = ck.shape[1]
+        spec = getattr(ck, "_shard_spec", None)
+        pseq = spec[1] if spec is not None else None
+        n_blk, blk = shard_lib.split_of(pseq)
+        cap_l = ck.shape[1]
+        cap = cap_l * n_blk
         ring = cfg.sliding_window > 0 and cap <= 2 * cfg.sliding_window
         if s > cap and not ring:
             raise ValueError(
                 f"prefill length {s} exceeds non-ring cache capacity {cap}"
             )
-        # write the (last cap) new k/v into the cache. Slots are pos % cap in
-        # ring mode; the slice below guarantees no duplicate slots.
-        if s >= cap:
-            offs = torch.arange(s - cap, s, device=x.device)
-            kw, vw = k[:, -cap:], v[:, -cap:]
-        else:
-            offs = torch.arange(s, device=x.device)
-            kw, vw = k, v
-        idx = (cache_len + offs) % cap if ring else cache_len + offs
-        ck = ck.index_copy(1, idx, kw.to(ck.dtype))
-        cv = cv.index_copy(1, idx, vw.to(cv.dtype))
+        # write the (last cap) new k/v into the slots this rank holds.
+        # Slots are pos % cap in ring mode; no slot is written twice.
+        runs = _kv_writes(cache_len, s, cap, ring, blk * cap_l, cap_l)
+        if runs:
+            src, dst = _runs_index(runs, x.device)
+            kw = k.narrow(1, *src) if isinstance(src, tuple) else \
+                k.index_select(1, src)
+            vw = v.narrow(1, *src) if isinstance(src, tuple) else \
+                v.index_select(1, src)
+            ck = ck.index_copy(1, dst, kw.to(ck.dtype))
+            cv = cv.index_copy(1, dst, vw.to(cv.dtype))
         new_cache = (ck, cv)
         if s > 1 and not attend_cache:
             # single-shot prefill: attend over the in-flight k/v (window mask
@@ -252,15 +271,24 @@ def attention(
             # (already containing this segment's keys); absolute-position
             # masking handles both full and ring buffers
             k_all, v_all = ck, cv
-            k_pos_all = _cache_positions(cache_len, s, cap, ring, x.device)
+            k_pos_all = _cache_positions(cache_len, s, cap, ring, x.device,
+                                         blk * cap_l, cap_l)
+            seq = shard_lib.live_axes(pseq)
     else:
         k_all, v_all = k, v
         k_pos_all = positions
 
+    own = None
     if hp.kv_sel is not None:
-        k_all = k_all.narrow(2, *hp.kv_sel)
-        v_all = v_all.narrow(2, *hp.kv_sel)
-        nkv = hp.kv_sel[1]
+        if "model" in seq:
+            # every q head attends this rank's positions: gather them
+            q = shard_lib.gather(q, 2, "model")
+            own = (shard_lib.mesh_axis("model").rank * nq, nq)
+            nq = q.shape[2]
+        else:
+            k_all = k_all.narrow(2, *hp.kv_sel)
+            v_all = v_all.narrow(2, *hp.kv_sel)
+            nkv = hp.kv_sel[1]
     g = nq // nkv
     # grouped heads: (B, S, Hkv, G, hd)
     qg = q.reshape(b, s, nkv, g, hd)
@@ -276,6 +304,8 @@ def attention(
             logits = c * torch.tanh(logits / c)
         mask = _attn_mask(qpos_blk, k_pos_all, cfg.sliding_window, prefix_len)
         logits = logits.masked_fill(~mask[:, None, None], -1e30)
+        if seq:
+            return _softmax_pv(logits, v_all, seq)
         w = torch.softmax(logits, dim=-1)
         return torch.einsum("bhgqk,bkhd->bqhgd", w.to(v_all.dtype), v_all)
 
@@ -285,14 +315,76 @@ def attention(
             for i in range(0, s, q_chunk)], dim=1)
     else:
         out = attend_chunk(qg, positions)
-    out = out.reshape(b, s, nq * hd) @ p["wo"]
-    return shard_lib.region_out(out, hp.split, sp), new_cache
+    out = out.reshape(b, s, nq, hd)
+    if own is not None:
+        out, nq = out.narrow(2, *own), own[1]
+    return shard_lib.row_out(out.reshape(b, s, nq * hd), p["wo"], hp.split,
+                             sp), new_cache
+
+
+def _softmax_pv(logits: torch.Tensor, v: torch.Tensor,
+                axes: Tuple[str, ...]) -> torch.Tensor:
+    """``softmax(logits) @ v`` with the positions (the last dim of the
+    logits, dim 1 of ``v``) split over the mesh ``axes``, the one-rank
+    numerics kept: the row max and the sum of exponentials taken over every
+    rank, each weight ``exp(l - max) / sum`` cast to V's dtype as one rank
+    casts it, the rank's partial products summed over the axes in f32 and
+    cast once."""
+    mx = logits.amax(-1, keepdim=True)
+    for a in axes:
+        mx = shard_lib.all_reduce_max(mx, a)
+    e = torch.exp(logits - mx)
+    den = e.sum(-1, keepdim=True)
+    for a in axes:
+        den = shard_lib.all_reduce(den, a)
+    w = (e / den).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w.float(), v.float())
+    for a in axes:
+        out = shard_lib.all_reduce(out, a)
+    return out.to(v.dtype)
+
+
+def _kv_writes(cache_len: int, s: int, cap: int, ring: bool, first: int,
+               count: int):
+    """Where a step's new k/v rows go: [(row, local slot, n)] runs of the
+    last ``min(s, cap)`` rows, at slots ``cache_len + row`` (``% cap`` in a
+    ring), that fall in this rank's slots ``[first, first + count)``."""
+    w = min(s, cap)
+    base = cache_len + s - w            # the first written row's position
+    if not ring and base + w > cap:
+        raise ValueError(f"cache of {cap} slots overflows at "
+                         f"{base + w} positions")
+    g0 = base % cap if ring else base
+    n0 = min(w, cap - g0)
+    runs = [(s - w, g0, n0)] + ([(s - w + n0, 0, w - n0)] if w > n0 else [])
+    out = []
+    for row, g, n in runs:
+        lo, hi = max(g, first), min(g + n, first + count)
+        if lo < hi:
+            out.append((row + lo - g, lo - first, hi - lo))
+    return out
+
+
+def _runs_index(runs, device):
+    """(the source rows — ``(start, n)`` for one run, else an index —, the
+    destination slots) of ``_kv_writes``' runs."""
+    def ar(a, n):
+        return torch.arange(a, a + n, device=device)
+
+    if len(runs) == 1:
+        row, slot, n = runs[0]
+        return (row, n), ar(slot, n)
+    return (torch.cat([ar(r, n) for r, _, n in runs]),
+            torch.cat([ar(sl, n) for _, sl, n in runs]))
 
 
 def _cache_positions(cache_len: int, s_new: int, cap: int, ring: bool,
-                     device=None) -> torch.Tensor:
-    """(1, cap) absolute positions represented in the cache (for masking)."""
-    slot = torch.arange(cap, device=device)
+                     device=None, first: int = 0,
+                     count: Optional[int] = None) -> torch.Tensor:
+    """(1, count) absolute positions held in slots ``[first, first +
+    count)`` of the cache (all ``cap`` by default), for masking."""
+    count = cap - first if count is None else count
+    slot = torch.arange(first, first + count, device=device)
     total = cache_len + s_new
     if ring:
         # ring buffer: slot i holds the largest position p < total with
@@ -341,10 +433,10 @@ def mlp(p: Params, x: torch.Tensor, sp: bool = False) -> torch.Tensor:
     split = shard_lib.model_dim(p["wi_up"]) == 1
     x = shard_lib.region_in(x, split, sp)
     if "wi_gate" not in p:
-        y = F.gelu(x @ p["wi_up"], approximate="tanh") @ p["wo"]
+        h = F.gelu(x @ p["wi_up"], approximate="tanh")
     else:
-        y = (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
-    return shard_lib.region_out(y, split, sp)
+        h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    return shard_lib.row_out(h, p["wo"], split, sp)
 
 
 def init_moe(generator: torch.Generator,
@@ -379,7 +471,7 @@ def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig,
     "data" (a rank's own ``cap`` would drop other tokens)."""
     t = xt.shape[0]
     e, kk = cfg.num_experts, cfg.experts_per_token
-    dat = shard_lib.mesh_axis("data")
+    dat = shard_lib.batch_axis("data")
     nd, j = (dat.size, dat.rank) if dat is not None else (1, 0)
     logits = xt.float() @ p["router"]                           # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -391,7 +483,8 @@ def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig,
     cap = max(int(math.ceil(t * nd * kk / e * capacity_factor)), 4)
     flat_idx = gate_idx.reshape(-1)                             # (T*k,)
     with torch.no_grad():
-        every = shard_lib.gather(flat_idx, 0, "data")           # global order
+        every = (shard_lib.gather(flat_idx, 0, "data")          # global order
+                 if dat is not None else flat_idx)
         oh = F.one_hot(every, e)                                # (T*k, E)
         pos_all = torch.cumsum(oh, dim=0) - oh
         pos = pos_all.gather(1, every[:, None])[:, 0]
@@ -433,7 +526,7 @@ def moe(
     On one device ``dispatch_hint`` changes nothing."""
     p = shard_lib.param_hints(p, MOE_SPECS)
     e, kk = cfg.num_experts, cfg.experts_per_token
-    mod, dat = shard_lib.mesh_axis("model"), shard_lib.mesh_axis("data")
+    mod, dat = shard_lib.mesh_axis("model"), shard_lib.batch_axis("data")
     ed = shard_lib.model_dim(p["wi_gate"])
     split = ed is not None
     if mod is not None and not split:
@@ -463,7 +556,7 @@ def moe(
                                          (e, cap, d))[1] == "data")
     if by_cap:
         xe = shard_lib.reduce_scatter(xe, 1, "data")
-    else:
+    elif dat is not None:
         xe = shard_lib.all_reduce(xe, "data", grad="sum")
     h = torch.bmm(xe, p["wi_gate"])
     h = F.silu(h) * torch.bmm(xe, p["wi_up"])

@@ -27,7 +27,13 @@ step.
 Sharded training (``train.loop``'s sharded step) runs ``loss`` inside
 ``distributed.sharding.activation_hints`` on each rank's local weight
 shards, with the layers tensor-parallel (``models/layers.py``), the vocabulary split over "model" in the embedding
-and the cross-entropy, and ``seq_parallel`` live.
+and the cross-entropy, and ``seq_parallel`` live.  Sharded serving
+(``train.loop.make_serve_step`` / ``make_prefill_step``) runs ``prefill``,
+``prefill_chunked`` and ``decode_step`` the same way on this rank's rows of
+the batch: ``init_cache`` makes this rank's cache leaves, placed by
+``sharding.cache_shardings`` and tagged with their specs, which every
+layer keeps on the leaves it returns, and the logits are this rank's
+vocabulary block where the vocabulary splits.
 
 Training (``repro_torch.train``): ``loss`` is also the module's ``forward``,
 so ``torch.func.functional_call(model, params, (batch,))`` takes the loss of
@@ -138,14 +144,37 @@ class DecodeCache(NamedTuple):
                    if t is not None)
 
 
+class _Shape(NamedTuple):
+    """A leaf's shape, for ``cache_shardings`` (which reads ``shape`` and
+    ``ndim``), with no tensor behind it."""
+    shape: Tuple[int, ...]
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
 def _cache_capacity(cfg: ModelConfig, max_len: int, ring_mult: int = 1) -> int:
     if cfg.sliding_window > 0:
         return min(max_len, ring_mult * cfg.sliding_window)
     return max_len
 
 
-def _stack(ts):
-    return torch.stack(ts) if ts else None
+def _stack(ts, like=None):
+    """The layers' caches stacked, with the placement (``shard_lib.tag``)
+    of ``like``, the stacked leaf they came from."""
+    if not ts:
+        return None
+    out = torch.stack(ts)
+    spec = getattr(like, "_shard_spec", None)
+    return out if spec is None else shard_lib.tag(out, spec)
+
+
+def _layer(t: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer ``i`` of a stacked cache leaf, with the leaf's placement less
+    its layer dim."""
+    spec = getattr(t, "_shard_spec", None)
+    return t[i] if spec is None else shard_lib.tag(t[i], spec[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +347,8 @@ class Model(nn.Module):
                               k.float()) * hd**-0.5
         w = torch.softmax(logits, dim=-1)
         o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
-        o = o.reshape(b, s, nq * hd) @ a["wo"]
-        return x + shard_lib.region_out(o, hp.split, sp)
+        return x + shard_lib.row_out(o.reshape(b, s, nq * hd), a["wo"],
+                                     hp.split, sp)
 
     def _remat(self, fn, x):
         """``fn(x)``; under ``torch.utils.checkpoint`` when ``remat`` is
@@ -345,8 +374,8 @@ class Model(nn.Module):
         if fam in ("dense", "moe", "vlm", "encdec"):
             new_k, new_v, aux = [], [], 0.0
             for i, blk in enumerate(self.blocks):
-                kv = None if caches is None else (caches.kv_k[i],
-                                                  caches.kv_v[i])
+                kv = None if caches is None else (_layer(caches.kv_k, i),
+                                                  _layer(caches.kv_v, i))
                 cp = (self.cross_blocks[i].tree() if fam == "encdec"
                       else None)
 
@@ -366,15 +395,16 @@ class Model(nn.Module):
                     new_v.append(new_kv[1])
             new_caches = None
             if caches is not None:
-                new_caches = caches._replace(kv_k=_stack(new_k),
-                                             kv_v=_stack(new_v))
+                new_caches = caches._replace(
+                    kv_k=_stack(new_k, caches.kv_k),
+                    kv_v=_stack(new_v, caches.kv_v))
             return x, new_caches, aux
 
         if fam == "ssm":
             new_conv, new_ssm = [], []
             for i, blk in enumerate(self.blocks):
-                st = None if caches is None else (caches.conv[i],
-                                                  caches.ssm[i])
+                st = None if caches is None else (_layer(caches.conv, i),
+                                                  _layer(caches.ssm, i))
 
                 def block(x, bp=blk.tree(), st=st):
                     return self._mamba_block(bp, x, st, BLOCK_MAMBA1, sp=sp)
@@ -384,8 +414,9 @@ class Model(nn.Module):
                 new_ssm.append(ss)
             new_caches = None
             if caches is not None:
-                new_caches = caches._replace(conv=_stack(new_conv),
-                                             ssm=_stack(new_ssm))
+                new_caches = caches._replace(
+                    conv=_stack(new_conv, caches.conv),
+                    ssm=_stack(new_ssm, caches.ssm))
             return x, new_caches, 0.0
 
         if fam == "hybrid":
@@ -409,8 +440,8 @@ class Model(nn.Module):
 
         def mamba_run(x, start, count):
             for i in range(start, start + count):
-                st = None if caches is None else (caches.conv[i],
-                                                  caches.ssm[i])
+                st = None if caches is None else (_layer(caches.conv, i),
+                                                  _layer(caches.ssm, i))
 
                 def block(x, bp=self.blocks[i].tree(), st=st):
                     return self._mamba_block(bp, x, st, BLOCK_MAMBA2, sp=sp)
@@ -424,8 +455,8 @@ class Model(nn.Module):
         for gi in range(n_groups):
             x = mamba_run(x, mi, m_per_group)
             mi += m_per_group
-            kv = None if caches is None else (caches.kv_k[gi],
-                                              caches.kv_v[gi])
+            kv = None if caches is None else (_layer(caches.kv_k, gi),
+                                              _layer(caches.kv_v, gi))
 
             # the reference scans the mamba blocks under remat and runs the
             # shared block as it is
@@ -439,8 +470,10 @@ class Model(nn.Module):
         new_caches = None
         if caches is not None:
             new_caches = caches._replace(
-                conv=_stack(new_conv), ssm=_stack(new_ssm),
-                kv_k=_stack(new_k), kv_v=_stack(new_v))
+                conv=_stack(new_conv, caches.conv),
+                ssm=_stack(new_ssm, caches.ssm),
+                kv_k=_stack(new_k, caches.kv_k),
+                kv_v=_stack(new_v, caches.kv_v))
         return x, new_caches, 0.0
 
     def _positions(self, b: int, s: int, start: int = 0) -> torch.Tensor:
@@ -464,23 +497,26 @@ class Model(nn.Module):
             x = self._remat(block, x)
         return x, positions
 
-    def _embed_inputs(self, batch):
-        """tokens (+ frontend embeddings) -> (x, positions, prefix_len).
-        Inside ``activation_hints`` a vocabulary split over "model" is
-        looked up where it lies, masked, and summed over "model"."""
-        cfg = self.config
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+    def _embed_tokens(self, tokens) -> torch.Tensor:
+        """The embeddings of ``tokens``.  Inside ``activation_hints`` a
+        vocabulary split over "model" is looked up where it lies, masked,
+        and summed over "model"."""
+        tokens = torch.as_tensor(tokens, device=self.device)
         emb = shard_lib.param_hint(self.embed, ("vocab", "embed"))
-        if shard_lib.model_dim(emb) == 0:
-            v_l = emb.shape[0]
-            v0 = shard_lib.mesh_axis("model").rank * v_l
-            here = (tokens >= v0) & (tokens < v0 + v_l)
-            x = emb[(tokens - v0).clamp(0, v_l - 1)]
-            x = shard_lib.all_reduce(
-                torch.where(here[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                            device=x.device)))
-        else:
-            x = emb[tokens]
+        if shard_lib.model_dim(emb) != 0:
+            return emb[tokens]
+        v_l = emb.shape[0]
+        v0 = shard_lib.mesh_axis("model").rank * v_l
+        here = (tokens >= v0) & (tokens < v0 + v_l)
+        x = emb[(tokens - v0).clamp(0, v_l - 1)]
+        return shard_lib.all_reduce(
+            torch.where(here[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device)))
+
+    def _embed_inputs(self, batch):
+        """tokens (+ frontend embeddings) -> (x, positions, prefix_len)."""
+        cfg = self.config
+        x = self._embed_tokens(batch["tokens"])
         if cfg.family == "vlm":
             front = torch.as_tensor(batch["frontend"], device=self.device)
             proj = shard_lib.param_hint(self.frontend_proj, (None, "embed"))
@@ -587,42 +623,63 @@ class Model(nn.Module):
         total = nll + 0.01 * aux
         return total, {"nll": nll, "aux": aux}
 
-    def forward(self, batch):
-        """``loss``: what ``torch.func.functional_call`` runs."""
-        return self.loss(batch)
+    _METHODS = ("loss", "prefill", "prefill_chunked", "decode_step")
+
+    def forward(self, *args, method: str = "loss", **kw):
+        """``loss`` (or the serving ``method`` named): what
+        ``torch.func.functional_call`` runs."""
+        if method not in self._METHODS:
+            raise ValueError(f"forward runs one of {self._METHODS}, not "
+                             f"{method!r}")
+        return getattr(self, method)(*args, **kw)
 
     # -------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, max_len: int,
                    ring_mult: int = 1) -> DecodeCache:
+        """A zero cache for ``batch_size`` sequences of up to ``max_len``
+        positions.  Inside ``activation_hints`` ``batch_size`` is the
+        global batch and the leaves are this rank's shards, placed by
+        ``cache_shardings`` over the hint mesh and tagged with their
+        specs."""
         cfg = self.config
         dt = L.torch_dtype(cfg.dtype)
         hd = cfg.resolved_head_dim
         cap = _cache_capacity(cfg, max_len, ring_mult)
-        kv_k = kv_v = conv = ssm_st = None
         pattern = cfg.block_pattern()
         n_attn = sum(1 for b in pattern
                      if b in (BLOCK_ATTN, BLOCK_SHARED_ATTN))
         n_ssm = len(pattern) - n_attn
-
-        def zeros(shape, dtype=dt):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-
+        shapes = {}
         if n_attn:
-            kv_k = zeros((n_attn, batch_size, cap, cfg.num_kv_heads, hd))
-            kv_v = torch.zeros_like(kv_k)
+            kv = ((n_attn, batch_size, cap, cfg.num_kv_heads, hd), dt)
+            shapes.update(kv_k=kv, kv_v=kv)
         di = cfg.ssm_expand * cfg.d_model
         if cfg.family == "ssm":
-            conv = zeros((n_ssm, batch_size, cfg.ssm_conv - 1, di))
-            ssm_st = zeros((n_ssm, batch_size, di, cfg.ssm_state),
-                           torch.float32)
+            shapes.update(
+                conv=((n_ssm, batch_size, cfg.ssm_conv - 1, di), dt),
+                ssm=((n_ssm, batch_size, di, cfg.ssm_state), torch.float32))
         elif cfg.family == "hybrid":
             hd2 = S.MAMBA2_HEAD_DIM
-            conv = zeros((n_ssm, batch_size, cfg.ssm_conv - 1,
-                          di + 2 * cfg.ssm_state))
-            ssm_st = zeros((n_ssm, batch_size, di // hd2, hd2, cfg.ssm_state),
-                           torch.float32)
-        return DecodeCache(kv_k=kv_k, kv_v=kv_v, conv=conv, ssm=ssm_st,
-                           enc_out=None, length=0)
+            shapes.update(
+                conv=((n_ssm, batch_size, cfg.ssm_conv - 1,
+                       di + 2 * cfg.ssm_state), dt),
+                ssm=((n_ssm, batch_size, di // hd2, hd2, cfg.ssm_state),
+                     torch.float32))
+        empty = DecodeCache(None, None, None, None, None, 0)
+        mesh = shard_lib.hint_mesh()
+        if mesh is None:
+            return empty._replace(**{
+                f: torch.zeros(shp, dtype=t, device=self.device)
+                for f, (shp, t) in shapes.items()})
+        specs = shard_lib.cache_shardings(mesh, empty._replace(**{
+            f: _Shape(shp) for f, (shp, _) in shapes.items()}), cfg)
+        out = {}
+        for f, (shp, t) in shapes.items():
+            spec = getattr(specs, f).spec
+            out[f] = shard_lib.tag(torch.zeros(
+                shard_lib.local_shape(shp, spec, mesh), dtype=t,
+                device=self.device), spec)
+        return empty._replace(**out)
 
     @torch.no_grad()
     def prefill(self, batch, max_len: Optional[int] = None):
@@ -631,9 +688,13 @@ class Model(nn.Module):
         cfg = self.config
         b, s = batch["tokens"].shape
         internal = s + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
-        cache = self.init_cache(b, max(max_len or 0, internal + 1))
+        cache = self.init_cache(shard_lib.global_batch(b),
+                                max(max_len or 0, internal + 1))
         if cfg.family == "encdec":
             enc_out, enc_pos = self._encode(batch["frontend"])
+            if shard_lib.hint_mesh() is not None:
+                enc_out = shard_lib.tag(enc_out, (shard_lib.batch_entry(),
+                                                  None, None))
             cache = cache._replace(enc_out=enc_out)
             x, positions, prefix = self._embed_inputs(batch)
             x, cache, _ = self._decoder_stack(
@@ -666,9 +727,10 @@ class Model(nn.Module):
             raise ValueError("segment must fit the window")
         # SWA: a 2x-window ring keeps every in-segment query's window
         # resident; others: full cache
-        cache = self.init_cache(b, max(max_len or 0, s + 1), ring_mult=2)
+        cache = self.init_cache(shard_lib.global_batch(b),
+                                max(max_len or 0, s + 1), ring_mult=2)
         for s0 in range(0, s, seg_len):
-            x = self.embed[tokens[:, s0 : s0 + seg_len]]
+            x = self._embed_tokens(tokens[:, s0 : s0 + seg_len])
             positions = self._positions(b, seg_len, cache.length)
             x, cache2, _ = self._decoder_stack(
                 x, positions, caches=cache, cache_len=cache.length,
@@ -681,8 +743,7 @@ class Model(nn.Module):
         """tokens: (B, 1) — one decode step against the cache.  Returns
         (logits (B, 1, V), a new cache); ``cache`` is left as it was."""
         cfg = self.config
-        tokens = torch.as_tensor(tokens, device=self.device)
-        x = self.embed[tokens]
+        x = self._embed_tokens(tokens)
         b, s, _ = x.shape
         positions = self._positions(b, s, cache.length)
         if cfg.family == "encdec":

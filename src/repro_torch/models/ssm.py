@@ -21,6 +21,14 @@ mix); Mamba-1's ``x_proj`` is row-parallel, summed over "model"; Mamba-2's
 gated norm sums its squares over "model"; ``out_proj`` is row-parallel
 (``shard_lib.region_out``).  When d_inner (Mamba-2: the head count) does
 not split, the block runs whole on every rank.
+
+A carried state under the hints (serving) is this rank's shard, tagged
+with its ``cache_shardings`` spec, which splits the widest state dim over
+"model".  Where that is not the compute block (Mamba-2's conv state holds
+x, B and C, of which a rank convolves its block of x and all of B and C;
+its scan state may split along hd or ds) the state is gathered and sliced
+into the compute layout, and the new state back into the stored one
+(``shard_lib.reshard``).
 """
 from __future__ import annotations
 
@@ -146,6 +154,13 @@ def mamba(
         di = di_l
     elif ax is not None:
         p = {k: shard_lib.whole(w, "slice") for k, w in p.items()}
+    # the states' stored split dims, and their compute ones
+    at = (None, None) if state is None else tuple(
+        shard_lib.model_dim(t) for t in state)
+    here = (2, 1) if split else (None, None)
+    if state is not None:
+        state = tuple(shard_lib.reshard(t, a, h)
+                      for t, a, h in zip(state, at, here))
     x = shard_lib.region_in(x, split, sp)
     bsz, s, d = x.shape
 
@@ -154,10 +169,10 @@ def mamba(
     xi, new_conv_state = _causal_conv(
         xi, p["conv_w"], None if state is None else state[0], cfg.ssm_conv)
 
-    # input-dependent SSM parameters
-    proj = xi @ p["x_proj"]                             # (B, S, dt_rank+2ds)
-    if split:
-        proj = shard_lib.all_reduce(proj, grad="sum")   # row-parallel
+    # input-dependent SSM parameters, (B, S, dt_rank + 2ds); x_proj is
+    # row-parallel
+    proj = (shard_lib.summed_product(xi, p["x_proj"], grad="sum")
+            if split else xi @ p["x_proj"])
     dt_in = proj[..., :dt_rank]
     b_in = proj[..., dt_rank : dt_rank + ds].float()
     c_in = proj[..., dt_rank + ds :].float()
@@ -171,8 +186,10 @@ def mamba(
     y, h_last = selective_scan(dt_, a, xf, b_in, c_in, h0, chunk)
     y = y + xf * p["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
-    out = shard_lib.region_out(y @ p["out_proj"], split, sp)
-    return out, (new_conv_state, h_last.float())
+    out = shard_lib.row_out(y, p["out_proj"], split, sp)
+    new = (new_conv_state, h_last.float())
+    return out, tuple(shard_lib.reshard(t, h, a)
+                      for t, h, a in zip(new, here, at))
 
 
 def init_mamba2(generator: torch.Generator,
@@ -228,6 +245,11 @@ def mamba2(
     p = shard_lib.param_hints(p, MAMBA2_SPECS)
     ax = shard_lib.mesh_axis("model")
     split = ax is not None and nh % ax.size == 0
+    di_all = di
+    # the states' stored split dims (the conv state's compute layout is
+    # x's block with B and C whole; the scan state's, the heads' block)
+    at = (None, None) if state is None else tuple(
+        shard_lib.model_dim(t) for t in state)
     if split:
         nh_l = nh // ax.size
         di_l = nh_l * hd
@@ -249,6 +271,13 @@ def mamba2(
         di, nh = di_l, nh_l
     elif ax is not None:
         p = {k: shard_lib.whole(w, "slice") for k, w in p.items()}
+    if state is not None:
+        conv_st = shard_lib.reshard(state[0], at[0], None)
+        if split:
+            conv_st = torch.cat([conv_st[..., lo:lo + di],
+                                 conv_st[..., di_all:]], -1)
+        state = (conv_st, shard_lib.reshard(state[1], at[1],
+                                            1 if split else None))
     x = shard_lib.region_in(x, split, sp)
     bsz, s, d = x.shape
 
@@ -280,8 +309,16 @@ def mamba2(
                             di * ax.size)
     else:
         y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    out = shard_lib.region_out(y @ p["out_proj"], split, sp)
-    return out, (new_conv_state, h_last.reshape(bsz, nh, hd, ds).float())
+    out = shard_lib.row_out(y, p["out_proj"], split, sp)
+    h_last = h_last.reshape(bsz, nh, hd, ds).float()
+    if state is not None:
+        if split:
+            new_conv_state = torch.cat([
+                shard_lib.gather(new_conv_state[..., :di], 2),
+                new_conv_state[..., di:]], -1)
+        new_conv_state = shard_lib.reshard(new_conv_state, None, at[0])
+        h_last = shard_lib.reshard(h_last, 1 if split else None, at[1])
+    return out, (new_conv_state, h_last)
 
 
 def _rms_norm_split(x: torch.Tensor, w: torch.Tensor, eps: float,

@@ -97,24 +97,12 @@ def shard_state(state: TrainState, specs, mesh) -> TrainState:
     from torch.distributed.tensor import DTensor
 
     sh = state_shardings(specs, state, mesh)
-    info = shard_lib.mesh_info(mesh)
-
-    def local(t, spec):
-        t = t.detach()
-        for i, e in enumerate(spec):
-            n, r = 1, 0
-            for a in shard_lib.entry_axes(e):        # major axis first
-                n, r = n * info[a][0], r * info[a][0] + info[a][1]
-            if n > 1:
-                size = t.shape[i] // n
-                t = t.narrow(i, r * size, size).clone()
-        return t
 
     def put(tensors, shardings):
-        return {k: DTensor.from_local(local(t, shardings[k].spec), mesh,
-                                      shardings[k].placements(),
-                                      run_check=False)
-                for k, t in tensors.items()}
+        return {k: DTensor.from_local(
+            shard_lib.local_shard(t, shardings[k].spec, mesh), mesh,
+            shardings[k].placements(), run_check=False)
+            for k, t in tensors.items()}
 
     return TrainState(params=put(state.params, sh.params), opt=AdamWState(
         step=state.opt.step, mu=put(state.opt.mu, sh.opt.mu),
@@ -270,11 +258,90 @@ def _sharded_train_step(model: Model, optimizer: AdamW, mesh, microbatches,
     return train_step, shard_lib.batch_spec(mesh)
 
 
-def make_serve_step(model: Model, mesh=None, seq_shard: bool = False):
-    """A decode-step closure ``(cache, tokens) -> (logits, cache)`` (the
-    reference's takes the params too; here the model holds them)."""
+def serve_params(model: Model, mesh) -> Dict[str, torch.Tensor]:
+    """The model's weights as this rank's shards for the sharded serving
+    steps: each placed by ``param_shardings`` over ``mesh`` (a copy of its
+    block; a weight no axis splits is the model's own storage) and tagged
+    with its resolved spec."""
+    params = dict(model.named_parameters())
+    sh = shard_lib.param_shardings(model.specs, params, mesh)
+    return {k: shard_lib.tag(shard_lib.local_shard(p, sh[k].spec, mesh),
+                             sh[k].spec) for k, p in params.items()}
 
-    def serve_step(cache, tokens):
-        return model.decode_step(cache, tokens)
+
+def _serving(model: Model, mesh):
+    """``run(params, method, args, b)``: the model's serving ``method`` on
+    ``params`` (None: its own weights), its arguments ``args(take)``.  With
+    a mesh it runs inside ``activation_hints`` on this rank's rows of a
+    global batch of ``b``, which ``take`` cuts from a tensor: the batch
+    splits where the batch axes divide it, as ``cache_shardings`` splits the
+    cache, and is whole on every rank otherwise.  The logits come back
+    tagged with their spec (batch, None, vocabulary), for
+    ``sharding.full_tensor``."""
+    def call(params, method, *args):
+        if params is None:
+            return getattr(model, method)(*args)
+        return functional_call(model, params, args, {"method": method})
+
+    if mesh is None:
+        return lambda params, method, args, b: call(params, method,
+                                                    *args(lambda x: x))
+    _, n_ranks, rank = _batch_groups(mesh)
+    rows = _rows(1, n_ranks, rank)
+    vocab = model.config.vocab_size
+
+    def run(params, method, args, b):
+        split = b % n_ranks == 0
+        with shard_lib.activation_hints(mesh, batch_split=split):
+            take = (lambda x: rows(x)[0]) if split else (lambda x: x)
+            logits, cache = call(params, method, *args(take))
+            spec = (shard_lib.batch_entry(), None,
+                    "model" if logits.shape[-1] != vocab else None)
+        return shard_lib.tag(logits, spec), cache
+
+    return run
+
+
+def make_serve_step(model: Model, mesh=None, seq_shard: bool = False):
+    """The decode step ``(params, cache, tokens) -> (logits, cache)``, the
+    reference's signature: ``params`` a state dict of the model (None: the
+    model's own weights), ``tokens`` (B, 1) and ``cache`` a ``DecodeCache``
+    from ``make_prefill_step``'s (or ``Model.prefill``'s) step.  On a mesh
+    (a ``DeviceMesh`` over ("data", "model") or ("pod", "data", "model"))
+    ``params`` are this rank's shards (``serve_params``), ``cache`` holds
+    this rank's leaves and stays on it, every rank passes the same global
+    ``tokens``, and the logits are this rank's rows and vocabulary block
+    (the reference's ``out_shardings``; ``sharding.full_tensor`` gathers
+    them).  ``seq_shard`` is the reference's, which its cache placement
+    ignores too."""
+    run = _serving(model, mesh)
+
+    def serve_step(params, cache, tokens):
+        tokens = torch.as_tensor(tokens, device=model.device)
+        return run(params, "decode_step",
+                   lambda take: (cache, take(tokens)), tokens.shape[0])
 
     return serve_step
+
+
+def make_prefill_step(model: Model, mesh=None, seg_len: int = 0,
+                      max_len=None):
+    """The prefill step ``(params, batch) -> (logits, cache)`` beside
+    ``make_serve_step``, with its arguments: ``Model.prefill`` with room
+    for ``max_len`` positions, or ``prefill_chunked`` in segments of
+    ``seg_len`` when it is set.  On a mesh every rank passes the same global
+    ``batch`` and gets this rank's cache leaves and logits."""
+    run = _serving(model, mesh)
+
+    method, extra = (("prefill_chunked", (seg_len, max_len)) if seg_len
+                     else ("prefill", (max_len,)))
+
+    def prefill_step(params, batch):
+        batch = {k: torch.as_tensor(v, device=model.device)
+                 for k, v in batch.items()}
+        return run(params, method,
+                   lambda take: ({k: take(v) for k, v in batch.items()},
+                                 *extra), batch["tokens"].shape[0])
+
+    return prefill_step
+

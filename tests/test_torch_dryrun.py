@@ -1,9 +1,23 @@
 """The port's dry-run (``repro_torch.launch.dryrun``), the twin of
 ``tests/test_dryrun.py``: ``lower_cell`` traces a full-size train cell's
 sharded step on a fake (2, 4) mesh (fake tensors: no storage) and gives a
-complete record; ``input_specs`` has the reference's shapes and dtypes for
-every (arch x shape) cell; prefill and decode cells are ``not_ported``;
-the CLI's resumable JSON and its ``long_500k`` skip."""
+complete record, and so the prefill and decode cells' sharded serving
+steps; ``input_specs`` has the reference's shapes and dtypes for every
+(arch x shape) cell; the CLI's resumable JSON and its ``long_500k`` skip.
+
+zamba2's prefill cell is traced at full width but at 2 layers (a mamba2
+block and the shared attention) and 2,048 positions in 2 segments of 1,024
+(``CHUNKED_PREFILL_SEG`` lowered): the port's selective scan steps through
+the sequence one position at a time, which at 32,768 positions and 38
+layers is millions of traced ops (over 1,100 s on one CPU core).  At 2
+layers the embedding and unembedding hold most of the parameters, which
+the model FLOPs count at every token and the prefill runs at the last
+position only, so that cell's traced FLOPs are held against its blocks'
+share instead of ``useful_ratio``.  The prefill cells attend in one query
+chunk (``q_chunk`` = the sequence): the trace costs ~1 ms an op, and 32
+chunks a layer made granite-34b's cell ~50 s alone, ~4 min with the
+suite's other workers."""
+import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -14,8 +28,10 @@ import torch
 from repro.configs import get_config as ref_get_config
 from repro.models.model import input_specs as ref_input_specs
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.models.model import input_specs
+from repro_torch.roofline import analysis as roofline
 
 _DTYPES = {torch.int32: jnp.int32, torch.float32: jnp.float32}
 
@@ -52,12 +68,73 @@ def test_input_specs_match_reference(arch, shape):
         assert _DTYPES[t.dtype] == want[k].dtype, k
 
 
-def test_serving_cells_not_ported():
+SERVE_ARCHS = ("stablelm-1.6b", "granite-34b", "zamba2-1.2b")
+REF_KEYS = {"arch", "shape", "mesh", "chips", "status", "memory",
+            "roofline", "param_count", "active_param_count"}
+
+
+CUT_SEG = 1024
+
+
+def _serve_cell(arch, shape):
+    """(config, shape, whether cut) of a serving cell."""
+    cfg, shp = get_config(arch), SHAPES[shape]
+    if arch == "zamba2-1.2b" and shape == "prefill_32k":
+        cfg = dataclasses.replace(cfg, num_layers=2, attn_every=2)
+        shp = ShapeConfig("prefill_32k", 2 * CUT_SEG, shp.global_batch,
+                          "prefill")
+        return cfg, shp, True
+    return cfg, shp, False
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_cell(arch, shape, monkeypatch):
+    """A prefill or decode cell's sharded serving step, traced: the
+    reference's keys, the decode cache's bytes over the chips in the memory
+    term, and the roofline's checks of ``tests/test_dryrun.py``."""
+    cfg, shp, cut = _serve_cell(arch, shape)
+    if cut:
+        monkeypatch.setattr(dryrun, "CHUNKED_PREFILL_SEG", CUT_SEG)
+    kw = {"q_chunk": shp.seq_len} if shp.kind == "prefill" else {}
     with dryrun.fake_mesh((2, 4), ("data", "model")) as mesh:
-        for shape in ("prefill_32k", "decode_32k", "long_500k"):
-            rec = dryrun.lower_cell("zamba2-1.2b", SHAPES[shape], mesh)
-            assert rec["status"] == "not_ported", rec
-            assert "ROADMAP" in rec["reason"]
+        rec = dryrun.lower_cell(arch, shp, mesh, model_kw=kw, cfg=cfg)
+    assert rec["status"] == "ok", rec
+    assert REF_KEYS <= set(rec) and rec["trace_s"] >= 0
+    assert rec["mesh"] == "2x4" and rec["chips"] == 8
+    rl = rec["roofline"]
+    assert rl["flops"] > 0 and rl["coll_bytes"] > 0
+    assert rl["bottleneck"] in ("compute", "memory", "collective")
+    if cut:
+        v, d = cfg.vocab_size, cfg.d_model
+        blocks = cfg.active_param_count() - 2 * v * d
+        tokens = shp.global_batch * shp.seq_len
+        assert rl["flops"] * 8 > 2 * blocks * tokens
+    else:
+        assert 0 < rl["useful_ratio"] < 1.5
+    assert rec["memory"]["temp_size_in_bytes"] > 0
+    kv = rec["kv_bytes_local"]
+    sizes = {"data": 2, "model": 4}
+    assert rl["hbm_bytes"] == roofline.analytic_hbm_bytes(
+        cfg, shp, sizes, kv_cache_bytes=kv)
+    b, s = shp.global_batch, shp.seq_len
+    if shp.kind == "prefill":
+        assert kv == 0
+        # the cache of seq_len + 8 positions is the step's output
+        assert rec["cache_bytes_local"] > 0
+        return
+    # every layer's K and V (and the SSM states), over the 8 chips
+    n_attn = sum(blk != "mamba2" and blk != "mamba1"
+                 for blk in cfg.block_pattern())
+    want = 2 * n_attn * b * s * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    if cfg.family == "hybrid":
+        di = cfg.ssm_expand * cfg.d_model
+        n_ssm = cfg.num_layers - n_attn
+        want += n_ssm * b * ((cfg.ssm_conv - 1) * (di + 2 * cfg.ssm_state) * 2
+                             + di * cfg.ssm_state * 4)
+    assert kv == want / 8
+    assert kv <= rec["memory"]["argument_size_in_bytes"]
+    assert rec["cache_bytes_local"] * 8 >= want
 
 
 def test_cell_microbatches():
@@ -71,8 +148,8 @@ def test_cell_microbatches():
 
 def test_cli_skips_and_resumes(tmp_path, monkeypatch, capsys):
     """``main``: a quadratic-attention arch's long_500k cell is skipped by
-    design, serving cells are recorded ``not_ported``, and a second run
-    keeps the file's records (``--force`` redoes them)."""
+    design, serving cells are traced, and a second run keeps the file's
+    records (``--force`` redoes them)."""
     monkeypatch.setattr(dryrun, "PRODUCTION_MESHES",
                         {False: ((2, 4), ("data", "model")),
                          True: ((2, 2, 2), ("pod", "data", "model"))})
@@ -86,14 +163,15 @@ def test_cli_skips_and_resumes(tmp_path, monkeypatch, capsys):
                          "stablelm-1.6b|long_500k|2x2x2",
                          "stablelm-1.6b|decode_32k|2x2x2"}
     assert recs["stablelm-1.6b|long_500k|2x4"]["status"] == "skipped"
-    assert recs["stablelm-1.6b|decode_32k|2x2x2"]["status"] == "not_ported"
+    assert recs["stablelm-1.6b|decode_32k|2x2x2"]["status"] == "ok"
+    assert recs["stablelm-1.6b|decode_32k|2x4"]["status"] == "ok"
     # an "ok" record in the file is kept; others are redone
-    recs["stablelm-1.6b|decode_32k|2x4"]["status"] = "ok"
+    recs["stablelm-1.6b|decode_32k|2x4"]["trace_s"] = -1.0
     out.write_text(json.dumps(recs))
     dryrun.main(argv)
     assert "[skip] stablelm-1.6b|decode_32k|2x4" in capsys.readouterr().out
     assert json.loads(out.read_text())["stablelm-1.6b|decode_32k|2x4"][
-        "status"] == "ok"
+        "trace_s"] == -1.0
     dryrun.main(argv + ["--force"])
-    assert json.loads(out.read_text())["stablelm-1.6b|decode_32k|2x4"][
-        "status"] == "not_ported"
+    rec = json.loads(out.read_text())["stablelm-1.6b|decode_32k|2x4"]
+    assert rec["status"] == "ok" and rec["trace_s"] >= 0

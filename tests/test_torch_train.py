@@ -271,7 +271,7 @@ def test_serving_builds_no_graph():
     model_mod.checkpoint = lambda *a, **k: calls.append(1) or real(*a, **k)
     try:
         lg, cache = model.prefill({"tokens": toks}, max_len=20)
-        lg2, cache2 = make_serve_step(model)(cache, toks[:, :1])
+        lg2, cache2 = make_serve_step(model)(None, cache, toks[:, :1])
         lg3, _ = model.prefill_chunked({"tokens": toks}, seg_len=8)
     finally:
         model_mod.checkpoint = real
