@@ -39,7 +39,7 @@ not printed):
    each round collective's time); then a (2, 2) mesh of 4 gloo processes
    on the one card (``mesh_rank``; each loads only its own data shard,
    written once as ``.npy``), nsp and fetch at E=1 over the first
-   MESH_QUERIES (1,024) queries (QPS, seconds); then
+   MESH_QUERIES (512) queries (QPS, seconds); then
    ``python -m repro_torch.launch.serve`` at its defaults.  Fails unless
    every world-size-1 run's ids equal the flat search's as sorted sets,
    its recall@10 is >= 0.5, each round launched the lookup (twice in nsp),
@@ -49,7 +49,7 @@ not printed):
    Filtered phase: ``random_attributes(N, {"category": 8, "price": 1000},
    seed=5)`` and four specs — ``isin(category, [0, 1, 2])`` (~37.5%,
    masked, L=512), ``eq(category, 3)`` (~12.5%, masked, L=1024), ``range(price, 0,
-   9)`` (~1%, scan) and one no node passes (empty) — 2048 queries each,
+   9)`` (~1%, scan) and one no node passes (empty) — 1024 queries each,
    interleaved, through the continuous engine and the batch-flush engine; then each spec alone through ``Searcher.search``
    (strategy, effective L, rounds per lane, launches).  Fails unless the
    two engines agree bit for bit, every returned id passes its filter, the
@@ -65,7 +65,7 @@ not printed):
    recall@10 >= 0.5, the engine's ids equal ``Searcher.search``'s, 64
    queries on the CPU over the same tiles equal the card's in >= 95% of
    rows, and the merges equal the batches.  Then two A/B comparisons of
-   AB_PAIRS (6) alternating pairs of 512 queries through ``Searcher.search``: the
+   AB_PAIRS (4) alternating pairs of 512 queries through ``Searcher.search``: the
    cluster tiles at full fan-out unrolled (``use_vmap=False``) against
    batched, and the flat index against the batched tiles (QPS of each
    pair, medians and spread, launches and rounds a 256-query batch).
@@ -151,7 +151,7 @@ not printed):
    (prefill and decode ms beside the unsharded ones); then a (2, 2) mesh
    of 4 gloo processes on the one card (``serve_mesh_rank``: the model
    from the same seed, each rank 4 rows, 4 q heads, 160 of the cache's 320
-   positions and 128,608 of the vocabulary), 8 decode steps fed the
+   positions and 128,608 of the vocabulary), 4 decode steps fed the
    one-rank greedy tokens: fails unless every rank exits 0, each greedy
    token is the one-rank token or a tie within the zoo's bf16 bar, and the
    logits are no further from an f32 copy's (fed the same tokens) than
@@ -237,8 +237,10 @@ not printed):
    merge's (256, 26 + 26 padded to 64).  The batched tile fan-out's
    round: the lookup, the merge (L=128, n=64) and the masked rerank at
    4 x 256 = 1,024 lanes.  The IVF search's: ``pq_adt`` over one chunk's
-   (Q x nprobe) residuals and the lookup at that chunk's (Q x nprobe,
-   max_len), the IVF phase's own arguments.  The distributed round's, on
+   (Q x nprobe) residuals and the lists entry over that chunk's (Q,
+   nprobe) probed lists, the IVF phase's own arguments, and beside it the
+   gather entry IVF took before (Q x nprobe, max_len) on the same chunk.
+   ``pq_adt`` also at dsub 8 and 16 (Q=256, M=32).  The distributed round's, on
    one round's arguments from the distributed phase: the lookup over the
    shard's codes, over the hot replica and over fetch's fetched table, the
    masked rerank over the shard's base and over the hot replica.  The
@@ -286,7 +288,7 @@ NUM_TILES = 4
 TILED_VARIANTS = (("cluster", 0), ("cluster", 2), ("hash", 0))
 # alternating A/B pairs of the fan-out (10 until the sharded-training
 # phases: the smoke's time limit's cut of the A/B's depth, PERF.md)
-AB_PAIRS = 6
+AB_PAIRS = 4
 AB_QUERIES = 512                 # queries an arm of a pair
 IVF_NLIST = 64                   # fig11's IVF-PQ baseline
 IVF_NPROBES = (2, 8, 16)
@@ -416,7 +418,8 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
     pads them, are entries too; so are the batched tile fan-out's round
     (the lookup, merge and masked rerank at NUM_TILES x Q lanes) and the
     IVF search's launches (``ivf_inputs``: the arguments of one chunk's
-    ``pq_adt`` and lookup, as the IVF phase made them) and the distributed
+    ``pq_adt`` and ``pq_lookup_lists``, as the IVF phase made them; the
+    gather entry IVF took before runs on the same chunk) and the distributed
     search's call sites (``dist_inputs``: one round's arguments of each,
     as the distributed phase made them at world size 1) and the image
     retriever's (``retr_inputs``: one round's arguments of each kernel over
@@ -503,8 +506,11 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
         lib = ({"cdist": lambda: torch.cdist(qsub, cents)}  # sqrt of the table
                if metric == "l2" else
                {"bmm": lambda: torch.bmm(qsub, cents.transpose(1, 2))})
+        # the search's aligned dsub=4 codebooks, or the wide kernel
+        symbol = ("pq_adt_kernel" if dsub == 4 and cents.data_ptr() % 16 == 0
+                  else "pq_adt_wide_kernel")
         return entry(
-            label, "pq_adt_kernel", ops.pq_adt(qq, cents, metric),
+            label, symbol, ops.pq_adt(qq, cents, metric),
             ops.pq_adt_plain(qq, cents, metric), 1e-4, 1e-4,
             lambda: ops.pq_adt(qq, cents, metric),
             lambda: ops.pq_adt_plain(qq, cents, metric), lib,
@@ -521,7 +527,12 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
            adt_entry("pq_adt_Q1_trace", queries[:1]),
            adt_entry(f"pq_adt_ivf_Q{ivf_res.shape[0]}", ivf_res, ivf_cents),
            adt_entry(f"pq_adt_retriever_Q{retr_adt[0].shape[0]}"
-                     f"_D{retr_adt[0].shape[1]}", *retr_adt))
+                     f"_D{retr_adt[0].shape[1]}", *retr_adt),
+           # the wide kernel at the subspaces between (Q=256, M=32)
+           *(adt_entry(f"pq_adt_dsub{w}", torch.randn(q, m * w, generator=g,
+                                                       device=dev),
+                       torch.randn(m, c, w, generator=g, device=dev))
+             for w in (8, 16)))
 
     # ---- pq_lookup (the search's gather entry, masked and not) -----------
     adts = ops.pq_adt(queries, cents, "l2")
@@ -563,6 +574,41 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
             {"codes_gather_sum": lambda: torch.where(mask, flat.gather(
                 2, table[ids.long()].long() + offs).sum(-1), inf)},
             lookup_bytes(ids, table, mask), int(mask.sum()) * m)
+
+    # IVF's chunk: the probed lists as the lists entry takes them, and as
+    # rows of the (nlist*max_len, M) table and a mask, as the gather entry
+    # took them before the lists entry (one ADT a probe: residual)
+    probes, lengths, list_codes, ivf_adts = ivf_inputs["lists"]
+    max_len = list_codes.shape[1]
+    slots = torch.arange(max_len, dtype=torch.int32, device=dev)
+    lens = lengths[probes.long()]
+    ivf_rows = (probes[:, :, None] * max_len + slots).reshape(
+        ivf_adts.shape[0], -1)
+    ivf_mask = (slots < lens[..., None]).reshape(ivf_adts.shape[0], -1)
+    ivf_table = list_codes.reshape(-1, m)
+    ivf_flat = ivf_adts.reshape(ivf_adts.shape[0], 1, m * c).expand(
+        ivf_adts.shape[0], ivf_rows.shape[1], m * c)
+    read = torch.unique(probes[lens > 0]).long()
+    lists_ivf = entry(
+        f"lists_ivf_Q{probes.numel()}_n{max_len}", "pq_lookup_lists_kernel",
+        ops.pq_lookup_lists(probes, lengths, list_codes, ivf_adts),
+        ops.pq_lookup_lists_plain(probes, lengths, list_codes, ivf_adts),
+        1e-4, 1e-4,
+        lambda: ops.pq_lookup_lists(probes, lengths, list_codes, ivf_adts),
+        lambda: ops.pq_lookup_lists_plain(probes, lengths, list_codes,
+                                          ivf_adts),
+        # the gather entry's yardstick on the same chunk: code-row gather +
+        # ADT gather + sum + where
+        {"codes_gather_sum": lambda: torch.where(ivf_mask, ivf_flat.gather(
+            2, ivf_table[ivf_rows.long()].long() + offs).sum(-1), inf)},
+        # probes, the probed lengths, each probed list's real code rows
+        # once, the ADT entries they touch, the (Q, P, max_len) output
+        4 * probes.numel() + 4 * read.numel()
+        + int(lengths[read].sum()) * m
+        + 4 * touched(ivf_rows, ivf_table, ivf_mask)
+        + 4 * probes.numel() * max_len,
+        int(lens.sum()) * m)
+    lists_ivf["valid_share"] = float(ivf_mask.float().mean())
 
     libraries = {
         # code rows gathered beforehand, outside the timed call
@@ -645,9 +691,11 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                         ints(0, n_base, (NUM_TILES * q, r), torch.int32),
                         codes, adts.repeat(NUM_TILES, 1, 1),
                         rand(NUM_TILES * q, r) < 0.5),
-           gather_entry(f"gather_ivf_Q{ivf_inputs['lookup'][0].shape[0]}"
-                        f"_n{ivf_inputs['lookup'][0].shape[1]}",
-                        *ivf_inputs["lookup"]),
+           # IVF's chunk: the gather entry IVF took before, then the lists
+           # entry it takes now
+           gather_entry(f"gather_ivf_Q{ivf_rows.shape[0]}"
+                        f"_n{ivf_rows.shape[1]}", ivf_rows, ivf_table,
+                        ivf_adts, ivf_mask), lists_ivf,
            # the distributed round's: nsp over the shard's codes (local
            # ids, "fresh and owned and not hot") and over the hot replica
            # ("fresh and hot"); fetch over the fetched (Q*R, M) table
@@ -1066,8 +1114,8 @@ def continuous_phase(torch, idx, batch_ids, batch_dists, log) -> dict:
 DIST_RUNS = (("nsp", 1), ("nsp", 4), ("fetch", 1), ("fetch", 4))
 MESH_SHAPE = (2, 2)              # (data, model) gloo ranks on the one card
 # the gloo mesh's queries, the first of the world-size-1 runs' SHARD_QUERIES
-# (2,048 until the sharded-training phases: the smoke's time limit's cut)
-MESH_QUERIES = 1024
+# (2,048, then 1,024, cut as later phases joined the smoke's time limit)
+MESH_QUERIES = 512
 MESH_MODES = ("nsp", "fetch")    # at E=1
 ROUND_COLLECTIVES = ("adjacency", "scores", "codes", "exact")
 
@@ -1431,7 +1479,7 @@ def _specs():
 
 def filtered_phase(torch, idx, log) -> dict:
     """Filtered serving on the main path's index: four specs (masked at
-    ~37.5% and ~12.5%, scan at ~1%, empty), 2,048 queries each,
+    ~37.5% and ~12.5%, scan at ~1%, empty), 1,024 queries each,
     interleaved, through the continuous engine and the batch-flush engine;
     then each spec alone through ``Searcher.search`` (strategy, effective
     L, rounds per lane, launches by kernel) and an exact filtered kNN on the
@@ -1444,7 +1492,7 @@ def filtered_phase(torch, idx, log) -> dict:
     from repro_torch.plan import Searcher, SearchRequest
     from repro_torch.serve import ServingEngine
 
-    n_per_spec = 2048          # of the 10,000 queries, for the smoke's time
+    n_per_spec = 1024          # of the 10,000 queries, for the smoke's time
     store = random_attributes(idx.dataset.num_base,
                               {"category": 8, "price": 1000}, seed=5)
     specs = _specs()
@@ -1770,8 +1818,8 @@ def ivf_phase(torch, idx, flat_ids, log) -> tuple:
     nq = IVF_CHECK_QUERIES
     cpu = IVFIndex(coarse_centroids=ivf.coarse_centroids.cpu(),
                    lists=ivf.lists.cpu(), list_codes=ivf.list_codes.cpu(),
-                   codebook=ivf.codebook, residual=ivf.residual,
-                   metric=ivf.metric)
+                   lengths=ivf.lengths.cpu(), codebook=ivf.codebook,
+                   residual=ivf.residual, metric=ivf.metric)
     g_ids, g_d, g_n = search_ivf(ivf, queries[:nq], 10, 8)
     c_ids, c_d, c_n = search_ivf(cpu, queries[:nq], 10, 8)
     fin = np.isfinite(c_d)
@@ -1792,7 +1840,7 @@ def ivf_phase(torch, idx, flat_ids, log) -> tuple:
 
     # one chunk's launches at the largest nprobe, for the kernel phase
     captured = {}
-    real = {"adt": ops.pq_adt, "lookup": ops.pq_lookup_gather}
+    real = {"adt": ops.pq_adt, "lists": ops.pq_lookup_lists}
 
     def spy(key):
         def call(*args):
@@ -1800,15 +1848,18 @@ def ivf_phase(torch, idx, flat_ids, log) -> tuple:
             return real[key](*args)
         return call
 
-    ops.pq_adt, ops.pq_lookup_gather = spy("adt"), spy("lookup")
+    ops.pq_adt, ops.pq_lookup_lists = spy("adt"), spy("lists")
     try:
         search_ivf(ivf, queries, 10, IVF_NPROBES[-1])
     finally:
-        ops.pq_adt, ops.pq_lookup_gather = real["adt"], real["lookup"]
-    rows, _, _, mask = captured["lookup"]
+        ops.pq_adt, ops.pq_lookup_lists = real["adt"], real["lists"]
+    probes, lengths, list_codes, _ = captured["lists"]
+    max_len = list_codes.shape[1]
+    valid = (torch.arange(max_len, device=probes.device)
+             < lengths[probes.long()][..., None])
     out["kernel_shapes"] = {"adt_lanes": captured["adt"][0].shape[0],
-                            "lookup": list(rows.shape),
-                            "valid_share": float(mask.float().mean())}
+                            "lookup": [probes.numel(), max_len],
+                            "valid_share": float(valid.float().mean())}
     return out, captured
 
 
@@ -2550,7 +2601,7 @@ SERVE_PROMPT = 32
 SERVE_STEPS = 32                 # greedy decode steps
 SERVE_TF_RTOL = 1e-3             # f32 decode vs teacher forcing, of max|logit|
 SERVE_MESH_SHAPE = (2, 2)        # (data, model) gloo ranks on the one card
-SERVE_MESH_STEPS = 8             # of SERVE_STEPS, on that mesh: cut for time
+SERVE_MESH_STEPS = 4             # of SERVE_STEPS, on that mesh: cut for time
 # 512 classes x 32 images = 16,384.  Not 256 x 64: with 64 a class the
 # retriever's build list (2R = 64) holds only the point's own class, the
 # graph falls into 256 cliques and recall@10 collapses, in the reference as

@@ -16,15 +16,17 @@ within a list, -1 padding).
 
 The search is batched where the reference runs one jitted call per query
 and one ``pq_lookup`` per probed list: the probes of a chunk of queries
-are one ``pq_adt`` launch over the (Q*nprobe, D) residuals and one masked
-``pq_lookup_gather`` launch at (Q*nprobe, max_len) (without residuals: one
-ADT a query and a (Q, nprobe*max_len) lookup).  The rows the lookup
-gathers are rows of ``list_codes`` viewed as (nlist*max_len, M), so a
-probed list is a contiguous run of code rows and the index keeps the
-reference's layout with no second code table; -1 padding is masked and
-reads nothing.  The top k is a stable sort (``lax.top_k``'s tie order: the
-lower candidate position first).  On the CPU the plain versions run
-(``compute_adt``, the plain lookup); on CUDA the kernels, with no fallback.
+are one ``pq_adt`` launch over the (Q*nprobe, D) residuals and one
+``pq_lookup_lists`` launch over the chunk's (Q, nprobe) probed lists
+(without residuals: one ADT a query, shared by its probes).  The lookup
+scores each probed list as the reference does, its ``lengths[list]`` rows
+of ``list_codes`` as one contiguous run against that probe's ADT, and puts
++inf on the -1 padding, which it never reads; the index keeps the
+reference's layout (padding trailing in every list) plus the lengths.  The
+top k is a stable sort over the (Q, nprobe*max_len) distances
+(``lax.top_k``'s tie order: the lower candidate position first).  On the
+CPU the plain versions run (``compute_adt``, the plain lookup); on CUDA the
+kernels, with no fallback.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ from repro_torch.core.pq import PQCodebook, compute_adt, encode, train_pq
 from repro_torch.kernels import ops
 
 COARSE_ITERS = 10           # the reference's coarse Lloyd steps
-# elements of one (lanes, scanned rows) buffer of a search chunk: the
-# distances, ids, mask and sort of a chunk stay under ~1 GB together
+# elements of one (queries, scanned rows) buffer of a search chunk: the
+# distances, candidate ids and sort of a chunk stay under ~1 GB together
 _CHUNK_ELEMS = 1 << 25
 
 
@@ -50,6 +52,7 @@ class IVFIndex:
     coarse_centroids: torch.Tensor   # (nlist, D) f32
     lists: torch.Tensor              # (nlist, max_len) int32, -1 padded
     list_codes: torch.Tensor         # (nlist, max_len, M) uint8
+    lengths: torch.Tensor            # (nlist,) int32: ids before the padding
     codebook: PQCodebook
     residual: bool
     metric: str
@@ -60,9 +63,10 @@ class IVFIndex:
 
 
 def fill_lists(assign: torch.Tensor, codes: torch.Tensor, nlist: int):
-    """(N,) list of each row and its (N, M) codes -> (lists, list_codes):
-    the reference's layout, rows in ascending id order within a list,
-    padded with -1 ids and zero codes, from one stable sort."""
+    """(N,) list of each row and its (N, M) codes -> (lists, list_codes,
+    lengths): the reference's layout, rows in ascending id order within a
+    list, padded with -1 ids and zero codes, from one stable sort; lengths
+    (nlist,) int32."""
     n = assign.shape[0]
     counts = torch.bincount(assign, minlength=nlist)
     max_len = int(counts.max())
@@ -76,7 +80,7 @@ def fill_lists(assign: torch.Tensor, codes: torch.Tensor, nlist: int):
     list_codes = torch.zeros((nlist, max_len, codes.shape[1]),
                              dtype=torch.uint8, device=assign.device)
     list_codes[owner, slot] = codes[order]
-    return lists, list_codes
+    return lists, list_codes, counts.to(torch.int32)
 
 
 def build_ivf(base: np.ndarray, pq_cfg: PQConfig, metric: str = "l2",
@@ -115,24 +119,33 @@ def build_ivf(base: np.ndarray, pq_cfg: PQConfig, metric: str = "l2",
     codes = encode(enc_input, torch.as_tensor(codebook.centroids,
                                               device=xs.device))
     timer.mark("encode")
-    lists, list_codes = fill_lists(assign, codes, nlist)
+    lists, list_codes, lengths = fill_lists(assign, codes, nlist)
     timer.mark("fill_lists")
     return IVFIndex(coarse_centroids=cent, lists=lists, list_codes=list_codes,
-                    codebook=codebook, residual=residual, metric=metric)
+                    lengths=lengths, codebook=codebook, residual=residual,
+                    metric=metric)
 
 
 def ivf_from_arrays(*, coarse_centroids, lists, list_codes, centroids,
                     residual: bool, metric: str, device="cuda") -> IVFIndex:
     """An ``IVFIndex`` over copies of a reference index's numpy arrays
-    (``centroids``: its codebook's (M, C, dsub))."""
+    (``centroids``: its codebook's (M, C, dsub)).  Raises if a list's -1
+    padding is not trailing: the lookup scores a list's first
+    ``lengths[list]`` rows."""
     def on(a, dtype):
         return torch.tensor(np.array(a, copy=True), dtype=dtype,
                             device=device)
 
+    valid = np.asarray(lists) >= 0
+    lengths = valid.sum(1)
+    if not (valid == (np.arange(valid.shape[1]) < lengths[:, None])).all():
+        raise ValueError("ivf_from_arrays: a list's -1 padding is not "
+                         "trailing")
     cb_metric = "l2" if residual else metric
     return IVFIndex(
         coarse_centroids=on(coarse_centroids, torch.float32),
         lists=on(lists, torch.int32), list_codes=on(list_codes, torch.uint8),
+        lengths=on(lengths, torch.int32),
         codebook=PQCodebook(centroids=np.array(centroids, np.float32,
                                                copy=True), metric=cb_metric),
         residual=bool(residual), metric=metric)
@@ -154,35 +167,27 @@ def search_ivf(index: IVFIndex, queries: np.ndarray, k: int, nprobe: int = 8,
     dev = index.device
     metric = "l2" if index.residual else index.metric
     cents = torch.as_tensor(index.codebook.centroids, device=dev)
-    nlist, max_len, m = index.list_codes.shape
-    table = index.list_codes.reshape(nlist * max_len, m)
-    slots = torch.arange(max_len, dtype=torch.int32, device=dev)
+    max_len = index.list_codes.shape[1]
     adt = ops.pq_adt if dev.type == "cuda" else compute_adt
     nprobe = probes.shape[1]
     chunk = max(1, _CHUNK_ELEMS // (nprobe * max_len))
     out_ids, out_d, out_n = [], [], []
     for s in range(0, q.shape[0], chunk):
         qc = torch.as_tensor(q[s : s + chunk], device=dev)
-        pc = torch.as_tensor(probes[s : s + chunk], device=dev).long()
+        pc = torch.as_tensor(probes[s : s + chunk], device=dev,
+                             dtype=torch.int32)
         b = qc.shape[0]
-        cand = index.lists[pc]                          # (b, nprobe, max)
-        valid = cand >= 0
-        rows = (pc.to(torch.int32) * max_len)[:, :, None] + slots
         if index.residual:
-            res = (qc[:, None, :] - coarse[pc]).reshape(b * nprobe, -1)
-            d = ops.pq_lookup_gather(
-                rows.reshape(b * nprobe, max_len), table,
-                adt(res.contiguous(), cents, metric),
-                valid.reshape(b * nprobe, max_len))
+            res = (qc[:, None, :] - coarse[pc.long()]).reshape(b * nprobe, -1)
+            adts = adt(res.contiguous(), cents, metric)    # one a probe
         else:
-            d = ops.pq_lookup_gather(
-                rows.reshape(b, nprobe * max_len), table,
-                adt(qc, cents, metric), valid.reshape(b, nprobe * max_len))
+            adts = adt(qc, cents, metric)                   # one a query
+        d = ops.pq_lookup_lists(pc, index.lengths, index.list_codes, adts)
         d = d.reshape(b, nprobe * max_len)
-        cand = cand.reshape(b, nprobe * max_len)
+        cand = index.lists[pc.long()].reshape(b, nprobe * max_len)
         order = torch.sort(d, dim=1, stable=True).indices[:, :k]
         out_ids.append(cand.gather(1, order))
         out_d.append(d.gather(1, order))
-        out_n.append(valid.reshape(b, -1).sum(1))
+        out_n.append(index.lengths[pc.long()].sum(1))
     return (torch.cat(out_ids).cpu().numpy(), torch.cat(out_d).cpu().numpy(),
             torch.cat(out_n).cpu().numpy())

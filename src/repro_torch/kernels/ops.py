@@ -8,9 +8,9 @@ The build-and-load step and the launch counters live in
 
 Observability (``repro_torch.obs``): ``set_observability`` points a
 module-level hook at a bundle; each entry then reports, labelled by the TPU
-kernel it ports (``pq_lookup_gather`` -> ``pq_lookup``,
-``bitonic_merge_topl`` -> ``bitonic_sort_pairs``, ``l2_rerank_masked`` ->
-``l2_rerank``):
+kernel it ports (``pq_lookup_gather`` and ``pq_lookup_lists`` ->
+``pq_lookup``, ``bitonic_merge_topl`` -> ``bitonic_sort_pairs``,
+``l2_rerank_masked`` -> ``l2_rerank``):
 
 * ``kernel_calls{kernel=...}`` — one per call (on the card: one per launch);
 * ``kernel_wall_ms{kernel=...}`` — on the CPU the wall time of the plain
@@ -44,7 +44,7 @@ from repro_torch.kernels.loader import (  # noqa: F401  (re-exports)
 from repro_torch.kernels.pq_adt import pq_adt_cuda, pq_adt_plain
 from repro_torch.kernels.pq_lookup import (
     pq_lookup_cuda, pq_lookup_gather_cuda, pq_lookup_gather_plain,
-    pq_lookup_plain,
+    pq_lookup_lists_cuda, pq_lookup_lists_plain, pq_lookup_plain,
 )
 
 _obs = None     # Observability bundle (repro_torch.obs) or None
@@ -134,6 +134,14 @@ def pq_lookup_gather(ids, codes, adts, mask=None):
         return pq_lookup_gather_cuda(ids, codes, adts, mask)
     _check_ids(ids)
     return pq_lookup_gather_plain(ids, codes, adts, mask)
+
+
+@_hooked("pq_lookup")
+def pq_lookup_lists(probes, lengths, list_codes, adts):
+    if probes.is_cuda:
+        return pq_lookup_lists_cuda(probes, lengths, list_codes, adts)
+    _check_ids(probes)
+    return pq_lookup_lists_plain(probes, lengths, list_codes, adts)
 
 
 @_hooked("bitonic_sort_pairs")

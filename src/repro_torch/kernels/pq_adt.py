@@ -8,7 +8,9 @@ Replaces the TPU kernel ``src/repro/kernels/pq_adt.py::pq_adt``
     ip:  ADT[q, m, c] = -sum_d  query[q,m,d] * cent[m,c,d]
 
 the direct form, like the TPU kernel.  What bounds it on the card: writing
-the (Q, M, C) float32 tables — the codebook is read once into L2.
+the (Q, M, C) float32 tables — the codebook is read once into L2 — at the
+search's dsub=4; its operations at a wide dsub (the image retriever's 64),
+which the kernel's second form, a tiled product over the subspaces, serves.
 """
 from __future__ import annotations
 

@@ -46,15 +46,40 @@ def _t(a, dev):
                                         (256, 32, 256, 4), (13, 30, 256, 4),
                                         (257, 25, 100, 2), (19, 7, 100, 3),
                                         (11, 9, 100, 4), (5, 6, 50, 4),
-                                        (3, 5, 7, 3), (9, 3, 1100, 4)])
+                                        (3, 5, 7, 3), (9, 3, 1100, 4),
+                                        (256, 32, 256, 8), (256, 32, 256, 16),
+                                        (256, 32, 256, 64), (37, 5, 70, 64),
+                                        (33, 3, 130, 16), (2, 2, 9, 40),
+                                        (3, 1, 64, 100)])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_pq_adt_kernel(cuda, q, m, c, dsub, metric):
-    """The tile is 8 queries x (256 / ceil(C/4)) subspaces: Q not a multiple
-    of 8, M not a multiple of the tile, C not a multiple of 4 (50, 7), dsub
-    2 and 3 (scalar codebook loads) and C > 1024 (threads loop over the
-    centroids) are all ragged edges of the one kernel."""
+    """dsub=4 takes the 8 queries x (256 / ceil(C/4)) subspaces tile: Q not
+    a multiple of 8, M not a multiple of the tile, C not a multiple of 4
+    (50, 7) and C > 1024 (threads loop over the centroids) are its ragged
+    edges.  Every other dsub takes the wide kernel's 32 x 64 tile, staged 32
+    values of dsub at a time: dsub 2 and 3 (scalar staging), 8, 16 and 64
+    (the image retriever's (256, 32, 256, 64)), 40 and 100 (a ragged last
+    chunk), with Q and C not multiples of the tile."""
     qs = _t(RNG.standard_normal((q, m * dsub)).astype(np.float32), cuda)
     cents = _t(RNG.standard_normal((m, c, dsub)).astype(np.float32), cuda)
+    got = ops.pq_adt(qs, cents, metric)
+    torch.cuda.synchronize()
+    want = ops.pq_adt_plain(qs, cents, metric)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("q,m,c,dsub", [(256, 32, 256, 4), (19, 7, 100, 4),
+                                        (256, 32, 256, 64), (5, 3, 50, 16)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_pq_adt_kernel_misaligned_codebook(cuda, q, m, c, dsub, metric):
+    """A codebook offset by one float from a 16-byte boundary (and queries
+    likewise) is staged with scalar loads by the wide kernel, dsub=4
+    included."""
+    qbuf = _t(RNG.standard_normal(q * m * dsub + 1).astype(np.float32), cuda)
+    cbuf = _t(RNG.standard_normal(m * c * dsub + 1).astype(np.float32), cuda)
+    qs = qbuf[1:].view(q, m * dsub)
+    cents = cbuf[1:].view(m, c, dsub)
+    assert cents.data_ptr() % 16 and qs.data_ptr() % 16
     got = ops.pq_adt(qs, cents, metric)
     torch.cuda.synchronize()
     want = ops.pq_adt_plain(qs, cents, metric)
@@ -88,6 +113,35 @@ def test_pq_lookup_gather_kernel(cuda, q, n, big_n, m, c, masked):
     torch.testing.assert_close(
         got, ops.pq_lookup_gather_plain(ids, codes, adts, mask), rtol=1e-4,
         atol=1e-4)
+
+
+@pytest.mark.parametrize("q,p,nlist,max_len,m,c", [(5, 3, 6, 300, 16, 64),
+                                                  (8, 4, 8, 9000, 32, 256),
+                                                  (3, 2, 4, 70, 7, 50),
+                                                  (2, 2, 3, 33, 64, 256)])
+@pytest.mark.parametrize("shared", [False, True],
+                         ids=["adt_per_probe", "adt_per_query"])
+def test_pq_lookup_lists_kernel(cuda, q, p, nlist, max_len, m, c, shared):
+    """Ragged list lengths (an empty list, a one-row list, a full one) with
+    one ADT a probe and one a query: the kernel against its plain version
+    (rtol/atol 1e-4) and +inf exactly where the list has ended.  9,000
+    rows span three 4,096-row tiles; M = 7 reads code bytes one by one;
+    (64, 256) ADTs take 64 KB of shared memory."""
+    lengths = RNG.integers(0, max_len + 1, nlist).astype(np.int32)
+    lengths[:3] = 0, 1, max_len
+    probes = RNG.integers(0, nlist, (q, p)).astype(np.int32)
+    probes.flat[:3] = 0, 1, 2
+    adts = RNG.random((q if shared else q * p, m, c)).astype(np.float32)
+    args = [_t(a, cuda) for a in (
+        probes, lengths,
+        RNG.integers(0, c, (nlist, max_len, m)).astype(np.uint8), adts)]
+    got = ops.pq_lookup_lists(*args)
+    torch.cuda.synchronize()
+    want = ops.pq_lookup_lists_plain(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    ended = torch.arange(max_len, device=cuda) >= args[1][
+        args[0].long()][..., None]
+    assert torch.equal(torch.isinf(got), ended)
 
 
 def _signed(keys):
@@ -765,11 +819,12 @@ def test_cuda_batched_fan_out_equals_unrolled(cuda):
 
 @pytest.mark.parametrize("residual", [True, False], ids=["residual", "raw"])
 def test_ivf_lookup_kernel_ragged(cuda, monkeypatch, residual):
-    """``search_ivf``'s one lookup launch, at (Q*nprobe, max_len) (raw:
-    (Q, nprobe*max_len)) over lists of ragged lengths, one empty, -1
-    padded: the kernel against its plain version on the same inputs
-    (rtol/atol 1e-4, +inf where the padding is masked), the scanned counts
-    exact and the ids of the search equal to the CPU's on >= 95% of rows."""
+    """``search_ivf``'s one lookup launch, over a (Q, nprobe) chunk of
+    probed lists of ragged lengths, one empty, -1 padded, with one ADT a
+    probe (raw: one a query): the kernel against its plain version on the
+    same inputs (rtol/atol 1e-4, +inf exactly past each list's length), the
+    scanned counts exact and the ids of the search equal to the CPU's on
+    >= 95% of rows."""
     from repro_torch.core.ivf import ivf_from_arrays, search_ivf
 
     rng = np.random.default_rng(3)
@@ -787,23 +842,26 @@ def test_ivf_lookup_kernel_ragged(cuda, monkeypatch, residual):
         residual=residual, metric="l2")
     queries = rng.standard_normal((q, d)).astype(np.float32)
     calls = []
-    real = ops.pq_lookup_gather
+    real = ops.pq_lookup_lists
 
     def spy(*args):
         out = real(*args)
         calls.append((args, out))
         return out
 
-    monkeypatch.setattr(ops, "pq_lookup_gather", spy)
+    monkeypatch.setattr(ops, "pq_lookup_lists", spy)
     loader.reset_launch_counts()
     ids, _, scanned = search_ivf(ivf_from_arrays(**arrays, device="cuda"),
                                  queries, 10, nprobe)
     assert loader.LAUNCHES["pq_adt"] == loader.LAUNCHES["pq_lookup"] == 1
-    (rows, table, adts, mask), out = calls[0]
-    lanes = (q * nprobe, max_len) if residual else (q, nprobe * max_len)
-    assert rows.shape == mask.shape == lanes and not mask.all()
-    want = ops.pq_lookup_gather_plain(rows, table, adts, mask)
+    (probes, lens, list_codes, adts), out = calls[0]
+    assert probes.shape == (q, nprobe) and out.shape == (q, nprobe, max_len)
+    assert adts.shape[0] == (q * nprobe if residual else q)
+    want = ops.pq_lookup_lists_plain(probes, lens, list_codes, adts)
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    ended = torch.arange(max_len, device=cuda) >= lens[probes.long()][
+        ..., None]
+    assert torch.equal(torch.isinf(out), ended) and ended.any()
     cpu_ids, _, cpu_scanned = search_ivf(
         ivf_from_arrays(**arrays, device="cpu"), queries, 10, nprobe)
     np.testing.assert_array_equal(scanned, cpu_scanned)

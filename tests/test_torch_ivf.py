@@ -9,7 +9,10 @@ of tests/test_ivf_reorder.py:
   nprobe 1 and 4;
 * ``fill_lists`` gives the reference's list layout for the reference's
   assignment;
-* ``build_ivf`` reaches the reference's recall@10 within 0.01.
+* ``build_ivf`` reaches the reference's recall@10 within 0.01;
+* the lists' lengths (what the lookup scores of each list) count the ids
+  before the -1 padding, after ``build_ivf`` and ``ivf_from_arrays``, and
+  ``ivf_from_arrays`` refuses padding that is not trailing.
 """
 import numpy as np
 import pytest
@@ -100,9 +103,12 @@ def test_fill_lists_matches_reference_layout(ds, ref_ivfs):
     rows = np.nonzero(valid)
     assign[lists[valid]] = rows[0]
     codes[lists[valid]] = np.asarray(ref.list_codes)[rows]
-    got_lists, got_codes = fill_lists(torch.as_tensor(assign),
-                                      torch.as_tensor(codes), NLIST)
+    got_lists, got_codes, got_lengths = fill_lists(torch.as_tensor(assign),
+                                                   torch.as_tensor(codes),
+                                                   NLIST)
     np.testing.assert_array_equal(got_lists.numpy(), lists)
+    np.testing.assert_array_equal(got_lengths.numpy(), valid.sum(1))
+    assert got_lengths.dtype == torch.int32
     np.testing.assert_array_equal(got_codes.numpy(),
                                   np.asarray(ref.list_codes))
 
@@ -125,3 +131,27 @@ def test_build_ivf_recall_matches_reference(ds, ref_ivfs, residual):
         want = recall_at_k(ref_search_ivf(ref, ds.queries, 10, nprobe)[0],
                            ds.gt, 10)
         assert abs(got - want) <= 0.01, (nprobe, got, want)
+
+
+@pytest.mark.parametrize("source", ["build_ivf", "ivf_from_arrays"])
+def test_lengths_count_ids_before_padding(ds, ref_ivfs, source):
+    if source == "build_ivf":
+        idx = build_ivf(ds.base[:600], PQConfig(**PQ), "l2", nlist=NLIST,
+                        device="cpu")
+    else:
+        idx = _port(ref_ivfs(True, "l2"))
+    assert idx.lengths.dtype == torch.int32
+    np.testing.assert_array_equal(idx.lengths.numpy(),
+                                  (idx.lists >= 0).sum(1).numpy())
+
+
+def test_ivf_from_arrays_refuses_padding_that_is_not_trailing(ref_ivfs):
+    ref = ref_ivfs(True, "l2")
+    lists = np.array(ref.lists, copy=True)
+    row = int(np.argmax((lists >= 0).sum(1) >= 2))
+    lists[row, 0] = -1                       # a hole before the list's ids
+    with pytest.raises(ValueError, match="trailing"):
+        ivf_from_arrays(
+            coarse_centroids=ref.coarse_centroids, lists=lists,
+            list_codes=ref.list_codes, centroids=ref.codebook.centroids,
+            residual=ref.residual, metric=ref.metric, device="cpu")

@@ -35,7 +35,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("q,m,c,dsub", [(1, 8, 64, 2), (8, 16, 256, 4),
-                                        (4, 32, 256, 3), (2, 25, 128, 4)])
+                                        (4, 32, 256, 3), (2, 25, 128, 4),
+                                        (3, 4, 64, 64)])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_pq_adt_plain_matches_reference(q, m, c, dsub, metric):
     qs = RNG.standard_normal((q, m * dsub)).astype(np.float32)
@@ -83,6 +84,36 @@ def test_pq_lookup_gather_masked_plain_matches_reference(q, n, m, c):
         jnp.asarray(ids), jnp.asarray(adts), jnp.asarray(fresh))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
     assert np.isinf(got.numpy()[~fresh]).all()
+
+
+@pytest.mark.parametrize("shared", [False, True],
+                         ids=["adt_per_probe", "adt_per_query"])
+def test_pq_lookup_lists_plain_matches_reference(shared):
+    """The lists entry is the reference's ``pq_lookup`` of each probed
+    list's first ``length`` rows against the probe's ADT (one a probe, or
+    one a query shared by its probes), then +inf to ``max_len``: against
+    the oracle and the Pallas kernel in interpret mode, list by list, with
+    an empty list, a one-row list and a full one among the probes."""
+    q, p, nlist, max_len, m, c = 3, 2, 5, 40, 8, 16
+    lengths = np.array([0, 1, max_len, 17, 29], np.int32)
+    codes = RNG.integers(0, c, (nlist, max_len, m)).astype(np.uint8)
+    probes = np.array([[0, 1], [2, 3], [4, 2]], np.int32)
+    adts = RNG.random((q if shared else q * p, m, c)).astype(np.float32)
+    got = ops.pq_lookup_lists(*(torch.as_tensor(a) for a in
+                                (probes, lengths, codes, adts))).numpy()
+    assert got.shape == (q, p, max_len)
+    for i in range(q):
+        for j in range(p):
+            lst, n = probes[i, j], lengths[probes[i, j]]
+            assert np.isinf(got[i, j, n:]).all()
+            if n == 0:
+                continue
+            adt = jnp.asarray(adts[i if shared else i * p + j])
+            rows = jnp.asarray(codes[lst, :n])
+            for want in (ref_ops.pq_lookup_ref(rows, adt),
+                         ref_ops.pq_lookup(rows, adt)):
+                np.testing.assert_allclose(got[i, j, :n], np.asarray(want),
+                                           rtol=1e-4, atol=1e-4)
 
 
 def _merge_inputs(q, l, n, zeros=False):
@@ -217,6 +248,10 @@ def _cuda_entries():
             i32, u8, torch.zeros((4, 8, 4)))),
         ("pq_lookup_gather_masked", lambda: pq_lookup.pq_lookup_gather_cuda(
             i32, u8, torch.zeros((4, 8, 4)), torch.ones((4, 8), dtype=bool))),
+        ("pq_lookup_lists", lambda: pq_lookup.pq_lookup_lists_cuda(
+            i32[:, :2].contiguous(), torch.full((4,), 8, dtype=torch.int32),
+            torch.zeros((4, 8, 8), dtype=torch.uint8),
+            torch.zeros((8, 8, 4)))),
         ("bitonic", lambda: bitonic_topk.bitonic_sort_pairs_cuda(f32, i32)),
         ("bitonic_merge_topl", lambda: bitonic_topk.bitonic_merge_topl_cuda(
             i32, f32, f32, torch.zeros((4, 8), dtype=bool), i32, f32)),
