@@ -7,7 +7,7 @@ NVIDIA GPU.  Run from the repository root, with no arguments:
 Phases, each fatal on failure (the exit code is not 0 and the last line is
 not printed):
 
-1. The card's name and power limit, then the build of the four kernels from
+1. The card's name and power limit, then the build of the five kernels from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
 2. Main path: a sift-like corpus (ann-benchmarks sift-128-euclidean scale:
    1M base, 10k queries, 128-d, L2) built into the paper's default Proxima
@@ -80,9 +80,9 @@ not printed):
    launched at every nprobe and 64 queries on the card give the ids and
    scanned counts of the same index on the CPU (plain versions), with
    distances at rtol 1e-4.
-   Segmented phase: ``build_segmented`` of the corpus's first 500,000
+   Segmented phase: ``build_segmented`` of the corpus's first 250,000
    vectors (the ground truth recomputed over them) in 2 segments of
-   250,000 on the card, 16,384 stitch anchors a joining segment (stage and
+   125,000 on the card, 16,384 stitch anchors a joining segment (stage and
    stitch seconds, patched rows), 2,048
    queries served tiled through the segments (the checks above) and flat
    through ``to_flat()``; recall@10 >= 0.5 for both.
@@ -108,15 +108,15 @@ not printed):
    medians per kernel and the QPS pairs.
    Streaming phase (``repro_torch.stream``): a ``MutableIndex`` over the
    index at ``StreamConfig``'s defaults but a delta capacity of
-   STREAM_DELTA_CAPACITY, 1,024 (list 32, brute force below 64, over-fetch
+   STREAM_DELTA_CAPACITY, 512 (list 32, brute force below 64, over-fetch
    16), served by ``ServingEngine(mutable,
    batch_size=256)`` and the continuous engine (slots=256), both with
    ``auto_consolidate=False``.  10,000 random base ids and each of the
-   first 2,048 queries' exact top-1 are deleted, 1,024 vectors (a random
+   first 2,048 queries' exact top-1 are deleted, 512 vectors (a random
    base vector plus N(0, 0.1^2) noise) inserted through the continuous
    engine, filling the delta; 512 queries and 256 of the inserted vectors
    are served through both engines and ``merged_search_kernel``; then with
-   256 lanes in flight the 1,025th insert consolidates inside ``insert``
+   256 lanes in flight the 513th insert consolidates inside ``insert``
    (the base rebuilt on the card) and the same sets are served again.
    Prints inserts a second, merged QPS beside the flat engine's, the delta
    search's share of the wall time, recall@10 against the exact kNN of
@@ -151,15 +151,15 @@ not printed):
    (prefill and decode ms beside the unsharded ones); then a (2, 2) mesh
    of 4 gloo processes on the one card (``serve_mesh_rank``: the model
    from the same seed, each rank 4 rows, 4 q heads, 160 of the cache's 320
-   positions and 128,608 of the vocabulary), 4 decode steps fed the
+   positions and 128,608 of the vocabulary), 2 decode steps fed the
    one-rank greedy tokens: fails unless every rank exits 0, each greedy
    token is the one-rank token or a tie within the zoo's bf16 bar, and the
    logits are no further from an f32 copy's (fed the same tokens) than
    the one-rank bf16 run's are, plus that bar's atol (ms a step,
    collective bytes a step, the cache's local bytes; the logits' distance
    from the one-rank run's).  Then
-   ``examples/image_retrieval.py`` at scale: 16,384
-   synthetic images (512 classes x 32, class centres N(0, 1), noise 0.3,
+   ``examples/image_retrieval.py`` at scale: 8,192
+   synthetic images (256 classes x 32, class centres N(0, 1), noise 0.3,
    4 prompt tokens) embedded 64 at a time and pooled over the patches,
    indexed by ``EmbeddingRetriever(metric="angular")`` on the card (PQ 32
    x 256 at dsub 64, R=32), 1,024 fresh images searched 256 at a time:
@@ -167,7 +167,28 @@ not printed):
    angular kNN over the embeddings, label purity of the top 5, QPS,
    launches.  Fails on any disagreement, below recall@10 0.5, or if a
    kernel never launched on the retrieval; the models are freed before
-   the kernel phase.
+   the kernel phase.  The zoo's SSM and hybrid configs run the selective
+   scan kernel on the card against the plain scan on the CPU.
+   SSM phase (``ssm_phase``): zamba2-1.2B (arXiv 2411.15242: 38 layers, 32
+   of them Mamba-2, d 2048, d_inner 4096, 64 heads of 64, state 64, a
+   shared attention block every 6) and falcon-mamba-7b (arXiv 2410.05355:
+   64 Mamba-1 layers, d 4096, d_inner 8192, state 16) at published width
+   and depth in bf16, weights from seed 0: 8 (falcon-mamba: 2) requests of
+   2,048 tokens through ``prefill_chunked`` in one segment, then 32 (8)
+   greedy decode steps: prefill ms and tokens a second, decode ms a step
+   and tokens a second, the cache's bytes, peak memory, and the scan's
+   launches (counted from zero over the timed round: one a Mamba layer in
+   the prefill and in each step, else the phase fails); zamba2's f32 copy's
+   decode logits against one teacher-forced forward within 1e-3 of the
+   largest |logit|.  Last of the whole run, after the profiles below
+   (``scan_phase``), the scan kernel against its plain version at the
+   layers' shapes — zamba2's (B=8, S=2,048, d_inner 4,096, state 64, 64
+   heads) from a zero and a carried state, falcon-mamba's (8, 2,048,
+   8,192, 16) and its served (2, 2,048), each model's decode step (S=1)
+   and S=300 (no multiple of the chunk) — within 1e-5 of the largest
+   |y| and |h_last|: events and CUPTI ms, the plain version's ms, the
+   bound (bytes at 3.35 TB/s or exps at the special-function units' rate,
+   the larger).
    Train phase (``repro_torch.train``, ``ckpt``, ``distributed``,
    ``launch/train.py``; ``train_phase``), after the models are freed: (a)
    one ``make_train_step`` step (2 microbatches) of each architecture's
@@ -247,7 +268,7 @@ not printed):
    image retriever's, on one round's arguments from the model phase:
    ``pq_adt`` at (256, 2048) x (32, 256, 64), angular; the lookup at
    n=32; the merge at (L=64, n=32); the masked rerank at D=2048 over the
-   16,384 embeddings.  Each entry is timed over
+   8,192 embeddings.  Each entry is timed over
    30 launches, the 50 MB L2 cache flushed
    before each and the launch queued behind a spin: by CUDA events around
    each launch (``ms``) and, for the same launches, by the kernel's own
@@ -293,10 +314,11 @@ AB_QUERIES = 512                 # queries an arm of a pair
 IVF_NLIST = 64                   # fig11's IVF-PQ baseline
 IVF_NPROBES = (2, 8, 16)
 IVF_CHECK_QUERIES = 64           # card against CPU, at nprobe 8
-SEGMENT_SIZE = 250_000
+SEGMENT_SIZE = 125_000
 # the segmented phase builds the corpus's first SEGMENTED_BASE vectors (2
-# segments), the smoke's time limit's cut of its depth (PERF.md)
-SEGMENTED_BASE = 500_000
+# segments), the smoke's time limit's cut of its depth (500,000 before,
+# PERF.md)
+SEGMENTED_BASE = 250_000
 # boundary anchors a joining segment stitches (BuildConfig's default is 32:
 # the stitched 1M graph then stays inside segment 0, recall@10 0.2339 on an
 # H100, PERF.md)
@@ -307,10 +329,11 @@ FP32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 # inserted vectors served as queries
 STREAM_DELETES = 10_000
 # the delta's capacity, the inserts that fill it (StreamConfig's default is
-# 4,096): the smoke's time limit's cut of the streaming path's depth; 4,096
-# inserts ran 8.8-13.6 a second on the card's hosts, 301-463 s (PERF.md).
-# Merged QPS over this delta is not comparable with a 4,096-row delta's
-STREAM_DELTA_CAPACITY = 1024
+# 4,096): the smoke's time limit's cut of the streaming path's depth (1,024
+# before: 51-79 s of inserts on the card's hosts; 4,096 ran 8.8-13.6 a
+# second, 301-463 s, PERF.md).  Merged QPS over this delta is not
+# comparable with a larger delta's
+STREAM_DELTA_CAPACITY = 512
 STREAM_QUERIES = 512             # of the 10,000: the host's delta search
 STREAM_SELF_QUERIES = 256
 # the share of inserted vectors that must find themselves, before the
@@ -2601,12 +2624,14 @@ SERVE_PROMPT = 32
 SERVE_STEPS = 32                 # greedy decode steps
 SERVE_TF_RTOL = 1e-3             # f32 decode vs teacher forcing, of max|logit|
 SERVE_MESH_SHAPE = (2, 2)        # (data, model) gloo ranks on the one card
-SERVE_MESH_STEPS = 4             # of SERVE_STEPS, on that mesh: cut for time
-# 512 classes x 32 images = 16,384.  Not 256 x 64: with 64 a class the
+SERVE_MESH_STEPS = 2             # of SERVE_STEPS, on that mesh: cut for time
+                                 # (8, then 4, before: PERF.md)
+# 256 classes x 32 images = 8,192 (512 x 32 before: cut for the smoke's
+# time, PERF.md).  Not 32 a class x 2: with 64 a class the
 # retriever's build list (2R = 64) holds only the point's own class, the
-# graph falls into 256 cliques and recall@10 collapses, in the reference as
-# in the port (PERF.md, the model phase)
-RETR_CLASSES = 512
+# graph falls into cliques and recall@10 collapses, in the reference as in
+# the port (PERF.md, the model phase)
+RETR_CLASSES = 256
 RETR_PER_CLASS = 32
 RETR_QUERIES = 1024              # fresh noise draws around the same centres
 RETR_NOISE = 0.3
@@ -3290,6 +3315,284 @@ def model_failures(rec: dict) -> list:
     if set(r["kernel_shapes"]) != set(RETR_KERNELS):
         fails.append(f"retrieval: kernel calls not captured: "
                      f"{sorted(r['kernel_shapes'])}")
+    return fails
+
+
+# the SSM phase: each model's own requests through prefill_chunked (one
+# segment of the whole prompt), then greedy decode steps; zamba2's f32 copy
+# held to teacher forcing
+SSM_SERVE = (("zamba2-1.2b", 8, 32, True), ("falcon-mamba-7b", 2, 8, False))
+SSM_PROMPT = 2048
+SSM_SEG = 2048
+SSM_CHUNK = 256                  # Model's ssm_chunk: the plain version's
+SSM_RAGGED = 300                 # a scan length no multiple of the chunk
+SCAN_TOL = 1e-5                  # kernel vs plain, of max|y| (max|h_last|)
+# exp results a second: 16 a clock an SM on compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput), 132 SMs, 1.98 GHz
+SFU_PER_S = 16 * 132 * 1.98e9
+
+
+def ssm_serve(torch, dev, arch: str, requests: int, steps: int, tf: bool,
+              seed: int, log) -> dict:
+    """``arch`` at its published width and depth in bf16, weights from a
+    seeded generator on the card: ``requests`` prompts of SSM_PROMPT tokens
+    through ``prefill_chunked`` and ``steps`` greedy decode steps, timed
+    after an untimed round; the scan's launches counted from zero over the
+    timed round.  With ``tf`` an f32 copy's decode logits against one
+    teacher-forced forward over prompt + generated tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import loader
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(arch)
+    rec = {"config": cfg.name, "dtype": cfg.dtype, "requests": requests,
+           "prompt": SSM_PROMPT, "seg_len": SSM_SEG, "steps": steps}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["params"] = sum(p.numel() for p in model.parameters())
+    rec["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters())
+    toks = torch.randint(0, cfg.vocab_size, (requests, SSM_PROMPT),
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed + 1), device=dev)
+    n_ssm = sum(k in ("mamba1", "mamba2") for k in cfg.block_pattern())
+
+    def serve(m):
+        """``_greedy`` over ``m``, and the scan's launch count at the end of
+        the prefill."""
+        at_prefill = []
+
+        def prefill():
+            out = m.prefill_chunked({"tokens": toks}, seg_len=SSM_SEG,
+                                    max_len=SSM_PROMPT + steps + 1)
+            at_prefill.append(loader.MODEL_LAUNCHES["selective_scan"])
+            return out
+
+        return (*_greedy(torch, prefill, m.decode_step, steps), at_prefill[0])
+
+    serve(model)                                     # untimed: warm-up
+    torch.cuda.reset_peak_memory_stats()
+    loader.reset_launch_counts()
+    prefill_s, step_s, _, logits, cache, n_prefill = serve(model)
+    n_all = loader.MODEL_LAUNCHES["selective_scan"]
+    med = _median(step_s)
+    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+    rec.update(
+        prefill_ms=prefill_s * 1e3,
+        prefill_tokens_per_s=requests * SSM_PROMPT / prefill_s,
+        decode_ms=[t * 1e3 for t in step_s], decode_ms_median=med * 1e3,
+        decode_tokens_per_s=requests / med, cache_bytes=cache.nbytes(),
+        peak_bytes=torch.cuda.max_memory_allocated(), finite=finite,
+        ssm_layers=n_ssm,
+        launches={"prefill": n_prefill, "decode": n_all - n_prefill,
+                  "want_prefill": n_ssm * SSM_PROMPT // SSM_SEG,
+                  "want_decode": n_ssm * steps})
+    del cache, logits
+    log(f"{cfg.name} ({rec['params']:,} parameters, {rec['param_bytes']:,} "
+        f"bytes, {cfg.dtype}, weights drawn in {rec['init_s']:.2f} s): "
+        f"{requests} requests of {SSM_PROMPT} tokens through "
+        f"prefill_chunked (seg {SSM_SEG}) + {steps} greedy steps: "
+        f"prefill_ms={rec['prefill_ms']:.2f} "
+        f"prefill_tokens_per_s={rec['prefill_tokens_per_s']:.1f} "
+        f"decode_ms_median={rec['decode_ms_median']:.3f} "
+        f"decode_tokens_per_s={rec['decode_tokens_per_s']:.1f} "
+        f"cache_bytes={rec['cache_bytes']:,} "
+        f"peak_bytes={rec['peak_bytes']:,}; selective_scan launches "
+        f"{json.dumps(rec['launches'])}; finite {finite}")
+    if tf:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        m32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                          device=dev, generator=torch.Generator(
+                              device=dev).manual_seed(seed))
+        m32.load_state_dict(model.state_dict())
+        del model
+        torch.cuda.empty_cache()
+        _, _, fed, logits, _, _ = serve(m32)
+        with torch.no_grad():      # the tokens each decode step was fed
+            seq = torch.cat([toks, fed[:, :steps]], 1)
+            h, _, _ = m32._decoder_stack(m32._embed_tokens(seq),
+                                         m32._positions(requests,
+                                                        seq.shape[1]))
+            forced = m32._logits(h[:, SSM_PROMPT:SSM_PROMPT + steps])
+        decoded = torch.stack(logits[1:], 1)
+        err = float((decoded - forced).abs().max())
+        scale = float(forced.abs().max())
+        rec["f32_teacher_forcing"] = {
+            "max_abs_err": err, "max_abs_logit": scale,
+            "bound": SERVE_TF_RTOL * scale,
+            "ok": err <= SERVE_TF_RTOL * scale}
+        del m32, h, forced, decoded, logits
+        log(f"{cfg.name} f32 copy: {steps} decode steps against one "
+            f"teacher-forced forward: max abs err {err:.3g} of max |logit| "
+            f"{scale:.3g} (bound {SERVE_TF_RTOL} x): "
+            f"{rec['f32_teacher_forcing']['ok']}")
+    else:
+        del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _scan_inputs(torch, dev, g, bsz: int, s: int, di: int, ds: int,
+                 nh=None, carried: bool = False) -> list:
+    """(dt, a, x, b, c, h0) on the card, drawn as the blocks make them:
+    Mamba-1 (falcon-mamba) dt = softplus(N(0, 0.5^2) + its dt_bias draw,
+    softplus^-1 of U(1e-3, 0.1)) and a = -(1..ds) a channel; Mamba-2
+    (zamba2, ``nh`` heads) dt = softplus(N(0, 1)) a head and a =
+    -exp(N(0, 0.5^2)); x, b, c and a carried h0 N(0, 1)."""
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    if nh is None:
+        lo, hi = 1e-3, 0.1
+        u = torch.rand((di,), generator=g, device=dev) * (hi - lo) + lo
+        dt = F.softplus(0.5 * randn(bsz, s, di) + torch.log(torch.expm1(u)))
+        a = -torch.arange(1, ds + 1, dtype=torch.float32,
+                          device=dev).repeat(di, 1)
+    else:
+        dt = F.softplus(randn(bsz, s, nh))
+        a = -torch.exp(0.5 * randn(nh))
+    x, b, c = randn(bsz, s, di), randn(bsz, s, ds), randn(bsz, s, ds)
+    h0 = (randn(bsz, di, ds) if carried
+          else torch.zeros((bsz, di, ds), device=dev))
+    return [dt, a, x, b, c, h0]
+
+
+def scan_entry(torch, label: str, args: list, flush) -> dict:
+    """The scan kernel against its plain version on ``args`` (Mamba-2's
+    entry when ``a`` is per head): max errors of y and h_last against
+    SCAN_TOL of their largest magnitudes, then events and CUPTI ms of the
+    kernel (30 launches), the plain version's ms (3 calls: a call is
+    thousands of ops) and the bound: the larger of the bytes (each input
+    and output once) at HBM_BYTES_PER_S and the exps (B S di ds, Mamba-2's
+    B S nh) at SFU_PER_S."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_heads_plain, selective_scan_plain)
+
+    dt, a, x = args[:3]
+    heads = a.dim() == 1
+    kernel = ops.selective_scan_heads if heads else ops.selective_scan
+    plain = selective_scan_heads_plain if heads else selective_scan_plain
+    got = kernel(*args, SSM_CHUNK)
+    want = plain(*args, SSM_CHUNK)
+    torch.cuda.synchronize()
+    errs = [float((g_ - w).abs().max()) for g_, w in zip(got, want)]
+    scales = [float(w.abs().max()) for w in want]
+    ok = (all(bool(torch.isfinite(g_).all()) for g_ in got)
+          and all(e <= SCAN_TOL * sc for e, sc in zip(errs, scales)))
+    del got, want
+    bsz, s, di = x.shape
+    ds = args[3].shape[-1]
+    nbytes = 4 * (sum(t.numel() for t in args) + bsz * s * di + bsz * di * ds)
+    exps = bsz * s * (a.shape[0] if heads else di * ds)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exps = exps / SFU_PER_S * 1e3
+    ms, cupti_ms = _time_ms(torch, lambda: kernel(*args, SSM_CHUNK), flush,
+                            "selective_scan_kernel")
+    plain_ms = _time_ms(torch, lambda: plain(*args, SSM_CHUNK), flush,
+                        reps=3, warmup=1)
+    return {"entry": label, "shape": {"B": bsz, "S": s, "di": di, "ds": ds,
+                                      "nh": a.shape[0] if heads else None},
+            "max_abs_err": max(errs), "y_err": errs[0], "h_err": errs[1],
+            "y_scale": scales[0], "h_scale": scales[1], "tol": SCAN_TOL,
+            "ok": ok, "ms": ms, "cupti_ms": cupti_ms, "plain_ms": plain_ms,
+            "bytes": nbytes, "exps": exps, "bytes_ms": t_bytes,
+            "exps_ms": t_exps, "bound_ms": max(t_bytes, t_exps),
+            "bound_by": "bytes" if t_bytes >= t_exps else "operations",
+            "library_ms": None}
+
+
+def ssm_phase(torch, dev, seed: int, log) -> dict:
+    """zamba2-1.2B and falcon-mamba-7b served at full width and depth
+    (``ssm_serve``, the scan's launches counted over each timed round)."""
+    return {"serve": {arch: ssm_serve(torch, dev, arch, n, steps, tf, seed,
+                                      log)
+                      for arch, n, steps, tf in SSM_SERVE}}
+
+
+def scan_phase(torch, dev, seed: int, serve: dict, log) -> dict:
+    """The scan kernel against its plain version at the SSM models' layer
+    shapes (``scan_entry``): zamba2's (8, 2048, 4096, 64, 64 heads) from a
+    zero and a carried state, falcon-mamba's (8, 2048, 8192, 16) and its
+    served (2, 2048, ...), each model's decode step (S = 1, its requests)
+    and a ragged S = SSM_RAGGED.  Runs after every other profiled
+    measurement: the plain loops launch ~10^4 kernels a call, and the
+    profiler has dropped records of the sessions that follow such work
+    (PERF.md).  Returns {"entries", "kernel": the kernels line's record,
+    launches from ``serve``, ``ssm_phase``'s record}."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flush = _Flush(torch, dev)
+    z = dict(di=4096, ds=64, nh=64)
+    f = dict(di=8192, ds=16)
+    cases = (("zamba2 (8, 2048), zero state (the prefill's)", 8, 2048, z,
+              False),
+             ("zamba2 (8, 2048), carried state", 8, 2048, z, True),
+             ("zamba2 decode (8, 1)", 8, 1, z, True),
+             (f"zamba2 ragged (8, {SSM_RAGGED})", 8, SSM_RAGGED, z, True),
+             ("falcon-mamba (8, 2048), zero state", 8, 2048, f, False),
+             ("falcon-mamba (2, 2048), zero state (the prefill's)", 2, 2048,
+              f, False),
+             ("falcon-mamba decode (2, 1)", 2, 1, f, True),
+             (f"falcon-mamba ragged (8, {SSM_RAGGED})", 8, SSM_RAGGED, f,
+              True))
+    entries = []
+    for label, bsz, s, shape, carried in cases:
+        args = _scan_inputs(torch, dev, g, bsz, s, carried=carried, **shape)
+        entries.append(scan_entry(torch, label, args, flush))
+        del args
+        e = entries[-1]
+        log(f"kernel selective_scan [{label}]: y err {e['y_err']:.3g} of "
+            f"{e['y_scale']:.3g}, h err {e['h_err']:.3g} of "
+            f"{e['h_scale']:.3g} (tol {SCAN_TOL} x) ok={e['ok']} "
+            f"ms={e['ms']:.4f} cupti_ms={e['cupti_ms']:.4f} "
+            f"plain_ms={e['plain_ms']:.2f} bound_ms={e['bound_ms']:.5f} "
+            f"({e['bound_by']}: bytes {e['bytes_ms']:.5f}, exps "
+            f"{e['exps_ms']:.5f}) library_ms=None")
+    torch.cuda.empty_cache()
+    main = entries[0]
+    launches = {arch: r["launches"]["prefill"] + r["launches"]["decode"]
+                for arch, r in serve.items()}
+    rec = {"entries": entries}
+    rec["kernel"] = {
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/ssm.py:70",
+        "replaces_what": "selective_scan, which the reference computes "
+                         "outside Pallas (no TPU kernel)",
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        **{k: main[k] for k in ("max_abs_err", "ms", "cupti_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")},
+        "kernel_ms": main["ms"], "main_entry": main["entry"],
+        "entries": entries}
+    return rec
+
+
+def ssm_failures(rec: dict) -> list:
+    fails = []
+    for arch, r in rec["serve"].items():
+        n = r["launches"]
+        if not r["finite"]:
+            fails.append(f"{arch}: non-finite logits")
+        if (n["prefill"], n["decode"]) != (n["want_prefill"],
+                                           n["want_decode"]):
+            fails.append(f"{arch}: selective_scan launched {n}, not once a "
+                         "mamba layer a segment and a decode step")
+        tf = r.get("f32_teacher_forcing")
+        if tf is not None and not tf["ok"]:
+            fails.append(f"{arch} f32 decode vs teacher forcing: "
+                         f"{tf['max_abs_err']:.3g} > {tf['bound']:.3g}")
+    for e in rec.get("entries", ()):
+        if not e["ok"]:
+            fails.append(f"selective_scan [{e['entry']}]: kernel vs plain y "
+                         f"{e['y_err']:.3g} of {e['y_scale']:.3g}, h "
+                         f"{e['h_err']:.3g} of {e['h_scale']:.3g} beyond "
+                         f"{SCAN_TOL} x (or not finite)")
     return fails
 
 
@@ -4170,6 +4473,8 @@ def main(argv=None) -> int:
     models, retr_inputs = model_phase(torch, dev, get_config(SERVE_ARCH),
                                       args.seed, out_dir, repo, log)
     mark("models")
+    ssm = ssm_phase(torch, dev, args.seed, log)
+    mark("ssm_serve")
     trained = train_phase(torch, dev, repo, out_dir, args.seed, log)
     mark("train")
 
@@ -4225,13 +4530,17 @@ def main(argv=None) -> int:
     log(f"continuous ticks, timed and profiled: "
         f"{json.dumps(cont['profile'])}")
     mark("cross_device_and_profiles")
+    ssm.update(scan_phase(torch, dev, args.seed, ssm["serve"], log))
+    kernels.append(ssm["kernel"])
+    mark("ssm_kernel")
     detail["phase_s"] = phase_s
     log(f"seconds by phase (the kernel build apart): {json.dumps(phase_s)}")
 
     detail.update(card=card, kernels=kernels, main=res, continuous=cont,
                   filtered=filt, tiled=tiled, ivf=ivf, segmented=segmented,
                   observability=observed, streaming=streamed,
-                  distributed=distributed, models=models, train=trained)
+                  distributed=distributed, models=models, ssm=ssm,
+                  train=trained)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
     failures = []
@@ -4309,6 +4618,7 @@ def main(argv=None) -> int:
     failures.extend(stream_failures(streamed))
     failures.extend(distributed_failures(distributed))
     failures.extend(model_failures(models))
+    failures.extend(ssm_failures(ssm))
     failures.extend(train_failures(trained))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -5,17 +5,19 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (every pointer and
 the stream as ``c_void_p``).  The libraries go into ``kernels/build/``, which
 ``.gitignore`` lists, named by a hash of their source, so a library is reused
-until its source changes.  The first use builds all four at once, one
+until its source changes.  The first use builds all five at once, one
 ``nvcc`` process per source, started together.  A failed build raises with
 the compiler's output; nothing falls back.
 
-``LAUNCHES`` counts kernel launches by kernel name, and ``ENTRY_LAUNCHES``
-the same launches by C entry point (a kernel's entries: the bitonic kernel's
-sort and merge, for instance).  Each wrapper adds one where it launches its
-kernel and nowhere else; ``reset_launch_counts`` zeroes both, so a caller
-can show that a run went through the kernels.  ``BUILDS`` counts the
-libraries ``build_all`` compiled, by source (the rebuild detector's input,
-``obs.KernelWatch``).
+``LAUNCHES`` counts the search's four kernels' launches (the Pallas
+kernels' ports) by kernel name, ``MODEL_LAUNCHES`` the models' (the SSM
+blocks' selective scan), which no search path runs, and ``ENTRY_LAUNCHES``
+the same launches by C entry point (a kernel's entries: the bitonic
+kernel's sort and merge, for instance).  Each wrapper adds one where it
+launches its kernel and nowhere else; ``reset_launch_counts`` zeroes all
+three, so a caller can show that a run went through the kernels.
+``BUILDS`` counts the libraries ``build_all`` compiled, by source (the
+rebuild detector's input, ``obs.KernelWatch``).
 
 ``TIMING`` is the observability hook (``kernels.ops.set_observability``):
 ``None`` when observability is off, when it is on a list that each launch
@@ -34,12 +36,14 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("pq_adt", "pq_lookup", "bitonic_topk", "l2_rerank")
+KERNELS = ("pq_adt", "pq_lookup", "bitonic_topk", "l2_rerank",
+           "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {name: 0 for name in ("pq_adt", "pq_lookup", "bitonic_sort_pairs",
                                  "l2_rerank")}
+MODEL_LAUNCHES = {"selective_scan": 0}
 ENTRY_LAUNCHES: dict = {}
 BUILDS = {name: 0 for name in KERNELS}
 TIMING = None            # None, or [(kernel, entry, start, end)] (see above)
@@ -48,8 +52,9 @@ _libs: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, MODEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     ENTRY_LAUNCHES.clear()
 
 
@@ -136,7 +141,7 @@ def launch(lib_name: str, entry: str, counter: str, device, *args) -> None:
         raise RuntimeError(f"{entry} failed to launch: {msg} (error {err})")
     if timing is not None:
         timing.append((counter, entry, start, end))
-    LAUNCHES[counter] += 1
+    (LAUNCHES if counter in LAUNCHES else MODEL_LAUNCHES)[counter] += 1
     ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
 
 

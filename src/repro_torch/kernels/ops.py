@@ -2,15 +2,20 @@
 ``src/repro/kernels/ops.py``.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-PyTorch version.  Nothing catches a failed build or launch and carries on.
-The build-and-load step and the launch counters live in
+PyTorch version (the selective scan's entries are ops of their own,
+``repro_torch::selective_scan`` and ``::selective_scan_heads``, that
+dispatch the same way: ``kernels.selective_scan``).  Nothing catches a
+failed build or launch and carries on.  The build-and-load step and the
+launch counters live in
 ``repro_torch.kernels.loader`` and are re-exported here.
 
 Observability (``repro_torch.obs``): ``set_observability`` points a
 module-level hook at a bundle; each entry then reports, labelled by the TPU
 kernel it ports (``pq_lookup_gather`` and ``pq_lookup_lists`` ->
 ``pq_lookup``, ``bitonic_merge_topl`` -> ``bitonic_sort_pairs``,
-``l2_rerank_masked`` -> ``l2_rerank``):
+``l2_rerank_masked`` -> ``l2_rerank``; the SSM blocks' ``selective_scan``
+and ``selective_scan_heads`` -> ``selective_scan``, a kernel with no Pallas
+counterpart):
 
 * ``kernel_calls{kernel=...}`` — one per call (on the card: one per launch);
 * ``kernel_wall_ms{kernel=...}`` — on the CPU the wall time of the plain
@@ -39,13 +44,14 @@ from repro_torch.kernels.l2_rerank import (
     l2_rerank_plain,
 )
 from repro_torch.kernels.loader import (  # noqa: F401  (re-exports)
-    LAUNCHES, build_all, reset_launch_counts,
+    LAUNCHES, MODEL_LAUNCHES, build_all, reset_launch_counts,
 )
 from repro_torch.kernels.pq_adt import pq_adt_cuda, pq_adt_plain
 from repro_torch.kernels.pq_lookup import (
     pq_lookup_cuda, pq_lookup_gather_cuda, pq_lookup_gather_plain,
     pq_lookup_lists_cuda, pq_lookup_lists_plain, pq_lookup_plain,
 )
+from repro_torch.kernels.selective_scan import scan_heads_op, scan_op
 
 _obs = None     # Observability bundle (repro_torch.obs) or None
 
@@ -172,3 +178,16 @@ def l2_rerank_masked(queries, ids, base, acc, mask, metric="l2"):
         return l2_rerank_masked_cuda(queries, ids, base, acc, mask, metric)
     _check_ids(ids, mask)
     return l2_rerank_masked_plain(queries, ids, base, acc, mask, metric)
+
+
+@_hooked("selective_scan")
+def selective_scan(dt, a, x, b, c, h0, chunk=256):
+    """Mamba-1: dt, x (B, S, di), a (di, ds), b, c (B, S, ds), h0 (B, di,
+    ds) -> (y (B, S, di), h_last (B, di, ds)), f32."""
+    return scan_op(dt, a, x, b, c, h0, chunk)
+
+
+@_hooked("selective_scan")
+def selective_scan_heads(dt, a, x, b, c, h0, chunk=256):
+    """Mamba-2: dt (B, S, nh), a (nh,), the rest as ``selective_scan``."""
+    return scan_heads_op(dt, a, x, b, c, h0, chunk)

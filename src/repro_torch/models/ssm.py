@@ -1,12 +1,16 @@
 """Selective state-space blocks — port of ``src/repro/models/ssm.py``:
 Mamba-1 (falcon-mamba) and Mamba-2 / SSD (zamba2).
 
-``selective_scan`` keeps the reference's chunking: the (chunk, di, ds) decay
-and input tensors are built one chunk at a time, so peak memory is
-O(chunk * di * ds), never O(S * di * ds).  Within a chunk the recurrence
-h_t = a_t * h_{t-1} + b_t runs step by step where the reference runs an
-associative scan; the two agree up to the reassociation of f32 products and
-sums.
+The scan runs in ``kernels.selective_scan``, one op a call
+(``ops.selective_scan`` for Mamba-1's per-channel decay,
+``ops.selective_scan_heads`` for Mamba-2's per-head one): on the card the
+hand kernel of ``kernels/csrc/selective_scan.cu`` (a thread a channel, its
+state in registers, nothing of size (S, di, ds) in memory), on the CPU the
+plain version, which keeps the reference's chunking (the (chunk, di, ds)
+decay and input tensors built one chunk at a time) and steps through each
+chunk where the reference runs an associative scan; the two agree up to the
+reassociation of f32 products and sums.  Gradients recompute the plain
+version (torch ops, also on the card).
 
 Decode (S=1) reuses the same cell with the carried state: the SSM's "KV
 cache" is the O(1) (conv_state, ssm_state) pair.
@@ -40,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shard_lib
+from repro_torch.kernels import ops
 from repro_torch.models.layers import _dtype, normal, rms_norm
 
 Params = Dict[str, torch.Tensor]
@@ -93,24 +98,10 @@ def selective_scan(
     h0: torch.Tensor,       # (B, di, ds) initial state
     chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked selective scan: h_t = exp(dt_t a) h_{t-1} + (dt_t xi_t) b_t,
-    y_t = <h_t, c_t>.  The (chunk, di, ds) decay/input tensors are built one
-    chunk at a time (a chunk of S when S is not a multiple of ``chunk``).
-    Returns (y (B, S, di), h_last)."""
-    s = xi.shape[1]
-    if s % chunk != 0:
-        chunk = s
-    h = h0
-    ys = []
-    for c0 in range(0, s, chunk):
-        sl = slice(c0, c0 + chunk)
-        dtk, xik, bk, ck = dt_[:, sl], xi[:, sl], b_in[:, sl], c_in[:, sl]
-        a_bar = torch.exp(dtk[..., None] * a_mat[None, None])   # (B,c,di,ds)
-        b_bar = (dtk * xik)[..., None] * bk[:, :, None, :]
-        for t in range(a_bar.shape[1]):
-            h = a_bar[:, t] * h + b_bar[:, t]
-            ys.append((h * ck[:, t, None, :]).sum(-1))          # (B, di)
-    return torch.stack(ys, dim=1), h
+    """Selective scan, the reference's signature: h_t = exp(dt_t a) h_{t-1}
+    + (dt_t xi_t) b_t, y_t = <h_t, c_t>.  Returns (y (B, S, di), h_last)
+    (``ops.selective_scan``)."""
+    return ops.selective_scan(dt_, a_mat, xi, b_in, c_in, h0, chunk)
 
 
 def _causal_conv(xs: torch.Tensor, conv_w: torch.Tensor, state, conv: int):
@@ -183,7 +174,7 @@ def mamba(
     h0 = (state[1].float() if state is not None
           else torch.zeros((bsz, di, ds), dtype=torch.float32,
                            device=x.device))
-    y, h_last = selective_scan(dt_, a, xf, b_in, c_in, h0, chunk)
+    y, h_last = ops.selective_scan(dt_, a, xf, b_in, c_in, h0, chunk)
     y = y + xf * p["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
     out = shard_lib.row_out(y, p["out_proj"], split, sp)
@@ -292,16 +283,15 @@ def mamba2(
     b_in = xbc[..., di : di + ds].float()                   # (B, S, ds)
     c_in = xbc[..., di + ds :].float()                      # (B, S, ds)
     dt_h = F.softplus(dt_in.float() + p["dt_bias"])         # (B, S, nh)
-    # scalar per-head decay repeated over the head's channels for the
-    # shared scan
-    dt_ = dt_h.repeat_interleave(hd, dim=-1)                # (B, S, di)
-    a_mat = (-torch.exp(p["a_log"])).repeat_interleave(hd)[:, None] \
-        * torch.ones((1, ds), dtype=torch.float32, device=x.device)
+    # the scalar per-head decay, scanned per head (the reference repeats
+    # it over the head's channels and states for the shared scan: the same
+    # products)
     h0 = (state[1].float() if state is not None
           else torch.zeros((bsz, nh, hd, ds), dtype=torch.float32,
                            device=x.device))
-    y, h_last = selective_scan(dt_, a_mat, xif, b_in, c_in,
-                               h0.reshape(bsz, di, ds), chunk)
+    y, h_last = ops.selective_scan_heads(
+        dt_h, -torch.exp(p["a_log"]), xif, b_in, c_in,
+        h0.reshape(bsz, di, ds), chunk)
     y = y + xif * p["d_skip"].repeat_interleave(hd)
     y = y.to(x.dtype)
     if split:

@@ -9,7 +9,10 @@ Tolerances: ADT and lookup rtol/atol 1e-4 (tests/test_kernels.py; the
 lookup's warp sums in a tree, the plain version left to right; the ADT's
 kernel fuses multiply and add), rerank 1e-4/1e-3 (a warp's tree sum over D
 against torch's order) with the masked entry's pass-through of acc exact,
-the sort and the merge exact, with ties, +inf and -0.0/+0.0.  The search on CUDA is held
+the sort and the merge exact, with ties, +inf and -0.0/+0.0, the selective
+scan within 1e-5 of max |y| and of max |h_last| (its sum over the states
+fused into multiply-adds, ``expf`` within ulps of torch's; measured
+~3e-7).  The search on CUDA is held
 against the CPU search of the same index: identical ids on >= 95% of rows,
 since the kernels' ADT rounds differently from the CPU's expanded form.
 """
@@ -1164,3 +1167,118 @@ def test_cuda_sharded_step_on_one_rank_mesh(cuda, tmp_path, arch):
     assert l0 == l1
     for k, v in p0.items():
         assert torch.equal(p1[k], v), k
+
+
+SCAN_TOL = 1e-5     # of max |y| (max |h_last|): the sum over ds reordered
+                    # into fused multiply-adds, expf within ulps of torch's
+
+
+def _scan_inputs(dev, bsz, s, di, ds, nh=None, carried=True, seed=0):
+    """(dt, a, x, b, c, h0) on ``dev``: Mamba-1's (B, S, di) dt and (di,
+    ds) decay, or with ``nh`` Mamba-2's (B, S, nh) dt and (nh,) decay."""
+    rng = np.random.default_rng(seed)
+    width = di if nh is None else nh
+    dt = np.log1p(np.exp(rng.standard_normal((bsz, s, width)) - 1.0))
+    a = -np.exp(rng.standard_normal((di, ds) if nh is None else (nh,)))
+    x, b, c = (rng.standard_normal(sh) for sh in ((bsz, s, di), (bsz, s, ds),
+                                                 (bsz, s, ds)))
+    h0 = (rng.standard_normal((bsz, di, ds)) if carried
+          else np.zeros((bsz, di, ds)))
+    return [_t(np.asarray(t, np.float32), dev)
+            for t in (dt, a, x, b, c, h0)]
+
+
+def _scan_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = float((g - w).abs().max())
+        assert err <= SCAN_TOL * float(w.abs().max()), err
+
+
+@pytest.mark.parametrize("bsz,s,di,ds,nh", [
+    (2, 1, 64, 16, None), (2, 37, 130, 16, None), (3, 300, 256, 8, None),
+    (1, 513, 64, 64, None), (2, 40, 96, 12, None), (1, 17, 32, 3, None),
+    (1, 9, 40, 128, None),
+    (2, 1, 256, 64, 4), (2, 300, 512, 64, 8), (1, 37, 192, 16, 3),
+    (2, 33, 128, 64, 4), (1, 20, 96, 5, 32)])
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
+def test_selective_scan_kernel(cuda, bsz, s, di, ds, nh, carried):
+    """Both entries against their plain versions: S = 1 (decode), S not a
+    multiple of the 16-step tile or of 256, di not a multiple of the
+    128-channel block (and Mamba-2 heads split across blocks: di 192 of
+    head width 64; head width 32 and 3), ds padded (3, 5, 12) and at the
+    kernel's 128; one launch a call."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_heads_plain, selective_scan_plain)
+
+    args = _scan_inputs(cuda, bsz, s, di, ds, nh, carried)
+    heads = nh is not None
+    loader.reset_launch_counts()
+    got = (ops.selective_scan_heads if heads else ops.selective_scan)(
+        *args, 256)
+    torch.cuda.synchronize()
+    assert loader.MODEL_LAUNCHES["selective_scan"] == 1
+    assert loader.ENTRY_LAUNCHES == {
+        "selective_scan_heads_launch" if heads else "selective_scan_launch": 1}
+    want = (selective_scan_heads_plain if heads else selective_scan_plain)(
+        *args, 256)
+    _scan_close(got, want)
+
+
+def test_selective_scan_kernel_takes_strided_inputs(cuda):
+    """Slices of a wider projection (an f32 model's b and c) are copied to
+    contiguous before the launch, with the same result."""
+    dt, a, x, b, c, h0 = _scan_inputs(cuda, 2, 50, 128, 16)
+    proj = torch.cat([b, c], -1)
+    got = ops.selective_scan(dt, a, x, proj[..., :16], proj[..., 16:], h0)
+    _scan_close(got, ops.selective_scan(dt, a, x, b, c, h0))
+
+
+def test_selective_scan_kernel_raises_on_bad_inputs(cuda):
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_cuda, selective_scan_heads_cuda)
+
+    dt, a, x, b, c, h0 = _scan_inputs(cuda, 2, 8, 64, 16)
+    with pytest.raises(ValueError):                  # a's (di, ds) wrong
+        selective_scan_cuda(dt, a[:, :8], x, b, c, h0)
+    with pytest.raises(ValueError):                  # h0's batch wrong
+        selective_scan_cuda(dt, a, x, b, c, h0[:1])
+    with pytest.raises(TypeError):
+        selective_scan_cuda(dt.bfloat16(), a, x, b, c, h0)
+    with pytest.raises(ValueError):                  # a CPU tensor
+        selective_scan_cuda(dt, a.cpu(), x, b, c, h0)
+    with pytest.raises(ValueError):                  # nh does not divide di
+        selective_scan_heads_cuda(dt[..., :3], a[:3, 0].contiguous(), x, b,
+                                  c, h0)
+    wide = _scan_inputs(cuda, 1, 4, 32, 129)
+    with pytest.raises(ValueError):                  # past the register state
+        selective_scan_cuda(*wide)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_ssm_models_launch_the_scan_on_the_card(cuda, arch):
+    """The smoke config in f32 (TF32 off) on the card against the CPU
+    (plain scan): a prefill and a decode step, each launching the kernel
+    once a mamba layer, logits within 1e-3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = build_model(cfg, device="cpu", ssm_chunk=8)
+    card = build_model(cfg, device=cuda, ssm_chunk=8)
+    card.load_state_dict(cpu.state_dict())
+    n_ssm = sum(k in ("mamba1", "mamba2") for k in cfg.block_pattern())
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 21))
+    out = []
+    for model in (card, cpu):
+        loader.reset_launch_counts()
+        lg, cache = model.prefill({"tokens": _t(tokens, model.device)},
+                                  max_len=24)
+        launched = [loader.MODEL_LAUNCHES["selective_scan"]]
+        lg2, _ = model.decode_step(cache, lg.argmax(-1))
+        launched.append(loader.MODEL_LAUNCHES["selective_scan"])
+        out.append((lg.cpu(), lg2.cpu(), launched))
+    assert out[0][2] == [n_ssm, 2 * n_ssm] and out[1][2] == [0, 0]
+    for got, want in zip(out[0][:2], out[1][:2]):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
