@@ -188,7 +188,11 @@ not printed):
    and S=300 (no multiple of the chunk) — within 1e-5 of the largest
    |y| and |h_last|: events and CUPTI ms, the plain version's ms, the
    bound (bytes at 3.35 TB/s or exps at the special-function units' rate,
-   the larger).
+   the larger).  Then the scan's backward kernel against the plain
+   backward at both models' layer widths — zamba2's train microbatch (B=2,
+   S=4,096) and falcon-mamba's (2, 2,048), each from a zero and a carried
+   state, S=1 and S=300 — each gradient within 1e-5 of its largest
+   magnitude; the zero-state cases timed as the forward's.
    Train phase (``repro_torch.train``, ``ckpt``, ``distributed``,
    ``launch/train.py``; ``train_phase``), after the models are freed: (a)
    one ``make_train_step`` step (2 microbatches) of each architecture's
@@ -205,7 +209,13 @@ not printed):
    model TFLOP/s (6 N T plus attention over full 4,096 blocks) and their
    share of 989, peak memory, loss and grad-norm each step.  Fails on a
    non-finite loss or unless the mean of the last 5 losses is >= 0.3 below
-   the first.  (c) ``FaultTolerantLoop`` over ``custom_dense_config(100)``
+   the first.  (b') zamba2-1.2B at published width and depth the same
+   way, 12 steps (the SSM phase's model): step ms (median of steps 3-12),
+   tokens a second, peak memory, losses; fails on a non-finite loss, unless
+   the mean of the last 3 losses is >= 0.3 below the first, unless the
+   scan's backward kernel launched once a Mamba layer a microbatch in every
+   step, or if an op of the scan's plain versions ran on the card (counted
+   over step 2).  (c) ``FaultTolerantLoop`` over ``custom_dense_config(100)``
    (d 704, 11 layers), checkpoints every 5 steps (async) under
    ``chiprun_out/train_ckpt`` (removed after), a NaN written into ``ln_f``
    before step 7: fails unless the run ends at step 15 with exactly one
@@ -222,16 +232,19 @@ not printed):
    mesh (NCCL takes one rank a card; the multi-rank meshes are the CPU
    tests' gloo ones): fails unless its losses are within 1e-3 relative of
    (b)'s first steps (whether they are bit-equal is printed); step ms and
-   peak bytes.  (f) The dry-run (``start_dryrun``, four processes of
+   peak bytes.  (f) The dry-run (``start_dryrun``, six processes of
    their own started as the train phase starts, after the phases that
    measure QPS and latency on the host; fake tensors over fake process
    groups, no card): ``python -m repro_torch.launch.dryrun`` over
    StableLM-1.6B's train_4k cell on the (16, 16) and (2, 16, 16)
-   production meshes, (b)'s own cell on a (1, 1) mesh, and the serving
+   production meshes and over zamba2-1.2B's and falcon-mamba-7b's at full
+   depth on (16, 16), (b)'s own cell on a (1, 1) mesh, and the serving
    cells on (16, 16) (``dryrun_serve``: StableLM's prefill_32k and
-   decode_32k, PaliGemma's decode_32k): fails unless both production
-   records and the three serving cells are "ok" with FLOPs and collective
-   bytes and the (1, 1) trace's peak bytes are within 25% of (e)'s
+   decode_32k, PaliGemma's decode_32k): fails unless the production
+   records, the two SSM train cells and the three serving cells are "ok"
+   (the first with FLOPs and collective bytes; each SSM cell's trace
+   seconds are printed) and the (1, 1) trace's peak bytes are within 25%
+   of (e)'s
    measured peak (each serving cell's bottleneck, collective bytes by
    kind, traced peak and ``kv_bytes_local`` are printed);
    per-device FLOPs, collective bytes by kind, peak bytes, bottleneck, and
@@ -375,7 +388,8 @@ def _time_ms(torch, fn, flush, symbol=None, reps=30, warmup=3):
     With ``symbol`` (a substring of a kernel's name) the same launches run
     under ``torch.profiler`` and the result is (events ms, CUPTI ms): the
     second is the median of that kernel's own device duration, which leaves
-    out the launch gap that the events also count."""
+    out the launch gap that the events also count.  A tuple of symbols (a
+    call that launches several kernels) sums their medians."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -399,6 +413,14 @@ def _time_ms(torch, fn, flush, symbol=None, reps=30, warmup=3):
         return _median(times)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
+    symbols = symbol if isinstance(symbol, tuple) else (symbol,)
+    return _median(times), sum(_cupti_ms(torch, prof, sym, reps)
+                               for sym in symbols)
+
+
+def _cupti_ms(torch, prof, symbol: str, reps: int) -> float:
+    """The median device duration of the kernels named with ``symbol`` in
+    ``prof``'s records (``_time_ms``)."""
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
             if e.device_type == cuda and symbol in e.name]
@@ -412,7 +434,7 @@ def _time_ms(torch, fn, flush, symbol=None, reps=30, warmup=3):
     if len(kern) < reps // 2:
         raise AssertionError(f"profiler saw {len(kern)} launches of "
                              f"{symbol!r}, expected {reps}")
-    return _median(times), _median(kern)
+    return _median(kern)
 
 
 def _median(xs):
@@ -3508,6 +3530,62 @@ def scan_entry(torch, label: str, args: list, flush) -> dict:
             "library_ms": None}
 
 
+def scan_bwd_entry(torch, label: str, args: list, g, flush,
+                   timed: bool) -> dict:
+    """The backward kernel against the plain backward on ``args`` and
+    cotangents of y and h_last drawn N(0, 1) from ``g``: each gradient's
+    max error against SCAN_TOL of its largest magnitude; with ``timed``,
+    events and CUPTI ms of the kernel (30 launches: the main kernel and the
+    ordered sums), the plain backward's ms (one call) and the bound: the
+    larger of the bytes (each input, cotangent and gradient once) at
+    HBM_BYTES_PER_S and the exps (B S di ds, Mamba-2's B S nh) at
+    SFU_PER_S."""
+    from repro_torch.kernels import selective_scan as ss
+
+    dt, a, x, b, c, h0 = args
+    heads = a.dim() == 1
+    kernel = ss.scan_heads_bwd_op if heads else ss.scan_bwd_op
+    plain = (ss.selective_scan_heads_bwd_plain if heads
+             else ss.selective_scan_bwd_plain)
+    gy = torch.randn(x.shape, generator=g, device=x.device)
+    gh = torch.randn(h0.shape, generator=g, device=x.device)
+    ins = [*args, gy, gh, SSM_CHUNK]
+    got = kernel(*ins)
+    want = plain(*ins)
+    torch.cuda.synchronize()
+    names = ("dt", "a", "x", "b", "c", "h0")
+    errs = {n: float((p - q).abs().max()) for n, p, q in zip(names, got, want)}
+    scales = {n: float(q.abs().max()) for n, q in zip(names, want)}
+    ok = (all(bool(torch.isfinite(p).all()) for p in got)
+          and all(errs[n] <= SCAN_TOL * scales[n] for n in names))
+    del got, want
+    bsz, s, di = x.shape
+    ds = b.shape[-1]
+    rec = {"entry": label, "shape": {"B": bsz, "S": s, "di": di, "ds": ds,
+                                     "nh": a.shape[0] if heads else None},
+           "errs": errs, "scales": scales, "tol": SCAN_TOL, "ok": ok,
+           "max_abs_err": max(errs.values()),
+           "max_err_of_scale": max(errs[n] / max(scales[n], 1e-30)
+                                   for n in names)}
+    if not timed:
+        return rec
+    nbytes = 4 * (2 * sum(t.numel() for t in args) + gy.numel() + gh.numel())
+    exps = bsz * s * (a.shape[0] if heads else di * ds)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exps = exps / SFU_PER_S * 1e3
+    ms, cupti_ms = _time_ms(
+        torch, lambda: kernel(*ins), flush,
+        ("selective_scan_bwd_kernel", "selective_scan_bwd_reduce"))
+    # one call: seconds at the train microbatch, warm from the check above
+    plain_ms = _time_ms(torch, lambda: plain(*ins), flush, reps=1, warmup=0)
+    rec.update(ms=ms, cupti_ms=cupti_ms, plain_ms=plain_ms, bytes=nbytes,
+               exps=exps, bytes_ms=t_bytes, exps_ms=t_exps,
+               bound_ms=max(t_bytes, t_exps),
+               bound_by="bytes" if t_bytes >= t_exps else "operations",
+               library_ms=None)
+    return rec
+
+
 def ssm_phase(torch, dev, seed: int, log) -> dict:
     """zamba2-1.2B and falcon-mamba-7b served at full width and depth
     (``ssm_serve``, the scan's launches counted over each timed round)."""
@@ -3521,11 +3599,16 @@ def scan_phase(torch, dev, seed: int, serve: dict, log) -> dict:
     shapes (``scan_entry``): zamba2's (8, 2048, 4096, 64, 64 heads) from a
     zero and a carried state, falcon-mamba's (8, 2048, 8192, 16) and its
     served (2, 2048, ...), each model's decode step (S = 1, its requests)
-    and a ragged S = SSM_RAGGED.  Runs after every other profiled
-    measurement: the plain loops launch ~10^4 kernels a call, and the
-    profiler has dropped records of the sessions that follow such work
-    (PERF.md).  Returns {"entries", "kernel": the kernels line's record,
-    launches from ``serve``, ``ssm_phase``'s record}."""
+    and a ragged S = SSM_RAGGED.  Then the backward kernel against the
+    plain backward (``scan_bwd_entry``) at both models' layer widths: the
+    train microbatch's (2, 4096) for zamba2 (the plain loop's autograd
+    holds ~17 GB there) and falcon-mamba's (2, 2048), each from a zero and
+    a carried state, S = 1 and S = SSM_RAGGED; the two zero-state cases
+    timed.  Runs after every other profiled measurement: the plain loops
+    launch ~10^4 kernels a call, and the profiler has dropped records of
+    the sessions that follow such work (PERF.md).  Returns {"entries",
+    "bwd_entries", "kernel" and "bwd_kernel": the kernels line's records,
+    the forward's launches from ``serve``, ``ssm_phase``'s record}."""
     g = torch.Generator(device=dev).manual_seed(seed)
     flush = _Flush(torch, dev)
     z = dict(di=4096, ds=64, nh=64)
@@ -3555,10 +3638,50 @@ def scan_phase(torch, dev, seed: int, serve: dict, log) -> dict:
             f"({e['bound_by']}: bytes {e['bytes_ms']:.5f}, exps "
             f"{e['exps_ms']:.5f}) library_ms=None")
     torch.cuda.empty_cache()
+    bwd = []
+    bwd_cases = (
+        ("zamba2 (2, 4096), zero state (the train microbatch's)", 2, 4096,
+         z, False, True),
+        ("zamba2 (2, 4096), carried state", 2, 4096, z, True, False),
+        ("zamba2 (2, 1)", 2, 1, z, True, False),
+        (f"zamba2 ragged (2, {SSM_RAGGED})", 2, SSM_RAGGED, z, True, False),
+        ("falcon-mamba (2, 2048), zero state", 2, 2048, f, False, True),
+        ("falcon-mamba (2, 2048), carried state", 2, 2048, f, True, False),
+        ("falcon-mamba (2, 1)", 2, 1, f, True, False),
+        (f"falcon-mamba ragged (2, {SSM_RAGGED})", 2, SSM_RAGGED, f, True,
+         False))
+    for label, bsz, s, shape, carried, timed in bwd_cases:
+        args = _scan_inputs(torch, dev, g, bsz, s, carried=carried, **shape)
+        bwd.append(scan_bwd_entry(torch, label, args, g, flush, timed))
+        del args
+        torch.cuda.empty_cache()
+        e = bwd[-1]
+        log(f"kernel selective_scan_bwd [{label}]: worst gradient err "
+            f"{e['max_err_of_scale']:.3g} of its max |g| (tol {SCAN_TOL}; "
+            f"{json.dumps({k: round(v, 9) for k, v in e['errs'].items()})}) "
+            f"ok={e['ok']}" + (
+                f" ms={e['ms']:.4f} cupti_ms={e['cupti_ms']:.4f} "
+                f"plain_ms={e['plain_ms']:.2f} bound_ms={e['bound_ms']:.5f} "
+                f"({e['bound_by']}: bytes {e['bytes_ms']:.5f}, exps "
+                f"{e['exps_ms']:.5f}) library_ms=None" if "ms" in e else ""))
     main = entries[0]
     launches = {arch: r["launches"]["prefill"] + r["launches"]["decode"]
                 for arch, r in serve.items()}
-    rec = {"entries": entries}
+    rec = {"entries": entries, "bwd_entries": bwd}
+    bmain = bwd[0]
+    rec["bwd_kernel"] = {
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:70",
+        "replaces_what": "the JAX gradient of selective_scan (no TPU "
+                         "kernel)",
+        "launches": None,             # the train run's, set by main()
+        **{k: bmain[k] for k in ("max_abs_err", "ms", "cupti_ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        "max_err_of_scale": max(e["max_err_of_scale"] for e in bwd),
+        "main_entry": bmain["entry"],
+        "entries": [e for e in bwd if "ms" in e]}
     rec["kernel"] = {
         "name": "selective_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
@@ -3593,6 +3716,12 @@ def ssm_failures(rec: dict) -> list:
                          f"{e['y_err']:.3g} of {e['y_scale']:.3g}, h "
                          f"{e['h_err']:.3g} of {e['h_scale']:.3g} beyond "
                          f"{SCAN_TOL} x (or not finite)")
+    for e in rec.get("bwd_entries", ()):
+        if not e["ok"]:
+            fails.append(f"selective_scan_bwd [{e['entry']}]: kernel vs "
+                         f"plain {json.dumps(e['errs'])} of "
+                         f"{json.dumps(e['scales'])} beyond {SCAN_TOL} x "
+                         "(or not finite)")
     return fails
 
 
@@ -3603,6 +3732,8 @@ TRAIN_BATCH = 4                  # train_4k's global batch of 256, cut for time
 TRAIN_MICROBATCHES = 2
 TRAIN_LOSS_DROP = 0.3            # tests/test_train_ckpt_fault.py's margin
 BF16_PEAK_FLOPS = 989e12         # H100 SXM dense bf16 (NVIDIA data sheet)
+TRAIN_SSM_ARCH = "zamba2-1.2b"   # trained as TRAIN_ARCH, its own steps
+TRAIN_SSM_STEPS = 12
 FAULT_PARAMS_M = 100             # custom_dense_config(100): d 704, 11 layers
 FAULT_STEPS = 15
 FAULT_EVERY = 5
@@ -3735,6 +3866,120 @@ def train_full(torch, dev, log) -> dict:
         f"first_step_s={rec['first_step_s']:.1f}; loss {losses[0]:.4f} -> "
         f"mean of the last 5 {rec['last5_mean']:.4f} "
         f"(drop {rec['drop']:.4f}, >= {TRAIN_LOSS_DROP} asked)")
+    return rec
+
+
+class _PlainOnCard:
+    """A dispatch mode that counts the ops dispatched on the card from
+    inside the selective scan's plain versions (forward or backward: the
+    call stack holds their code), and the ops of the scan's custom ops by
+    name.  Entered over one train step (``train_ssm``)."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        from repro_torch.kernels import selective_scan as ss
+
+        codes = {f.__code__ for f in (ss.selective_scan_plain,
+                                      ss.selective_scan_heads_plain,
+                                      ss._rerun)}
+        self.plain_on_card, self.scan_ops = 0, {}
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = str(func)
+                if name.startswith("repro_torch."):
+                    outer.scan_ops[name] = outer.scan_ops.get(name, 0) + 1
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in tree_leaves((args, kwargs))):
+                    f = sys._getframe()
+                    while f is not None and f.f_code not in codes:
+                        f = f.f_back
+                    outer.plain_on_card += f is not None
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+
+def train_ssm(torch, dev, log) -> dict:
+    """TRAIN_SSM_ARCH at published width and depth through
+    ``launch.train.train`` on ``train_full``'s shape (TRAIN_BATCH x
+    TRAIN_SEQ - 1 tokens, TRAIN_MICROBATCHES, remat per block),
+    TRAIN_SSM_STEPS steps timed as ``train_full``'s; the scan's launches
+    counted from zero over the run, and over step 2 by kernel, with the ops
+    dispatched from the plain versions on the card (``_PlainOnCard``: step
+    2 is outside the median)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import loader
+    from repro_torch.launch import train as launcher
+
+    cfg = get_config(TRAIN_SSM_ARCH)
+    n_ssm = sum(k in ("mamba1", "mamba2") for k in cfg.block_pattern())
+    marks, steps, probe = [], [], {}
+
+    def on_metrics(step, m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        steps.append(dict(m, step=step))
+        if step == 1:
+            probe["before"] = dict(loader.MODEL_LAUNCHES)
+            probe["watch"] = _PlainOnCard(torch)
+            probe["watch"].mode.__enter__()
+        elif step == 2:
+            probe["watch"].mode.__exit__(None, None, None)
+            probe["step2"] = {k: v - probe["before"][k]
+                              for k, v in loader.MODEL_LAUNCHES.items()}
+        log(f"  {cfg.name} step {step:2d} loss {m['loss']:.4f} "
+            f"grad_norm {m['grad_norm']:.4f} lr {m['lr']:.3e}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loader.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, state, _ = launcher.train(
+        cfg, TRAIN_SSM_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+        microbatches=TRAIN_MICROBATCHES, lr=1e-3, device=dev,
+        on_metrics=on_metrics)
+    launches = dict(loader.MODEL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in state.params.values())
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    step_s = [b - a for a, b in zip(marks, marks[1:])]     # steps 2-12
+    med = _median(step_s[1:])                              # steps 3-12
+    losses = [x["loss"] for x in steps]
+    watch = probe["watch"]
+    rec = {"config": cfg.name, "params": n,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in state.params.values()),
+           "steps": steps, "step_ms": [t * 1e3 for t in step_s],
+           "first_step_s": marks[0] - t0, "step_ms_median": med * 1e3,
+           "tokens_per_step": tokens, "tokens_per_s": tokens / med,
+           "peak_bytes": peak, "losses": losses,
+           "finite": all(math.isfinite(x) for x in losses),
+           "last3_mean": sum(losses[-3:]) / 3, "ssm_layers": n_ssm,
+           "launches": launches, "launches_step2": probe["step2"],
+           "want_bwd_a_step": n_ssm * TRAIN_MICROBATCHES,
+           "scan_ops_step2": watch.scan_ops,
+           "plain_ops_on_card_step2": watch.plain_on_card}
+    rec["drop"] = losses[0] - rec["last3_mean"]
+    del model, state
+    torch.cuda.empty_cache()
+    log(f"{cfg.name} trained ({n:,} parameters, {rec['param_bytes']:,} "
+        f"bytes bf16; {TRAIN_BATCH} x {TRAIN_SEQ - 1} tokens a step, "
+        f"{TRAIN_MICROBATCHES} microbatches, remat per block; "
+        f"{_card_line()}): step_ms_median={rec['step_ms_median']:.1f} "
+        f"(steps 3-{TRAIN_SSM_STEPS}) tokens_per_s="
+        f"{rec['tokens_per_s']:.0f} peak_bytes={peak:,} "
+        f"first_step_s={rec['first_step_s']:.1f}; losses "
+        f"{[round(x, 4) for x in losses]}: {losses[0]:.4f} -> mean of the "
+        f"last 3 {rec['last3_mean']:.4f} (drop {rec['drop']:.4f}, >= "
+        f"{TRAIN_LOSS_DROP} asked); launches over the run "
+        f"{json.dumps(launches)}, over step 2 {json.dumps(probe['step2'])} "
+        f"(backward: {rec['want_bwd_a_step']} asked, one a mamba layer a "
+        f"microbatch), scan ops over step 2 {json.dumps(watch.scan_ops)}, "
+        f"ops from the plain versions on the card {watch.plain_on_card}")
     return rec
 
 
@@ -3871,15 +4116,18 @@ DRYRUN_PEAK_TOL = 0.25           # the traced (1, 1) cell's peak vs the card's
 # the serving cells the dry-run traces on the (16, 16) mesh
 DRYRUN_SERVE_CELLS = ((TRAIN_ARCH, "prefill_32k"), (TRAIN_ARCH, "decode_32k"),
                       (SERVE_ARCH, "decode_32k"))
+# the SSM models' train_4k cells on (16, 16) at full depth, a process each
+DRYRUN_SSM_ARCHS = ("zamba2-1.2b", "falcon-mamba-7b")
 
 
 def start_dryrun(repo, out_dir) -> list:
     """Starts the dry-run as processes of its own (fake process groups,
     fake tensors, no card) that run beside the card-bound train phase:
     ``launch.dryrun`` over TRAIN_ARCH's train_4k cell, one process for each
-    production mesh of DRYRUN_MESHES, and ``dryrun_anchor`` (the train
-    phase's own cell on a (1, 1) mesh).  Returns [(name, process, its
-    output file)]."""
+    production mesh of DRYRUN_MESHES, and over each DRYRUN_SSM_ARCHS
+    model's on (16, 16); ``dryrun_anchor`` (the train phase's own cell on a
+    (1, 1) mesh) and ``dryrun_serve``.  Returns [(name, process, its output
+    file)]."""
     env = dict(os.environ, PYTHONPATH=str(repo / "src"),
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
     cmds = {
@@ -3887,6 +4135,12 @@ def start_dryrun(repo, out_dir) -> list:
                "--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh", mesh,
                "--force", "--out", str(out_dir / f"dryrun_torch_{mesh}.json")]
         for mesh in DRYRUN_MESHES}
+    cmds.update({
+        f"ssm_{arch}": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", arch, "--shape", "train_4k", "--mesh",
+                        "single", "--force", "--out",
+                        str(out_dir / f"dryrun_ssm_{arch}.json")]
+        for arch in DRYRUN_SSM_ARCHS})
     cmds.update({
         "anchor": [sys.executable, "-c",
                    "import sys, chip_smoke; chip_smoke.dryrun_anchor("
@@ -3989,6 +4243,30 @@ def finish_dryrun(procs, out_dir, sharded, full, log) -> dict:
                          useful_ratio=rl["useful_ratio"])
             rec["cells"][key] = c
             log(f"dry-run {key}: {json.dumps(c)}")
+    rec["ssm_cells"] = {}
+    for arch in DRYRUN_SSM_ARCHS:
+        path = out_dir / f"dryrun_ssm_{arch}.json"
+        for key, cell in (json.loads(path.read_text()).items()
+                          if path.exists() else ()):
+            c = {"status": cell["status"]}
+            if cell["status"] == "ok":
+                rl = cell["roofline"]
+                c.update(trace_s=cell["trace_s"],
+                         microbatches=cell["microbatches"],
+                         flops_per_device=rl["flops"],
+                         coll_bytes_per_device=rl["coll_bytes"],
+                         coll_breakdown=rl["coll_breakdown"],
+                         peak_bytes=cell["memory"]["peak_memory_in_bytes"],
+                         temp_bytes=cell["memory"]["temp_size_in_bytes"],
+                         bottleneck=rl["bottleneck"],
+                         compute_s=rl["compute_s"],
+                         collective_s=rl["collective_s"],
+                         memory_s=rl["memory_s"],
+                         useful_ratio=rl["useful_ratio"])
+            else:
+                c["error"] = cell.get("error")
+            rec["ssm_cells"][key] = c
+            log(f"dry-run SSM train cell {key}: {json.dumps(c)}")
     rec["serve_cells"] = {}
     path = out_dir / "dryrun_serve.json"
     for key, cell in (json.loads(path.read_text()).items()
@@ -4099,11 +4377,13 @@ def train_sharded(torch, dev, out_dir, full, log) -> dict:
 
 def train_phase(torch, dev, repo, out_dir, seed: int, log) -> dict:
     """The training half on the card: the dry-run started
-    (``start_dryrun``), ``train_zoo``, ``train_full``, ``train_sharded``,
-    ``train_fault``, then the dry-run's records (``finish_dryrun``)."""
+    (``start_dryrun``), ``train_zoo``, ``train_full``, ``train_ssm``,
+    ``train_sharded``, ``train_fault``, then the dry-run's records
+    (``finish_dryrun``)."""
     dryrun = start_dryrun(repo, out_dir)
     rec = {"zoo": train_zoo(torch, dev, seed, log)}
     rec["full"] = train_full(torch, dev, log)
+    rec["ssm"] = train_ssm(torch, dev, log)
     rec["sharded"] = train_sharded(torch, dev, out_dir, rec["full"], log)
     rec["fault"] = train_fault(torch, dev, repo, out_dir, log)
     rec["dryrun"] = finish_dryrun(dryrun, out_dir, rec["sharded"],
@@ -4124,6 +4404,24 @@ def train_failures(rec: dict) -> list:
         fails.append(f"{full['config']}: the mean of the last 5 losses is "
                      f"{full['drop']:.4f} below the first, not "
                      f">= {TRAIN_LOSS_DROP}")
+    ssm = rec["ssm"]
+    if not ssm["finite"]:
+        fails.append(f"{ssm['config']}: a loss is not finite")
+    if not ssm["drop"] >= TRAIN_LOSS_DROP:
+        fails.append(f"{ssm['config']}: the mean of the last 3 losses is "
+                     f"{ssm['drop']:.4f} below the first, not "
+                     f">= {TRAIN_LOSS_DROP}")
+    n_bwd = ssm["launches_step2"]["selective_scan_bwd"]
+    if (n_bwd != ssm["want_bwd_a_step"]
+            or ssm["launches"]["selective_scan_bwd"]
+            != ssm["want_bwd_a_step"] * TRAIN_SSM_STEPS):
+        fails.append(f"{ssm['config']}: the scan's backward launched "
+                     f"{n_bwd} times in step 2 and "
+                     f"{ssm['launches']['selective_scan_bwd']} in the run, "
+                     f"not {ssm['want_bwd_a_step']} a step")
+    if ssm["plain_ops_on_card_step2"]:
+        fails.append(f"{ssm['config']}: {ssm['plain_ops_on_card_step2']} "
+                     "ops of the scan's plain versions ran on the card")
     f = rec["fault"]
     if f["restarts"] != 1 or f["final_step"] != FAULT_STEPS:
         fails.append(f"fault loop: {f['restarts']} restarts, final step "
@@ -4150,6 +4448,11 @@ def train_failures(rec: dict) -> list:
     if len(ok) != 2:
         fails.append(f"dry-run: {len(ok)} ok production cells, not 2: "
                      f"{json.dumps(dr['cells'])}")
+    want = {f"{a}|train_4k|16x16" for a in DRYRUN_SSM_ARCHS}
+    ok = {k for k, c in dr["ssm_cells"].items() if c["status"] == "ok"}
+    if ok != want:
+        fails.append(f"dry-run SSM train cells not ok: "
+                     f"{json.dumps(dr['ssm_cells'])}")
     want = {f"{a}|{c}|16x16" for a, c in DRYRUN_SERVE_CELLS}
     ok = {k for k, c in dr["serve_cells"].items() if c["status"] == "ok"}
     if ok != want:
@@ -4532,6 +4835,12 @@ def main(argv=None) -> int:
     mark("cross_device_and_profiles")
     ssm.update(scan_phase(torch, dev, args.seed, ssm["serve"], log))
     kernels.append(ssm["kernel"])
+    # the backward's launches: the train run's (train_ssm)
+    ssm["bwd_kernel"].update(
+        launches=trained["ssm"]["launches"]["selective_scan_bwd"],
+        launches_by_path={"train_ssm": trained["ssm"]["launches"][
+            "selective_scan_bwd"]})
+    kernels.append(ssm["bwd_kernel"])
     mark("ssm_kernel")
     detail["phase_s"] = phase_s
     log(f"seconds by phase (the kernel build apart): {json.dumps(phase_s)}")

@@ -4,7 +4,8 @@
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 PyTorch version (the selective scan's entries are ops of their own,
 ``repro_torch::selective_scan`` and ``::selective_scan_heads``, that
-dispatch the same way: ``kernels.selective_scan``).  Nothing catches a
+dispatch the same way, and so are their gradients:
+``kernels.selective_scan``).  Nothing catches a
 failed build or launch and carries on.  The build-and-load step and the
 launch counters live in
 ``repro_torch.kernels.loader`` and are re-exported here.

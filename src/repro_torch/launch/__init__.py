@@ -1,5 +1,5 @@
 """Port of ``repro.launch``: device meshes over ``torch.distributed``
 (``mesh.py``), the serving launcher (``serve.py``), the training launcher
-(``train.py``) and the dry-run of the train cells on the production meshes
-(``dryrun.py``; its prefill and decode cells wait for sharded serving,
-ROADMAP)."""
+(``train.py``) and the dry-run (``dryrun.py``) of every cell on the
+production meshes: train cells (the SSM models' too: the selective scan and
+its backward are one op a call), prefill and decode cells."""

@@ -9,8 +9,11 @@ state in registers, nothing of size (S, di, ds) in memory), on the CPU the
 plain version, which keeps the reference's chunking (the (chunk, di, ds)
 decay and input tensors built one chunk at a time) and steps through each
 chunk where the reference runs an associative scan; the two agree up to the
-reassociation of f32 products and sums.  Gradients recompute the plain
-version (torch ops, also on the card).
+reassociation of f32 products and sums.  Its gradient is one op too
+(``repro_torch::selective_scan_bwd`` / ``::selective_scan_heads_bwd``): on
+the card the backward kernel of ``kernels/csrc/selective_scan_bwd.cu`` (a
+reverse scan over states recomputed from stored chunk boundaries), on the
+CPU the plain version rerun under autograd.
 
 Decode (S=1) reuses the same cell with the carried state: the SSM's "KV
 cache" is the O(1) (conv_state, ssm_state) pair.

@@ -12,7 +12,9 @@ against torch's order) with the masked entry's pass-through of acc exact,
 the sort and the merge exact, with ties, +inf and -0.0/+0.0, the selective
 scan within 1e-5 of max |y| and of max |h_last| (its sum over the states
 fused into multiply-adds, ``expf`` within ulps of torch's; measured
-~3e-7).  The search on CUDA is held
+~3e-7), its backward each gradient within 1e-5 of its own max |g| (the
+same, and the sums over lanes, channels and rows in another order;
+measured <= 2.2e-6 at full width).  The search on CUDA is held
 against the CPU search of the same index: identical ids on >= 95% of rows,
 since the kernels' ADT rounds differently from the CPU's expanded form.
 """
@@ -1282,3 +1284,112 @@ def test_ssm_models_launch_the_scan_on_the_card(cuda, arch):
     assert out[0][2] == [n_ssm, 2 * n_ssm] and out[1][2] == [0, 0]
     for got, want in zip(out[0][:2], out[1][:2]):
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+# ---- the selective scan's backward -----------------------------------------
+
+def _scan_bwd(heads):
+    from repro_torch.kernels import selective_scan as ss
+
+    return ((ss.scan_heads_bwd_op, ss.selective_scan_heads_bwd_plain)
+            if heads else (ss.scan_bwd_op, ss.selective_scan_bwd_plain))
+
+
+def _cotangents(dev, bsz, s, di, ds, seed=1):
+    rng = np.random.default_rng(seed)
+    return [_t(rng.standard_normal(sh).astype(np.float32), dev)
+            for sh in ((bsz, s, di), (bsz, di, ds))]
+
+
+@pytest.mark.parametrize("s", [1, 7, 128, 3 * 128 + 5])
+@pytest.mark.parametrize("ds", [4, 16, 48, 64, 128])
+@pytest.mark.parametrize("heads", [False, True], ids=["mamba1", "mamba2"])
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
+def test_selective_scan_bwd_kernel(cuda, heads, ds, s, carried):
+    """Both entries' backward kernel against the plain backward: S = 1, 7,
+    the kernel's 128-step chunk and three chunks and a ragged tile; ds
+    padded (48) and at the kernel's 128; di 80 (Mamba-1, no multiple of a
+    block's channels) and 4 heads of 48 (Mamba-2, heads split across
+    blocks); each gradient within SCAN_TOL of its largest magnitude; one
+    launch a call."""
+    di, nh = (192, 4) if heads else (80, None)
+    args = _scan_inputs(cuda, 2, s, di, ds, nh, carried)
+    gy, gh = _cotangents(cuda, 2, s, di, ds)
+    op, plain = _scan_bwd(heads)
+    loader.reset_launch_counts()
+    got = op(*args, gy, gh, 256)
+    torch.cuda.synchronize()
+    assert loader.MODEL_LAUNCHES["selective_scan_bwd"] == 1
+    assert loader.ENTRY_LAUNCHES == {"selective_scan_bwd_launch": 1}
+    _scan_close(got, plain(*args, gy, gh, 256))
+
+
+def test_selective_scan_bwd_kernel_bit_equal_runs_and_strides(cuda):
+    """Two runs give the same bits (ordered sums, no atomics); slices of a
+    wider projection and a transposed cotangent are copied to contiguous,
+    with the same result."""
+    for heads, di, nh in ((False, 130, None), (True, 256, 4)):
+        op, _ = _scan_bwd(heads)
+        args = _scan_inputs(cuda, 3, 300, di, 64, nh)
+        gy, gh = _cotangents(cuda, 3, 300, di, 64)
+        first, second = op(*args, gy, gh, 256), op(*args, gy, gh, 256)
+        assert all(torch.equal(p, q) for p, q in zip(first, second))
+        dt, a, x, b, c, h0 = args
+        proj = torch.cat([b, c], -1)
+        gh_t = gh.transpose(1, 2).contiguous().transpose(1, 2)
+        got = op(dt, a, x, proj[..., :64], proj[..., 64:], h0, gy, gh_t, 256)
+        assert all(torch.equal(p, q) for p, q in zip(got, first))
+
+
+def test_selective_scan_bwd_kernel_raises_on_bad_inputs(cuda):
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_bwd_cuda, selective_scan_heads_bwd_cuda)
+
+    dt, a, x, b, c, h0 = _scan_inputs(cuda, 2, 8, 64, 16)
+    gy, gh = _cotangents(cuda, 2, 8, 64, 16)
+    with pytest.raises(ValueError):                  # gy's shape wrong
+        selective_scan_bwd_cuda(dt, a, x, b, c, h0, gy[:, :4], gh)
+    with pytest.raises(ValueError):                  # gh's shape wrong
+        selective_scan_bwd_cuda(dt, a, x, b, c, h0, gy, gh[:1])
+    with pytest.raises(TypeError):
+        selective_scan_bwd_cuda(dt, a, x, b, c, h0, gy.double(), gh)
+    with pytest.raises(TypeError):
+        selective_scan_bwd_cuda(dt, a.bfloat16(), x, b, c, h0, gy, gh)
+    with pytest.raises(ValueError):                  # a CPU tensor
+        selective_scan_bwd_cuda(dt, a, x, b, c, h0, gy, gh.cpu())
+    with pytest.raises(ValueError):                  # nh does not divide di
+        selective_scan_heads_bwd_cuda(dt[..., :3], a[:3, 0].contiguous(), x,
+                                      b, c, h0, gy, gh)
+    wide = _scan_inputs(cuda, 1, 4, 32, 129)
+    with pytest.raises(ValueError):                  # past the kernel's 128
+        selective_scan_bwd_cuda(*wide, *_cotangents(cuda, 1, 4, 32, 129))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_ssm_train_step_launches_the_backward_on_the_card(cuda, arch):
+    """The smoke config in f32 (TF32 off): one ``make_train_step`` step of
+    2 microbatches on the card against the CPU's (plain backward): the
+    backward kernel launched once a mamba layer a microbatch, the loss
+    within 1e-5 relative and each gradient within 1e-3 of its leaf's
+    largest |g| (the train phase's SSM bar)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.data import DataConfig, batch_for_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = build_model(cfg, device="cpu", ssm_chunk=8)
+    card = build_model(cfg, device=cuda, ssm_chunk=8)
+    card.load_state_dict(cpu.state_dict())
+    n_ssm = sum(k in ("mamba1", "mamba2") for k in cfg.block_pattern())
+    batch = batch_for_step(DataConfig(vocab_size=cfg.vocab_size, seq_len=33,
+                                      global_batch=4, copy_period=8,
+                                      family=cfg.family), 0)
+    loader.reset_launch_counts()
+    l_card, g_card = _train_step_grads(card, batch)
+    assert loader.MODEL_LAUNCHES["selective_scan_bwd"] == 2 * n_ssm
+    l_cpu, g_cpu = _train_step_grads(cpu, batch)
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k, g in g_cpu.items():
+        torch.testing.assert_close(g_card[k].cpu(), g, rtol=1e-3,
+                                   atol=1e-3 * float(g.abs().max()))
