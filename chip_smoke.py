@@ -180,19 +180,28 @@ not printed):
    launches (counted from zero over the timed round: one a Mamba layer in
    the prefill and in each step, else the phase fails); zamba2's f32 copy's
    decode logits against one teacher-forced forward within 1e-3 of the
-   largest |logit|.  Last of the whole run, after the profiles below
-   (``scan_phase``), the scan kernel against its plain version at the
-   layers' shapes — zamba2's (B=8, S=2,048, d_inner 4,096, state 64, 64
-   heads) from a zero and a carried state, falcon-mamba's (8, 2,048,
-   8,192, 16) and its served (2, 2,048), each model's decode step (S=1)
-   and S=300 (no multiple of the chunk) — within 1e-5 of the largest
-   |y| and |h_last|: events and CUPTI ms, the plain version's ms, the
-   bound (bytes at 3.35 TB/s or exps at the special-function units' rate,
-   the larger).  Then the scan's backward kernel against the plain
-   backward at both models' layer widths — zamba2's train microbatch (B=2,
-   S=4,096) and falcon-mamba's (2, 2,048), each from a zero and a carried
-   state, S=1 and S=300 — each gradient within 1e-5 of its largest
-   magnitude; the zero-state cases timed as the forward's.
+   largest |logit|.  zamba2's prefill runs the scan's SSD kernel (Mamba-2,
+   the chunked matrix form on the tensor cores), its decode and every
+   falcon-mamba call the step kernel: the launches are counted by kernel
+   and the phase fails on any other route.  Last of the whole run, after
+   the profiles below (``scan_phase``), the scan's kernels against the
+   plain loop at the layers' shapes — zamba2's (B=8, S=2,048, d_inner
+   4,096, state 64, 64 heads) from a zero and a carried state and its
+   train microbatch (2, 4,096), falcon-mamba's (8, 2,048, 8,192, 16) and
+   its served (2, 2,048), each model's decode step (S=1) and S=300 (no
+   multiple of the chunk) — within 1e-5 of the largest |y| and |h_last|,
+   each entry's route (SSD or step) printed and every zamba2 entry with S
+   > 1 on the SSD route, else the phase fails: events and CUPTI ms, the
+   plain version's ms (the SSD entries': their chunked plain version's,
+   and the loop's beside it), the bound (bytes at 3.35 TB/s, exps at the
+   special-function units' rate or the SSD form's products, each once, at
+   495 TFLOP/s TF32, the largest; the SSD kernels' three-pass products at
+   that rate beside it, as the design's floor).  Then the backward kernels
+   against the plain backward at both models' layer widths — zamba2's train
+   microbatch (B=2, S=4,096) and falcon-mamba's (2, 2,048), each from a
+   zero and a carried state, S=1 and S=300 — each gradient within 1e-5 of
+   its largest magnitude, two runs of zamba2's (2, 4,096) bit-equal; the
+   zero-state cases timed as the forward's.
    Train phase (``repro_torch.train``, ``ckpt``, ``distributed``,
    ``launch/train.py``; ``train_phase``), after the models are freed: (a)
    one ``make_train_step`` step (2 microbatches) of each architecture's
@@ -213,9 +222,10 @@ not printed):
    way, 12 steps (the SSM phase's model): step ms (median of steps 3-12),
    tokens a second, peak memory, losses; fails on a non-finite loss, unless
    the mean of the last 3 losses is >= 0.3 below the first, unless the
-   scan's backward kernel launched once a Mamba layer a microbatch in every
-   step, or if an op of the scan's plain versions ran on the card (counted
-   over step 2).  (c) ``FaultTolerantLoop`` over ``custom_dense_config(100)``
+   scan's SSD backward kernel launched once a Mamba layer a microbatch in
+   every step and its SSD forward at least that often, if a step kernel of
+   the scan launched (counted over step 2), or if an op of the scan's
+   plain versions ran on the card (step 2).  (c) ``FaultTolerantLoop`` over ``custom_dense_config(100)``
    (d 704, 11 layers), checkpoints every 5 steps (async) under
    ``chiprun_out/train_ckpt`` (removed after), a NaN written into ``ln_f``
    before step 7: fails unless the run ends at step 15 with exactly one
@@ -3352,6 +3362,10 @@ SCAN_TOL = 1e-5                  # kernel vs plain, of max|y| (max|h_last|)
 # exp results a second: 16 a clock an SM on compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput), 132 SMs, 1.98 GHz
 SFU_PER_S = 16 * 132 * 1.98e9
+TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32, tensor cores
+# the scan's kernels by route: (forward, backward) counters
+SCAN_KERNELS = {"step": ("selective_scan", "selective_scan_bwd"),
+                "ssd": ("selective_scan_ssd", "selective_scan_ssd_bwd")}
 
 
 def ssm_serve(torch, dev, arch: str, requests: int, steps: int, tf: bool,
@@ -3382,16 +3396,29 @@ def ssm_serve(torch, dev, arch: str, requests: int, steps: int, tf: bool,
                          generator=torch.Generator(device=dev).manual_seed(
                              seed + 1), device=dev)
     n_ssm = sum(k in ("mamba1", "mamba2") for k in cfg.block_pattern())
+    # the prefill's route: Mamba-2's (SSD where ssd_route takes its head and
+    # state widths), Mamba-1 the step kernel
+    from repro_torch.kernels.selective_scan import ssd_route
+    from repro_torch.models.ssm import MAMBA2_HEAD_DIM
+    mamba2 = "mamba2" in cfg.block_pattern()
+    prefill_kernel = SCAN_KERNELS[
+        "ssd" if mamba2 and ssd_route(SSM_SEG, MAMBA2_HEAD_DIM,
+                                      cfg.ssm_state)
+        else "step"][0]
+
+    def scan_counts():
+        return {k: loader.MODEL_LAUNCHES[k] for k in
+                (SCAN_KERNELS["step"][0], SCAN_KERNELS["ssd"][0])}
 
     def serve(m):
-        """``_greedy`` over ``m``, and the scan's launch count at the end of
-        the prefill."""
+        """``_greedy`` over ``m``, and the scan's launch counts at the end
+        of the prefill."""
         at_prefill = []
 
         def prefill():
             out = m.prefill_chunked({"tokens": toks}, seg_len=SSM_SEG,
                                     max_len=SSM_PROMPT + steps + 1)
-            at_prefill.append(loader.MODEL_LAUNCHES["selective_scan"])
+            at_prefill.append(scan_counts())
             return out
 
         return (*_greedy(torch, prefill, m.decode_step, steps), at_prefill[0])
@@ -3400,7 +3427,7 @@ def ssm_serve(torch, dev, arch: str, requests: int, steps: int, tf: bool,
     torch.cuda.reset_peak_memory_stats()
     loader.reset_launch_counts()
     prefill_s, step_s, _, logits, cache, n_prefill = serve(model)
-    n_all = loader.MODEL_LAUNCHES["selective_scan"]
+    n_all = scan_counts()
     med = _median(step_s)
     finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
     rec.update(
@@ -3410,9 +3437,12 @@ def ssm_serve(torch, dev, arch: str, requests: int, steps: int, tf: bool,
         decode_tokens_per_s=requests / med, cache_bytes=cache.nbytes(),
         peak_bytes=torch.cuda.max_memory_allocated(), finite=finite,
         ssm_layers=n_ssm,
-        launches={"prefill": n_prefill, "decode": n_all - n_prefill,
-                  "want_prefill": n_ssm * SSM_PROMPT // SSM_SEG,
-                  "want_decode": n_ssm * steps})
+        launches={"prefill": {k: v for k, v in n_prefill.items() if v},
+                  "decode": {k: n_all[k] - v for k, v in n_prefill.items()
+                             if n_all[k] - v},
+                  "want_prefill": {prefill_kernel:
+                                   n_ssm * SSM_PROMPT // SSM_SEG},
+                  "want_decode": {SCAN_KERNELS["step"][0]: n_ssm * steps}})
     del cache, logits
     log(f"{cfg.name} ({rec['params']:,} parameters, {rec['param_bytes']:,} "
         f"bytes, {cfg.dtype}, weights drawn in {rec['init_s']:.2f} s): "
@@ -3423,7 +3453,7 @@ def ssm_serve(torch, dev, arch: str, requests: int, steps: int, tf: bool,
         f"decode_ms_median={rec['decode_ms_median']:.3f} "
         f"decode_tokens_per_s={rec['decode_tokens_per_s']:.1f} "
         f"cache_bytes={rec['cache_bytes']:,} "
-        f"peak_bytes={rec['peak_bytes']:,}; selective_scan launches "
+        f"peak_bytes={rec['peak_bytes']:,}; the scan's launches by kernel "
         f"{json.dumps(rec['launches'])}; finite {finite}")
     if tf:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3485,104 +3515,215 @@ def _scan_inputs(torch, dev, g, bsz: int, s: int, di: int, ds: int,
     return [dt, a, x, b, c, h0]
 
 
-def scan_entry(torch, label: str, args: list, flush) -> dict:
-    """The scan kernel against its plain version on ``args`` (Mamba-2's
-    entry when ``a`` is per head): max errors of y and h_last against
-    SCAN_TOL of their largest magnitudes, then events and CUPTI ms of the
-    kernel (30 launches), the plain version's ms (3 calls: a call is
-    thousands of ops) and the bound: the larger of the bytes (each input
-    and output once) at HBM_BYTES_PER_S and the exps (B S di ds, Mamba-2's
-    B S nh) at SFU_PER_S."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.selective_scan import (
-        selective_scan_heads_plain, selective_scan_plain)
+def _ssd_flops(bsz: int, s: int, nh: int, hd: int, ds: int, bwd: bool,
+               kernel: bool = False) -> float:
+    """The flops of the scan's SSD form on these shapes, each product once:
+    per 64-step chunk and batch row, G = C B^T once for all the heads and,
+    a head, the forward's (G o E) U over the causal half and two state
+    products, the backward's two state passes, three state products and
+    four causal ones.  With ``kernel``, the work of
+    ``csrc/selective_scan_ssd.cu`` instead: its backward forms G once per 8
+    heads, and every product runs as three TF32 passes."""
+    from repro_torch.kernels.selective_scan import SSD_CHUNK as q
 
-    dt, a, x = args[:3]
+    nc = -(-s // q)
+    state, causal, g = q * hd * ds, q * (q + 1) // 2, q * q * ds
+    if bwd:
+        grams = -(-nh // 8) if kernel else 1
+        macs = bsz * nc * (nh * (5 * state + 2 * causal * (hd + ds))
+                           + grams * g)
+    else:
+        macs = bsz * nc * (g + nh * (causal * hd + 2 * state))
+    return 2 * (3 if kernel else 1) * macs
+
+
+def _scan_route(args: list, bwd: bool = False) -> str:
+    """The kernel route a call on ``args`` (a backward's with ``bwd``)
+    takes: "ssd" for the Mamba-2 shapes ``ssd_route`` takes, else
+    "step"."""
+    from repro_torch.kernels.selective_scan import ssd_route
+
+    a, x, b = args[1], args[2], args[3]
+    bsz, s, di = x.shape
+    return ("ssd" if a.dim() == 1 and ssd_route(
+        s, di // a.shape[0], b.shape[-1], bwd=bwd) else "step")
+
+
+def _scan_case(torch, dev, seed: int, k: int, case: tuple,
+               bwd: bool) -> list:
+    """Case ``k``'s inputs (dt, a, x, b, c, h0; a backward case's with the
+    cotangents gy and gh_last, N(0, 1)), from a generator of its own: the
+    same draws on every call."""
+    _, bsz, s, shape, carried = case[:5]
+    g = torch.Generator(device=dev).manual_seed(seed * 1000 + k)
+    args = _scan_inputs(torch, dev, g, bsz, s, carried=carried, **shape)
+    if bwd:
+        args += [torch.randn(args[2].shape, generator=g, device=dev),
+                 torch.randn(args[5].shape, generator=g, device=dev)]
+    return args
+
+
+# the backward's kernels, by route (the SSD call's three launches)
+SCAN_BWD_SYMBOLS = {
+    "step": ("selective_scan_bwd_kernel", "selective_scan_bwd_reduce"),
+    "ssd": ("ssd_state_walks", "ssd_chunk_grads", "ssd_grads_reduce")}
+
+
+def scan_time(torch, args: list, bwd: bool, flush) -> dict:
+    """Events and CUPTI ms of the scan's kernel (its backward with ``bwd``;
+    ``args`` then ends with the cotangents) on ``args``, 30 calls as
+    ``_time_ms`` times them: CUPTI over the route's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+
+    heads = args[1].dim() == 1
+    route = _scan_route(args, bwd)
+    if bwd:
+        op = ss.scan_heads_bwd_op if heads else ss.scan_bwd_op
+        ms, cupti = _time_ms(torch, lambda: op(*args, SSM_CHUNK), flush,
+                             SCAN_BWD_SYMBOLS[route])
+    else:
+        op = ops.selective_scan_heads if heads else ops.selective_scan
+        ms, cupti = _time_ms(
+            torch, lambda: op(*args, SSM_CHUNK), flush,
+            ("ssd_gram", "ssd_chunk_scan") if route == "ssd"
+            else "selective_scan_kernel")
+    return {"ms": ms, "cupti_ms": cupti}
+
+
+def _scan_bounds(args: list, route: str, bwd: bool) -> dict:
+    """The bound of the scan (its backward) on ``args``: the largest of the
+    bytes (each input, output, cotangent and gradient once) at
+    HBM_BYTES_PER_S, the exps (B S di ds, Mamba-2's B S nh) at SFU_PER_S
+    and, on the SSD route, the SSD form's flops (``_ssd_flops``, each
+    product once) at TF32_FLOP_PER_S; beside it ``mma_ms``, the SSD
+    kernels' own three-pass products at that rate (the design's floor, not
+    the function's)."""
+    dt, a, x, b = args[:4]
     heads = a.dim() == 1
+    bsz, s, di = x.shape
+    ds = b.shape[-1]
+    nh = a.shape[0] if heads else None
+    ins = args[:6]
+    if bwd:
+        nbytes = 4 * (2 * sum(t.numel() for t in ins)
+                      + sum(t.numel() for t in args[6:]))
+    else:
+        nbytes = 4 * (sum(t.numel() for t in ins) + bsz * s * di
+                      + bsz * di * ds)
+    exps = bsz * s * (nh if heads else di * ds)
+    ssd = route == "ssd"
+    flops = _ssd_flops(bsz, s, nh, di // nh, ds, bwd) if ssd else 0
+    mma = (_ssd_flops(bsz, s, nh, di // nh, ds, bwd, kernel=True) if ssd
+           else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exps = exps / SFU_PER_S * 1e3
+    t_ops = flops / TF32_FLOP_PER_S * 1e3
+    bound = max(t_bytes, t_exps, t_ops)
+    return {"bytes": nbytes, "exps": exps, "flops": flops,
+            "kernel_flops": mma, "bytes_ms": t_bytes, "exps_ms": t_exps,
+            "ops_ms": t_ops, "mma_ms": mma / TF32_FLOP_PER_S * 1e3,
+            "bound_ms": bound,
+            "bound_by": "bytes" if bound == t_bytes else "operations"}
+
+
+def scan_entry(torch, label: str, args: list, flush, timing: dict,
+               want_route: str) -> dict:
+    """The scan kernel against the plain loop on ``args`` (Mamba-2's entry
+    when ``a`` is per head; the SSD kernel where ``ssd_route`` takes the
+    shape, else the step kernel): max errors of y and h_last against
+    SCAN_TOL of their largest magnitudes; ``timing`` (``scan_time``'s),
+    the plain version's ms (3 calls: the SSD kernel's chunked plain
+    version, beside the loop's) and the bound (``_scan_bounds``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+
+    heads = args[1].dim() == 1
+    bsz, s, di = args[2].shape
+    ds = args[3].shape[-1]
+    nh = args[1].shape[0] if heads else None
+    route = _scan_route(args)
     kernel = ops.selective_scan_heads if heads else ops.selective_scan
-    plain = selective_scan_heads_plain if heads else selective_scan_plain
+    loop = (ss.selective_scan_heads_plain if heads
+            else ss.selective_scan_plain)
     got = kernel(*args, SSM_CHUNK)
-    want = plain(*args, SSM_CHUNK)
+    want = loop(*args, SSM_CHUNK)
     torch.cuda.synchronize()
     errs = [float((g_ - w).abs().max()) for g_, w in zip(got, want)]
     scales = [float(w.abs().max()) for w in want]
     ok = (all(bool(torch.isfinite(g_).all()) for g_ in got)
           and all(e <= SCAN_TOL * sc for e, sc in zip(errs, scales)))
+    rec = {}
+    if route == "ssd":
+        blue = ss.selective_scan_ssd_plain(*args)
+        rec["ssd_plain_err_of_scale"] = max(
+            float((p - w).abs().max()) / sc
+            for p, w, sc in zip(blue, want, scales))
+        del blue
     del got, want
-    bsz, s, di = x.shape
-    ds = args[3].shape[-1]
-    nbytes = 4 * (sum(t.numel() for t in args) + bsz * s * di + bsz * di * ds)
-    exps = bsz * s * (a.shape[0] if heads else di * ds)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_exps = exps / SFU_PER_S * 1e3
-    ms, cupti_ms = _time_ms(torch, lambda: kernel(*args, SSM_CHUNK), flush,
-                            "selective_scan_kernel")
-    plain_ms = _time_ms(torch, lambda: plain(*args, SSM_CHUNK), flush,
-                        reps=3, warmup=1)
-    return {"entry": label, "shape": {"B": bsz, "S": s, "di": di, "ds": ds,
-                                      "nh": a.shape[0] if heads else None},
-            "max_abs_err": max(errs), "y_err": errs[0], "h_err": errs[1],
-            "y_scale": scales[0], "h_scale": scales[1], "tol": SCAN_TOL,
-            "ok": ok, "ms": ms, "cupti_ms": cupti_ms, "plain_ms": plain_ms,
-            "bytes": nbytes, "exps": exps, "bytes_ms": t_bytes,
-            "exps_ms": t_exps, "bound_ms": max(t_bytes, t_exps),
-            "bound_by": "bytes" if t_bytes >= t_exps else "operations",
-            "library_ms": None}
+    loop_ms = _time_ms(torch, lambda: loop(*args, SSM_CHUNK), flush,
+                       reps=3, warmup=1)
+    plain_ms = loop_ms if route == "step" else _time_ms(
+        torch, lambda: ss.selective_scan_ssd_plain(*args), flush, reps=3,
+        warmup=1)
+    rec.update({
+        "entry": label, "route": route, "want_route": want_route,
+        "kernel": SCAN_KERNELS[route][0],
+        "shape": {"B": bsz, "S": s, "di": di, "ds": ds, "nh": nh},
+        "max_abs_err": max(errs), "y_err": errs[0], "h_err": errs[1],
+        "y_scale": scales[0], "h_scale": scales[1], "tol": SCAN_TOL,
+        "ok": ok, **timing, "plain_ms": plain_ms, "loop_ms": loop_ms,
+        **_scan_bounds(args, route, False), "library_ms": None})
+    return rec
 
 
-def scan_bwd_entry(torch, label: str, args: list, g, flush,
-                   timed: bool) -> dict:
-    """The backward kernel against the plain backward on ``args`` and
-    cotangents of y and h_last drawn N(0, 1) from ``g``: each gradient's
-    max error against SCAN_TOL of its largest magnitude; with ``timed``,
-    events and CUPTI ms of the kernel (30 launches: the main kernel and the
-    ordered sums), the plain backward's ms (one call) and the bound: the
-    larger of the bytes (each input, cotangent and gradient once) at
-    HBM_BYTES_PER_S and the exps (B S di ds, Mamba-2's B S nh) at
-    SFU_PER_S."""
+def scan_bwd_entry(torch, label: str, args: list, flush, want_route: str,
+                   timing: dict = None) -> dict:
+    """The backward kernel (SSD or step, as ``scan_entry``) against the
+    plain loop's backward on ``args`` (the inputs and the cotangents of y
+    and h_last): each gradient's max error against SCAN_TOL of its largest
+    magnitude, and whether a second run gives the same bits; with
+    ``timing`` (``scan_time``'s), the plain backward's ms (one call: the
+    SSD's chunked plain version, beside the loop's) and the bound
+    (``_scan_bounds``)."""
     from repro_torch.kernels import selective_scan as ss
 
-    dt, a, x, b, c, h0 = args
-    heads = a.dim() == 1
+    heads = args[1].dim() == 1
+    bsz, s, di = args[2].shape
+    ds = args[3].shape[-1]
+    nh = args[1].shape[0] if heads else None
+    route = _scan_route(args, bwd=True)
     kernel = ss.scan_heads_bwd_op if heads else ss.scan_bwd_op
-    plain = (ss.selective_scan_heads_bwd_plain if heads
-             else ss.selective_scan_bwd_plain)
-    gy = torch.randn(x.shape, generator=g, device=x.device)
-    gh = torch.randn(h0.shape, generator=g, device=x.device)
-    ins = [*args, gy, gh, SSM_CHUNK]
+    loop = (ss.selective_scan_heads_bwd_plain if heads
+            else ss.selective_scan_bwd_plain)
+    ins = [*args, SSM_CHUNK]
     got = kernel(*ins)
-    want = plain(*ins)
+    again = kernel(*ins)
+    want = loop(*ins)
     torch.cuda.synchronize()
     names = ("dt", "a", "x", "b", "c", "h0")
     errs = {n: float((p - q).abs().max()) for n, p, q in zip(names, got, want)}
     scales = {n: float(q.abs().max()) for n, q in zip(names, want)}
     ok = (all(bool(torch.isfinite(p).all()) for p in got)
           and all(errs[n] <= SCAN_TOL * scales[n] for n in names))
-    del got, want
-    bsz, s, di = x.shape
-    ds = b.shape[-1]
-    rec = {"entry": label, "shape": {"B": bsz, "S": s, "di": di, "ds": ds,
-                                     "nh": a.shape[0] if heads else None},
+    bit_equal = all(torch.equal(p, q) for p, q in zip(got, again))
+    del got, again, want
+    rec = {"entry": label, "route": route, "want_route": want_route,
+           "kernel": SCAN_KERNELS[route][1],
+           "shape": {"B": bsz, "S": s, "di": di, "ds": ds, "nh": nh},
            "errs": errs, "scales": scales, "tol": SCAN_TOL, "ok": ok,
-           "max_abs_err": max(errs.values()),
+           "bit_equal": bit_equal, "max_abs_err": max(errs.values()),
            "max_err_of_scale": max(errs[n] / max(scales[n], 1e-30)
                                    for n in names)}
-    if not timed:
+    if timing is None:
         return rec
-    nbytes = 4 * (2 * sum(t.numel() for t in args) + gy.numel() + gh.numel())
-    exps = bsz * s * (a.shape[0] if heads else di * ds)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_exps = exps / SFU_PER_S * 1e3
-    ms, cupti_ms = _time_ms(
-        torch, lambda: kernel(*ins), flush,
-        ("selective_scan_bwd_kernel", "selective_scan_bwd_reduce"))
     # one call: seconds at the train microbatch, warm from the check above
-    plain_ms = _time_ms(torch, lambda: plain(*ins), flush, reps=1, warmup=0)
-    rec.update(ms=ms, cupti_ms=cupti_ms, plain_ms=plain_ms, bytes=nbytes,
-               exps=exps, bytes_ms=t_bytes, exps_ms=t_exps,
-               bound_ms=max(t_bytes, t_exps),
-               bound_by="bytes" if t_bytes >= t_exps else "operations",
-               library_ms=None)
+    loop_ms = _time_ms(torch, lambda: loop(*ins), flush, reps=1, warmup=0)
+    plain_ms = loop_ms if route == "step" else _time_ms(
+        torch, lambda: ss.selective_scan_ssd_bwd_plain(*args), flush,
+        reps=1, warmup=1)
+    rec.update(**timing, plain_ms=plain_ms, loop_ms=loop_ms,
+               **_scan_bounds(args, route, True), library_ms=None)
     return rec
 
 
@@ -3595,105 +3736,154 @@ def ssm_phase(torch, dev, seed: int, log) -> dict:
 
 
 def scan_phase(torch, dev, seed: int, serve: dict, log) -> dict:
-    """The scan kernel against its plain version at the SSM models' layer
+    """The scan's kernels against the plain loop at the SSM models' layer
     shapes (``scan_entry``): zamba2's (8, 2048, 4096, 64, 64 heads) from a
-    zero and a carried state, falcon-mamba's (8, 2048, 8192, 16) and its
-    served (2, 2048, ...), each model's decode step (S = 1, its requests)
-    and a ragged S = SSM_RAGGED.  Then the backward kernel against the
-    plain backward (``scan_bwd_entry``) at both models' layer widths: the
-    train microbatch's (2, 4096) for zamba2 (the plain loop's autograd
-    holds ~17 GB there) and falcon-mamba's (2, 2048), each from a zero and
-    a carried state, S = 1 and S = SSM_RAGGED; the two zero-state cases
-    timed.  Runs after every other profiled measurement: the plain loops
-    launch ~10^4 kernels a call, and the profiler has dropped records of
-    the sessions that follow such work (PERF.md).  Returns {"entries",
-    "bwd_entries", "kernel" and "bwd_kernel": the kernels line's records,
-    the forward's launches from ``serve``, ``ssm_phase``'s record}."""
-    g = torch.Generator(device=dev).manual_seed(seed)
+    zero and a carried state and its train microbatch's (2, 4096),
+    falcon-mamba's (8, 2048, 8192, 16) and its served (2, 2048, ...), each
+    model's decode step (S = 1, its requests) and a ragged S = SSM_RAGGED.
+    Then the backward kernels against the plain backward
+    (``scan_bwd_entry``) at both models' layer widths: the train
+    microbatch's (2, 4096) for zamba2 (the plain loop's autograd holds ~17
+    GB there) and falcon-mamba's (2, 2048), each from a zero and a carried
+    state, S = 1 and S = SSM_RAGGED; the two zero-state cases timed.
+    Each case names the route it must take (zamba2's calls with S > 1 the
+    SSD kernels, the others the step kernels).  Every timed kernel runs first (``scan_time``), before any
+    plain loop: the loops launch ~10^4-10^5 kernels a call, and the
+    profiler has dropped records of the sessions that follow such work
+    (PERF.md); the whole phase runs after every other profiled
+    measurement for the same reason.  Returns {"entries", "bwd_entries",
+    "scan_kernels": the kernels line's four records, their launches set by
+    main()}."""
     flush = _Flush(torch, dev)
     z = dict(di=4096, ds=64, nh=64)
     f = dict(di=8192, ds=16)
+    # (label, B, S, widths, carried state, the route it must take[, timed])
     cases = (("zamba2 (8, 2048), zero state (the prefill's)", 8, 2048, z,
-              False),
-             ("zamba2 (8, 2048), carried state", 8, 2048, z, True),
-             ("zamba2 decode (8, 1)", 8, 1, z, True),
-             (f"zamba2 ragged (8, {SSM_RAGGED})", 8, SSM_RAGGED, z, True),
-             ("falcon-mamba (8, 2048), zero state", 8, 2048, f, False),
+              False, "ssd"),
+             ("zamba2 (8, 2048), carried state", 8, 2048, z, True, "ssd"),
+             ("zamba2 (2, 4096), zero state (the train microbatch's)", 2,
+              4096, z, False, "ssd"),
+             ("zamba2 decode (8, 1)", 8, 1, z, True, "step"),
+             (f"zamba2 ragged (8, {SSM_RAGGED})", 8, SSM_RAGGED, z, True,
+              "ssd"),
+             ("falcon-mamba (8, 2048), zero state", 8, 2048, f, False,
+              "step"),
              ("falcon-mamba (2, 2048), zero state (the prefill's)", 2, 2048,
-              f, False),
-             ("falcon-mamba decode (2, 1)", 2, 1, f, True),
+              f, False, "step"),
+             ("falcon-mamba decode (2, 1)", 2, 1, f, True, "step"),
              (f"falcon-mamba ragged (8, {SSM_RAGGED})", 8, SSM_RAGGED, f,
-              True))
-    entries = []
-    for label, bsz, s, shape, carried in cases:
-        args = _scan_inputs(torch, dev, g, bsz, s, carried=carried, **shape)
-        entries.append(scan_entry(torch, label, args, flush))
-        del args
-        e = entries[-1]
-        log(f"kernel selective_scan [{label}]: y err {e['y_err']:.3g} of "
-            f"{e['y_scale']:.3g}, h err {e['h_err']:.3g} of "
-            f"{e['h_scale']:.3g} (tol {SCAN_TOL} x) ok={e['ok']} "
-            f"ms={e['ms']:.4f} cupti_ms={e['cupti_ms']:.4f} "
-            f"plain_ms={e['plain_ms']:.2f} bound_ms={e['bound_ms']:.5f} "
-            f"({e['bound_by']}: bytes {e['bytes_ms']:.5f}, exps "
-            f"{e['exps_ms']:.5f}) library_ms=None")
-    torch.cuda.empty_cache()
-    bwd = []
+              True, "step"))
     bwd_cases = (
         ("zamba2 (2, 4096), zero state (the train microbatch's)", 2, 4096,
-         z, False, True),
-        ("zamba2 (2, 4096), carried state", 2, 4096, z, True, False),
-        ("zamba2 (2, 1)", 2, 1, z, True, False),
-        (f"zamba2 ragged (2, {SSM_RAGGED})", 2, SSM_RAGGED, z, True, False),
-        ("falcon-mamba (2, 2048), zero state", 2, 2048, f, False, True),
-        ("falcon-mamba (2, 2048), carried state", 2, 2048, f, True, False),
-        ("falcon-mamba (2, 1)", 2, 1, f, True, False),
+         z, False, "ssd", True),
+        ("zamba2 (2, 4096), carried state", 2, 4096, z, True, "ssd", False),
+        ("zamba2 (2, 1)", 2, 1, z, True, "step", False),
+        (f"zamba2 ragged (2, {SSM_RAGGED})", 2, SSM_RAGGED, z, True, "ssd",
+         False),
+        ("falcon-mamba (2, 2048), zero state", 2, 2048, f, False, "step",
+         True),
+        ("falcon-mamba (2, 2048), carried state", 2, 2048, f, True, "step",
+         False),
+        ("falcon-mamba (2, 1)", 2, 1, f, True, "step", False),
         (f"falcon-mamba ragged (2, {SSM_RAGGED})", 2, SSM_RAGGED, f, True,
-         False))
-    for label, bsz, s, shape, carried, timed in bwd_cases:
-        args = _scan_inputs(torch, dev, g, bsz, s, carried=carried, **shape)
-        bwd.append(scan_bwd_entry(torch, label, args, g, flush, timed))
+         "step", False))
+    n_fwd = len(cases)
+    fwd_time, bwd_time = [], {}
+    for k, case in enumerate(cases):                 # the kernels, timed
+        args = _scan_case(torch, dev, seed, k, case, False)
+        fwd_time.append(scan_time(torch, args, False, flush))
+        del args
+    for k, case in enumerate(bwd_cases):
+        if case[6]:
+            args = _scan_case(torch, dev, seed, n_fwd + k, case, True)
+            bwd_time[k] = scan_time(torch, args, True, flush)
+            del args
+    torch.cuda.empty_cache()
+    entries = []
+    for k, case in enumerate(cases):                 # against the plain
+        label = case[0]
+        args = _scan_case(torch, dev, seed, k, case, False)
+        entries.append(scan_entry(torch, label, args, flush, fwd_time[k],
+                                  case[5]))
+        del args
+        torch.cuda.empty_cache()
+        e = entries[-1]
+        log(f"kernel {e['kernel']} [{label}] ({e['route']}): y err "
+            f"{e['y_err']:.3g} of {e['y_scale']:.3g}, h err "
+            f"{e['h_err']:.3g} of {e['h_scale']:.3g} (tol {SCAN_TOL} x) "
+            f"ok={e['ok']} ms={e['ms']:.4f} cupti_ms={e['cupti_ms']:.4f} "
+            f"plain_ms={e['plain_ms']:.2f} loop_ms={e['loop_ms']:.2f} "
+            f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']}: bytes "
+            f"{e['bytes_ms']:.5f}, exps {e['exps_ms']:.5f}, tf32 "
+            f"{e['ops_ms']:.5f}; three-pass mma {e['mma_ms']:.5f}) "
+            f"library_ms=None" + (
+                f"; the chunked plain version's err "
+                f"{e['ssd_plain_err_of_scale']:.3g} of max"
+                if "ssd_plain_err_of_scale" in e else ""))
+    bwd = []
+    for k, case in enumerate(bwd_cases):
+        label = case[0]
+        args = _scan_case(torch, dev, seed, n_fwd + k, case, True)
+        bwd.append(scan_bwd_entry(torch, label, args, flush, case[5],
+                                  bwd_time.get(k)))
         del args
         torch.cuda.empty_cache()
         e = bwd[-1]
-        log(f"kernel selective_scan_bwd [{label}]: worst gradient err "
-            f"{e['max_err_of_scale']:.3g} of its max |g| (tol {SCAN_TOL}; "
-            f"{json.dumps({k: round(v, 9) for k, v in e['errs'].items()})}) "
-            f"ok={e['ok']}" + (
+        log(f"kernel {e['kernel']} [{label}] ({e['route']}): worst gradient "
+            f"err {e['max_err_of_scale']:.3g} of its max |g| (tol "
+            f"{SCAN_TOL}; "
+            f"{json.dumps({k_: round(v, 9) for k_, v in e['errs'].items()})}"
+            f") ok={e['ok']} bit-equal reruns {e['bit_equal']}" + (
                 f" ms={e['ms']:.4f} cupti_ms={e['cupti_ms']:.4f} "
-                f"plain_ms={e['plain_ms']:.2f} bound_ms={e['bound_ms']:.5f} "
-                f"({e['bound_by']}: bytes {e['bytes_ms']:.5f}, exps "
-                f"{e['exps_ms']:.5f}) library_ms=None" if "ms" in e else ""))
-    main = entries[0]
-    launches = {arch: r["launches"]["prefill"] + r["launches"]["decode"]
-                for arch, r in serve.items()}
-    rec = {"entries": entries, "bwd_entries": bwd}
-    bmain = bwd[0]
-    rec["bwd_kernel"] = {
-        "name": "selective_scan_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
-        "replaces": "src/repro/models/ssm.py:70",
-        "replaces_what": "the JAX gradient of selective_scan (no TPU "
-                         "kernel)",
-        "launches": None,             # the train run's, set by main()
-        **{k: bmain[k] for k in ("max_abs_err", "ms", "cupti_ms",
-                                 "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")},
-        "max_err_of_scale": max(e["max_err_of_scale"] for e in bwd),
-        "main_entry": bmain["entry"],
-        "entries": [e for e in bwd if "ms" in e]}
-    rec["kernel"] = {
-        "name": "selective_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
-        "replaces": "src/repro/models/ssm.py:70",
-        "replaces_what": "selective_scan, which the reference computes "
-                         "outside Pallas (no TPU kernel)",
-        "launches": sum(launches.values()), "launches_by_path": launches,
-        **{k: main[k] for k in ("max_abs_err", "ms", "cupti_ms", "plain_ms",
-                                "bound_ms", "bound_by", "library_ms")},
-        "kernel_ms": main["ms"], "main_entry": main["entry"],
-        "entries": entries}
+                f"plain_ms={e['plain_ms']:.2f} loop_ms={e['loop_ms']:.2f} "
+                f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']}: bytes "
+                f"{e['bytes_ms']:.5f}, exps {e['exps_ms']:.5f}, tf32 "
+                f"{e['ops_ms']:.5f}; three-pass mma {e['mma_ms']:.5f}) "
+                f"library_ms=None" if "ms" in e else ""))
+
+    def record(name, source, what, main, group):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "src/repro/models/ssm.py:70",
+                "replaces_what": what, "launches": None,
+                **{k: main[k] for k in ("max_abs_err", "ms", "cupti_ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+                "main_entry": main["entry"],
+                "entries": [e for e in group if e["kernel"] == name]}
+
+    by_label = {e["entry"]: e for e in entries + bwd}
+    csrc = "src/repro_torch/kernels/csrc/"
+    fwd_what = ("selective_scan, which the reference computes outside "
+                "Pallas (no TPU kernel)")
+    bwd_what = "the JAX gradient of selective_scan (no TPU kernel)"
+    rec = {"entries": entries, "bwd_entries": bwd, "scan_kernels": [
+        record("selective_scan", csrc + "selective_scan.cu",
+               fwd_what + "; Mamba-1, and Mamba-2's decode",
+               by_label["falcon-mamba (2, 2048), zero state (the "
+                        "prefill's)"], entries),
+        record("selective_scan_bwd", csrc + "selective_scan_bwd.cu",
+               bwd_what + "; Mamba-1",
+               by_label["falcon-mamba (2, 2048), zero state"], bwd),
+        record("selective_scan_ssd", csrc + "selective_scan_ssd.cu",
+               fwd_what + "; Mamba-2 in its chunked matrix form",
+               by_label["zamba2 (8, 2048), zero state (the prefill's)"],
+               entries),
+        record("selective_scan_ssd_bwd", csrc + "selective_scan_ssd.cu",
+               bwd_what + "; Mamba-2 in its chunked matrix form",
+               by_label["zamba2 (2, 4096), zero state (the train "
+                        "microbatch's)"], bwd)]}
+    for k in rec["scan_kernels"]:
+        k["max_err_of_scale"] = max(_err_of_scale(e) for e in k["entries"])
     return rec
+
+
+def _err_of_scale(e: dict) -> float:
+    """A scan entry's worst error over its output's (gradient's) largest
+    magnitude."""
+    if "max_err_of_scale" in e:
+        return e["max_err_of_scale"]
+    return max(e["y_err"] / max(e["y_scale"], 1e-30),
+               e["h_err"] / max(e["h_scale"], 1e-30))
 
 
 def ssm_failures(rec: dict) -> list:
@@ -3704,12 +3894,17 @@ def ssm_failures(rec: dict) -> list:
             fails.append(f"{arch}: non-finite logits")
         if (n["prefill"], n["decode"]) != (n["want_prefill"],
                                            n["want_decode"]):
-            fails.append(f"{arch}: selective_scan launched {n}, not once a "
-                         "mamba layer a segment and a decode step")
+            fails.append(f"{arch}: the scan launched {n}, not once a mamba "
+                         "layer a segment and a decode step on the asked "
+                         "kernel")
         tf = r.get("f32_teacher_forcing")
         if tf is not None and not tf["ok"]:
             fails.append(f"{arch} f32 decode vs teacher forcing: "
                          f"{tf['max_abs_err']:.3g} > {tf['bound']:.3g}")
+    for e in rec.get("entries", ()) + rec.get("bwd_entries", ()):
+        if e["route"] != e["want_route"]:
+            fails.append(f"scan [{e['entry']}]: ran the {e['route']} "
+                         f"kernel, not the {e['want_route']} one")
     for e in rec.get("entries", ()):
         if not e["ok"]:
             fails.append(f"selective_scan [{e['entry']}]: kernel vs plain y "
@@ -3717,6 +3912,9 @@ def ssm_failures(rec: dict) -> list:
                          f"{e['h_err']:.3g} of {e['h_scale']:.3g} beyond "
                          f"{SCAN_TOL} x (or not finite)")
     for e in rec.get("bwd_entries", ()):
+        if not e.get("bit_equal", True):
+            fails.append(f"selective_scan_bwd [{e['entry']}]: two runs "
+                         "differ")
         if not e["ok"]:
             fails.append(f"selective_scan_bwd [{e['entry']}]: kernel vs "
                          f"plain {json.dumps(e['errs'])} of "
@@ -3756,8 +3954,10 @@ def train_zoo(torch, dev, seed: int, log) -> dict:
     """Each architecture's smoke config in f32 (TF32 off): one set of
     weights and one batch, one ``make_train_step`` step with 2 microbatches
     on the card and on the CPU; the losses and the gradients the optimizer
-    is handed."""
+    is handed, and the scan's launches in the card's step (falcon-mamba's
+    smoke config the step kernels', zamba2's the SSD kernels')."""
     from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.kernels import loader
     from repro_torch.models.model import build_model
     from repro_torch.train.data import DataConfig, batch_for_step
     from repro_torch.train.loop import init_train_state, make_train_step
@@ -3788,13 +3988,17 @@ def train_zoo(torch, dev, seed: int, log) -> dict:
             object.__setattr__(opt, "seen", {})
             state, _ = init_train_state(model, opt)
             ts, _ = make_train_step(model, opt, microbatches=2)
+            loader.reset_launch_counts()
             _, m = ts(state, batch)
-            got[side] = (float(m["loss"]), opt.seen)
+            got[side] = (float(m["loss"]), opt.seen,
+                         {k: v for k, v in loader.MODEL_LAUNCHES.items()
+                          if v})
         tol = 1e-3 if cfg.family in ("ssm", "hybrid") else 1e-4
         ok, worst = _tree_close(got["card"][1], got["cpu"][1], tol)
         lerr = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
         out[arch] = {"loss_rel_err": lerr, "grad_err_of_max": worst,
-                     "grad_tol": tol, "ok": ok and lerr <= 1e-5}
+                     "grad_tol": tol, "ok": ok and lerr <= 1e-5,
+                     "scan_launches": got["card"][2]}
         del cpu, card
     errs = {k: [v["loss_rel_err"], v["grad_err_of_max"]]
             for k, v in out.items()}
@@ -3961,6 +4165,7 @@ def train_ssm(torch, dev, log) -> dict:
            "last3_mean": sum(losses[-3:]) / 3, "ssm_layers": n_ssm,
            "launches": launches, "launches_step2": probe["step2"],
            "want_bwd_a_step": n_ssm * TRAIN_MICROBATCHES,
+           "fwd_a_step": probe["step2"]["selective_scan_ssd"],
            "scan_ops_step2": watch.scan_ops,
            "plain_ops_on_card_step2": watch.plain_on_card}
     rec["drop"] = losses[0] - rec["last3_mean"]
@@ -3977,8 +4182,10 @@ def train_ssm(torch, dev, log) -> dict:
         f"last 3 {rec['last3_mean']:.4f} (drop {rec['drop']:.4f}, >= "
         f"{TRAIN_LOSS_DROP} asked); launches over the run "
         f"{json.dumps(launches)}, over step 2 {json.dumps(probe['step2'])} "
-        f"(backward: {rec['want_bwd_a_step']} asked, one a mamba layer a "
-        f"microbatch), scan ops over step 2 {json.dumps(watch.scan_ops)}, "
+        f"(SSD backward: {rec['want_bwd_a_step']} asked, one a mamba layer "
+        f"a microbatch; SSD forward {rec['fwd_a_step']} a step, the "
+        f"recompute of remat per block included; no step kernel), scan ops "
+        f"over step 2 {json.dumps(watch.scan_ops)}, "
         f"ops from the plain versions on the card {watch.plain_on_card}")
     return rec
 
@@ -4411,14 +4618,23 @@ def train_failures(rec: dict) -> list:
         fails.append(f"{ssm['config']}: the mean of the last 3 losses is "
                      f"{ssm['drop']:.4f} below the first, not "
                      f">= {TRAIN_LOSS_DROP}")
-    n_bwd = ssm["launches_step2"]["selective_scan_bwd"]
+    n_bwd = ssm["launches_step2"]["selective_scan_ssd_bwd"]
     if (n_bwd != ssm["want_bwd_a_step"]
-            or ssm["launches"]["selective_scan_bwd"]
+            or ssm["launches"]["selective_scan_ssd_bwd"]
             != ssm["want_bwd_a_step"] * TRAIN_SSM_STEPS):
-        fails.append(f"{ssm['config']}: the scan's backward launched "
+        fails.append(f"{ssm['config']}: the scan's SSD backward launched "
                      f"{n_bwd} times in step 2 and "
-                     f"{ssm['launches']['selective_scan_bwd']} in the run, "
-                     f"not {ssm['want_bwd_a_step']} a step")
+                     f"{ssm['launches']['selective_scan_ssd_bwd']} in the "
+                     f"run, not {ssm['want_bwd_a_step']} a step")
+    if ssm["fwd_a_step"] < ssm["want_bwd_a_step"]:
+        fails.append(f"{ssm['config']}: the scan's SSD forward launched "
+                     f"{ssm['fwd_a_step']} times in step 2, under one a "
+                     "mamba layer a microbatch")
+    step_route = {k: ssm["launches_step2"][k] for k in SCAN_KERNELS["step"]
+                  if ssm["launches_step2"][k]}
+    if step_route:
+        fails.append(f"{ssm['config']}: the scan's step kernels launched in "
+                     f"step 2: {step_route}")
     if ssm["plain_ops_on_card_step2"]:
         fails.append(f"{ssm['config']}: {ssm['plain_ops_on_card_step2']} "
                      "ops of the scan's plain versions ran on the card")
@@ -4834,13 +5050,19 @@ def main(argv=None) -> int:
         f"{json.dumps(cont['profile'])}")
     mark("cross_device_and_profiles")
     ssm.update(scan_phase(torch, dev, args.seed, ssm["serve"], log))
-    kernels.append(ssm["kernel"])
-    # the backward's launches: the train run's (train_ssm)
-    ssm["bwd_kernel"].update(
-        launches=trained["ssm"]["launches"]["selective_scan_bwd"],
-        launches_by_path={"train_ssm": trained["ssm"]["launches"][
-            "selective_scan_bwd"]})
-    kernels.append(ssm["bwd_kernel"])
+    # the scan's launches by path: serving (ssm_serve's timed rounds), the
+    # zoo's train steps (train_zoo), zamba2-1.2B's training (train_ssm)
+    for rec in ssm["scan_kernels"]:
+        name = rec["name"]
+        by_path = {
+            "ssm_serve": sum(r["launches"][part].get(name, 0)
+                             for r in ssm["serve"].values()
+                             for part in ("prefill", "decode")),
+            "train_zoo": sum(v["scan_launches"].get(name, 0)
+                             for v in trained["zoo"].values()),
+            "train_ssm": trained["ssm"]["launches"][name]}
+        rec.update(launches=sum(by_path.values()), launches_by_path=by_path)
+        kernels.append(rec)
     mark("ssm_kernel")
     detail["phase_s"] = phase_s
     log(f"seconds by phase (the kernel build apart): {json.dumps(phase_s)}")
@@ -4928,6 +5150,10 @@ def main(argv=None) -> int:
     failures.extend(distributed_failures(distributed))
     failures.extend(model_failures(models))
     failures.extend(ssm_failures(ssm))
+    for rec in ssm["scan_kernels"]:
+        if rec["launches"] <= 0:
+            failures.append(f"{rec['name']} never launched on the SSM "
+                            f"paths: {rec['launches_by_path']}")
     failures.extend(train_failures(trained))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -111,8 +111,9 @@ def main() -> int:
         return {"ms": (time.perf_counter() - t) * 1e3,
                 "peak_bytes": torch.cuda.max_memory_allocated(),
                 "loss": loss,
-                "kernel_backward_launches":
-                    loader.MODEL_LAUNCHES["selective_scan_bwd"],
+                "kernel_backward_launches":     # either route's
+                    loader.MODEL_LAUNCHES["selective_scan_bwd"]
+                    + loader.MODEL_LAUNCHES["selective_scan_ssd_bwd"],
                 "loop_backward_calls": done[0]}
 
     runs = {"kernel": [], "loop": []}

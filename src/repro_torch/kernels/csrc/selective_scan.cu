@@ -34,10 +34,13 @@
 // for the tile.  A tile's loads go to registers, all issued before any is
 // used, so a tile waits for one memory latency, not one a step.  Then each
 // thread steps through the tile in order, storing y_t as it goes.  On the
-// H100 this runs at ~7x its bound at zamba2's shapes and ~2.4x at
-// falcon-mamba's (PERF.md): every warp reads each step's B and C from
-// shared memory, 2 * DS values a step, which may be what holds it (not
-// measured: no profiler counters on that machine).
+// H100 this runs at ~2.4x its bound at falcon-mamba's shapes (PERF.md):
+// every warp reads each step's B and C from shared memory, 2 * DS values a
+// step, which may be what holds it (not measured: no profiler counters on
+// that machine).  Mamba-2's calls with head and state widths multiples of 8
+// up to 64 and S > 1 (zamba2's prefill and training) run
+// selective_scan_ssd.cu instead; this entry keeps its decode step and the
+// other widths.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -26,7 +26,9 @@
 //
 // all float32.  Two entries, as the forward's: selective_scan_bwd_launch
 // with heads = 0 (Mamba-1: dt (B, S, DI), a (DI, DS)) or 1 (Mamba-2: dt
-// (B, S, NH), a (NH,), head width HD = DI / NH).
+// (B, S, NH), a (NH,), head width HD = DI / NH).  Mamba-2's calls that the
+// SSD kernels take (selective_scan_ssd.cu: widths multiples of 8 up to 64,
+// S >= 20, where they overtake this kernel) run there instead.
 //
 // Bound: the bytes (dt, x, gy read once, dx and ddt written once, the rest
 // small) at zamba2's shapes; at falcon-mamba's the B * S * DI * DS exps,

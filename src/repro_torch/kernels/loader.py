@@ -5,13 +5,14 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (every pointer and
 the stream as ``c_void_p``).  The libraries go into ``kernels/build/``, which
 ``.gitignore`` lists, named by a hash of their source, so a library is reused
-until its source changes.  The first use builds all six at once, one
+until its source changes.  The first use builds all seven at once, one
 ``nvcc`` process per source, started together.  A failed build raises with
 the compiler's output; nothing falls back.
 
 ``LAUNCHES`` counts the search's four kernels' launches (the Pallas
 kernels' ports) by kernel name, ``MODEL_LAUNCHES`` the models' (the SSM
-blocks' selective scan and its backward), which no search path runs, and
+blocks' selective scan and its backward: the step kernels and, apart, the
+Mamba-2 SSD kernels), which no search path runs, and
 ``ENTRY_LAUNCHES`` the same launches by C entry point (a kernel's entries:
 the bitonic kernel's sort and merge, for instance).  Each wrapper adds one where it
 launches its kernel and nowhere else; ``reset_launch_counts`` zeroes all
@@ -37,13 +38,14 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("pq_adt", "pq_lookup", "bitonic_topk", "l2_rerank",
-           "selective_scan", "selective_scan_bwd")
+           "selective_scan", "selective_scan_bwd", "selective_scan_ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {name: 0 for name in ("pq_adt", "pq_lookup", "bitonic_sort_pairs",
                                  "l2_rerank")}
-MODEL_LAUNCHES = {"selective_scan": 0, "selective_scan_bwd": 0}
+MODEL_LAUNCHES = {"selective_scan": 0, "selective_scan_bwd": 0,
+                  "selective_scan_ssd": 0, "selective_scan_ssd_bwd": 0}
 ENTRY_LAUNCHES: dict = {}
 BUILDS = {name: 0 for name in KERNELS}
 TIMING = None            # None, or [(kernel, entry, start, end)] (see above)

@@ -5,15 +5,18 @@ The scan runs in ``kernels.selective_scan``, one op a call
 (``ops.selective_scan`` for Mamba-1's per-channel decay,
 ``ops.selective_scan_heads`` for Mamba-2's per-head one): on the card the
 hand kernel of ``kernels/csrc/selective_scan.cu`` (a thread a channel, its
-state in registers, nothing of size (S, di, ds) in memory), on the CPU the
+state in registers, nothing of size (S, di, ds) in memory) or, for
+Mamba-2's prefill and training (head and state widths multiples of 8 up to
+64, S > 1), the chunked matrix (SSD) kernels of
+``kernels/csrc/selective_scan_ssd.cu`` on the tensor cores; on the CPU the
 plain version, which keeps the reference's chunking (the (chunk, di, ds)
 decay and input tensors built one chunk at a time) and steps through each
 chunk where the reference runs an associative scan; the two agree up to the
 reassociation of f32 products and sums.  Its gradient is one op too
 (``repro_torch::selective_scan_bwd`` / ``::selective_scan_heads_bwd``): on
 the card the backward kernel of ``kernels/csrc/selective_scan_bwd.cu`` (a
-reverse scan over states recomputed from stored chunk boundaries), on the
-CPU the plain version rerun under autograd.
+reverse scan over states recomputed from stored chunk boundaries) or, at
+S >= 20, the SSD backward, on the CPU the plain version rerun under autograd.
 
 Decode (S=1) reuses the same cell with the carried state: the SSM's "KV
 cache" is the O(1) (conv_state, ssm_state) pair.

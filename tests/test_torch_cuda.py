@@ -14,7 +14,9 @@ scan within 1e-5 of max |y| and of max |h_last| (its sum over the states
 fused into multiply-adds, ``expf`` within ulps of torch's; measured
 ~3e-7), its backward each gradient within 1e-5 of its own max |g| (the
 same, and the sums over lanes, channels and rows in another order;
-measured <= 2.2e-6 at full width).  The search on CUDA is held
+measured <= 2.2e-6 at full width); the Mamba-2 SSD kernels to the same
+bars (products in three TF32 passes, float32 accumulation; measured
+~5e-7 of the largest |y|).  The search on CUDA is held
 against the CPU search of the same index: identical ids on >= 95% of rows,
 since the kernels' ADT rounds differently from the CPU's expanded form.
 """
@@ -1197,6 +1199,26 @@ def _scan_close(got, want):
         assert err <= SCAN_TOL * float(w.abs().max()), err
 
 
+def _scan_route(heads, s, di, ds, nh, bwd=False):
+    """(counter, C entry) of the kernel a call of these shapes launches: the
+    SSD kernels for the Mamba-2 shapes ``ssd_route`` takes, else the step
+    kernels."""
+    from repro_torch.kernels.selective_scan import ssd_route
+
+    if heads and ssd_route(s, di // nh, ds, bwd=bwd):
+        return (("selective_scan_ssd_bwd", "selective_scan_ssd_bwd_launch")
+                if bwd else ("selective_scan_ssd", "selective_scan_ssd_launch"))
+    if bwd:
+        return "selective_scan_bwd", "selective_scan_bwd_launch"
+    return ("selective_scan", "selective_scan_heads_launch" if heads
+            else "selective_scan_launch")
+
+
+def _scan_launches() -> dict:
+    """The scan kernels' nonzero launch counts."""
+    return {k: v for k, v in loader.MODEL_LAUNCHES.items() if v}
+
+
 @pytest.mark.parametrize("bsz,s,di,ds,nh", [
     (2, 1, 64, 16, None), (2, 37, 130, 16, None), (3, 300, 256, 8, None),
     (1, 513, 64, 64, None), (2, 40, 96, 12, None), (1, 17, 32, 3, None),
@@ -1209,7 +1231,8 @@ def test_selective_scan_kernel(cuda, bsz, s, di, ds, nh, carried):
     multiple of the 16-step tile or of 256, di not a multiple of the
     128-channel block (and Mamba-2 heads split across blocks: di 192 of
     head width 64; head width 32 and 3), ds padded (3, 5, 12) and at the
-    kernel's 128; one launch a call."""
+    kernel's 128; one launch a call, of the kernel the shapes pick (the
+    Mamba-2 calls with widths multiples of 8 and S > 1: the SSD kernel)."""
     from repro_torch.kernels.selective_scan import (
         selective_scan_heads_plain, selective_scan_plain)
 
@@ -1219,9 +1242,9 @@ def test_selective_scan_kernel(cuda, bsz, s, di, ds, nh, carried):
     got = (ops.selective_scan_heads if heads else ops.selective_scan)(
         *args, 256)
     torch.cuda.synchronize()
-    assert loader.MODEL_LAUNCHES["selective_scan"] == 1
-    assert loader.ENTRY_LAUNCHES == {
-        "selective_scan_heads_launch" if heads else "selective_scan_launch": 1}
+    counter, entry = _scan_route(heads, s, di, ds, nh)
+    assert _scan_launches() == {counter: 1}
+    assert loader.ENTRY_LAUNCHES == {entry: 1}
     want = (selective_scan_heads_plain if heads else selective_scan_plain)(
         *args, 256)
     _scan_close(got, want)
@@ -1260,8 +1283,8 @@ def test_selective_scan_kernel_raises_on_bad_inputs(cuda):
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
 def test_ssm_models_launch_the_scan_on_the_card(cuda, arch):
     """The smoke config in f32 (TF32 off) on the card against the CPU
-    (plain scan): a prefill and a decode step, each launching the kernel
-    once a mamba layer, logits within 1e-3."""
+    (plain scan): a prefill and a decode step, each launching a kernel once
+    a mamba layer (zamba2's prefill the SSD kernel), logits within 1e-3."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import build_model
 
@@ -1272,16 +1295,24 @@ def test_ssm_models_launch_the_scan_on_the_card(cuda, arch):
     card.load_state_dict(cpu.state_dict())
     n_ssm = sum(k in ("mamba1", "mamba2") for k in cfg.block_pattern())
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 21))
+    # zamba2's prefill (head width 64, ds 16) runs the SSD kernel, its
+    # decode step and falcon-mamba's calls the step kernel
+    prefill_kernel = ("selective_scan_ssd" if arch == "zamba2-1.2b"
+                      else "selective_scan")
     out = []
     for model in (card, cpu):
         loader.reset_launch_counts()
         lg, cache = model.prefill({"tokens": _t(tokens, model.device)},
                                   max_len=24)
-        launched = [loader.MODEL_LAUNCHES["selective_scan"]]
+        launched = [_scan_launches()]
         lg2, _ = model.decode_step(cache, lg.argmax(-1))
-        launched.append(loader.MODEL_LAUNCHES["selective_scan"])
+        launched.append(_scan_launches())
         out.append((lg.cpu(), lg2.cpu(), launched))
-    assert out[0][2] == [n_ssm, 2 * n_ssm] and out[1][2] == [0, 0]
+    after_decode = {prefill_kernel: n_ssm}
+    after_decode["selective_scan"] = after_decode.get("selective_scan",
+                                                      0) + n_ssm
+    assert out[0][2] == [{prefill_kernel: n_ssm}, after_decode]
+    assert out[1][2] == [{}, {}]
     for got, want in zip(out[0][:2], out[1][:2]):
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
 
@@ -1311,7 +1342,8 @@ def test_selective_scan_bwd_kernel(cuda, heads, ds, s, carried):
     padded (48) and at the kernel's 128; di 80 (Mamba-1, no multiple of a
     block's channels) and 4 heads of 48 (Mamba-2, heads split across
     blocks); each gradient within SCAN_TOL of its largest magnitude; one
-    launch a call."""
+    launch a call, of the kernel the shapes pick (Mamba-2 at ds 16, 48 and
+    64 and S >= SSD_BWD_MIN_STEPS: the SSD kernels)."""
     di, nh = (192, 4) if heads else (80, None)
     args = _scan_inputs(cuda, 2, s, di, ds, nh, carried)
     gy, gh = _cotangents(cuda, 2, s, di, ds)
@@ -1319,8 +1351,9 @@ def test_selective_scan_bwd_kernel(cuda, heads, ds, s, carried):
     loader.reset_launch_counts()
     got = op(*args, gy, gh, 256)
     torch.cuda.synchronize()
-    assert loader.MODEL_LAUNCHES["selective_scan_bwd"] == 1
-    assert loader.ENTRY_LAUNCHES == {"selective_scan_bwd_launch": 1}
+    counter, entry = _scan_route(heads, s, di, ds, nh, bwd=True)
+    assert _scan_launches() == {counter: 1}
+    assert loader.ENTRY_LAUNCHES == {entry: 1}
     _scan_close(got, plain(*args, gy, gh, 256))
 
 
@@ -1369,7 +1402,8 @@ def test_selective_scan_bwd_kernel_raises_on_bad_inputs(cuda):
 def test_ssm_train_step_launches_the_backward_on_the_card(cuda, arch):
     """The smoke config in f32 (TF32 off): one ``make_train_step`` step of
     2 microbatches on the card against the CPU's (plain backward): the
-    backward kernel launched once a mamba layer a microbatch, the loss
+    backward kernel launched once a mamba layer a microbatch (zamba2's the
+    SSD kernels, falcon-mamba's the step kernel), the loss
     within 1e-5 relative and each gradient within 1e-3 of its leaf's
     largest |g| (the train phase's SSM bar)."""
     from repro_torch.configs import get_smoke_config
@@ -1387,9 +1421,82 @@ def test_ssm_train_step_launches_the_backward_on_the_card(cuda, arch):
                                       family=cfg.family), 0)
     loader.reset_launch_counts()
     l_card, g_card = _train_step_grads(card, batch)
-    assert loader.MODEL_LAUNCHES["selective_scan_bwd"] == 2 * n_ssm
+    bwd = ("selective_scan_ssd_bwd" if arch == "zamba2-1.2b"
+           else "selective_scan_bwd")
+    assert {k: v for k, v in _scan_launches().items()
+            if k.endswith("_bwd")} == {bwd: 2 * n_ssm}
     l_cpu, g_cpu = _train_step_grads(cpu, batch)
     assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
     for k, g in g_cpu.items():
         torch.testing.assert_close(g_card[k].cpu(), g, rtol=1e-3,
                                    atol=1e-3 * float(g.abs().max()))
+
+
+# ---- the Mamba-2 scan's SSD kernels ----------------------------------------
+
+@pytest.mark.parametrize("bsz,s,nh,hd,ds", [
+    (2, 300, 8, 64, 64), (1, 37, 3, 64, 16), (2, 128, 10, 32, 64),
+    (1, 2, 2, 8, 8), (3, 200, 4, 64, 32), (1, 1024, 64, 64, 64)],
+    ids=["ragged", "S<Q", "10-heads", "smallest", "ds32", "zamba2-width"])
+@pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
+def test_selective_scan_ssd_kernels(cuda, bsz, s, nh, hd, ds, carried):
+    """The SSD forward and backward against the plain loop (the op's CPU
+    version) and their own blueprint (``selective_scan_ssd_plain`` in three
+    TF32 passes): a ragged last chunk (300 = 4 x 64 + 44), S below the
+    64-step chunk, two whole chunks with 10 heads (the backward's blocks of
+    8 heads split 8 + 2), the smallest widths, ds 32 and zamba2's widths;
+    each output and gradient within SCAN_TOL of its largest magnitude; one
+    SSD launch a forward and none of the step kernels; the backward op one
+    launch of the kernel ``ssd_route`` picks (the step kernel below
+    SSD_BWD_MIN_STEPS), and the SSD backward at every shape, two of its
+    runs bit-equal."""
+    from repro_torch.kernels import selective_scan as ss
+
+    args = _scan_inputs(cuda, bsz, s, nh * hd, ds, nh, carried)
+    gy, gh = _cotangents(cuda, bsz, s, nh * hd, ds)
+    loader.reset_launch_counts()
+    got = ops.selective_scan_heads(*args, 256)
+    torch.cuda.synchronize()
+    assert _scan_launches() == {"selective_scan_ssd": 1}
+    assert loader.ENTRY_LAUNCHES == {"selective_scan_ssd_launch": 1}
+    _scan_close(got, ss.selective_scan_heads_plain(*args, 256))
+    _scan_close(got, ss.selective_scan_ssd_plain(*args, tf32="3pass"))
+    loader.reset_launch_counts()
+    grads = ss.scan_heads_bwd_op(*args, gy, gh, 256)
+    torch.cuda.synchronize()
+    counter, entry = _scan_route(True, s, nh * hd, ds, nh, bwd=True)
+    assert _scan_launches() == {counter: 1}
+    assert loader.ENTRY_LAUNCHES == {entry: 1}
+    runs = [ss._ssd_bwd_cuda(*ss._bwd_operands(
+        "selective_scan_heads_bwd", *args, gy, gh, heads=True))
+        for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(*runs))
+    want = ss.selective_scan_heads_bwd_plain(*args, gy, gh, 256)
+    _scan_close(grads, want)
+    _scan_close(runs[0], want)
+
+
+def test_selective_scan_ssd_takes_unaligned_inputs(cuda):
+    """Operands at an address that is not 16-byte aligned (a view one float
+    into a buffer) are copied before the SSD kernels' 16-byte tile copies,
+    with the same bits as aligned ones."""
+    from repro_torch.kernels import selective_scan as ss
+
+    dt, a, x, b, c, h0 = _scan_inputs(cuda, 2, 100, 128, 16, 2)
+    gy, gh = _cotangents(cuda, 2, 100, 128, 16)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    moved = [shifted(t) for t in (x, b, c, h0)]
+    assert all(t.data_ptr() % 16 for t in moved)
+    want = ops.selective_scan_heads(dt, a, x, b, c, h0, 256)
+    got = ops.selective_scan_heads(dt, a, *moved, 256)
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
+    want = ss.scan_heads_bwd_op(dt, a, x, b, c, h0, gy, gh, 256)
+    got = ss.scan_heads_bwd_op(dt, a, *moved, shifted(gy), shifted(gh), 256)
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
