@@ -271,7 +271,7 @@ not printed):
    P=256; ``l2_rerank``'s masked entry at the density phase 2 measured and
    with every row asked for, and its reference signature on pre-gathered
    rows.  The filtered paths' shapes too: the merge at (L=512, n=64) and
-   (L=1024, n=64, the block network), the masked entry at K=1024 at the
+   (L=1024, n=64, the rank merge), the masked entry at K=1024 at the
    masked search's density, the lookup over the scan's (Q=256, S=16384)
    rows.  The new call sites of this index: ``pq_adt`` at Q=1 and the
    lookup at (1, 64) (the reorder trace), the lookup at (256, 512)
@@ -480,7 +480,7 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
     retriever's (``retr_inputs``: one round's arguments of each kernel over
     the 2048-d angular embeddings, as the model phase made them)."""
     from repro_torch.core.search import next_pow2
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import bitonic_topk, ops
 
     q, d, m, c, r, l = 256, 128, 32, 256, 64, 128
     inf = float("inf")
@@ -796,7 +796,7 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
         return entry(
             label or f"merge_L{l}_n{n}"
             + ("" if nq == q else f"_Q{nq}_batched_tiles"),
-            "warp_merge_kernel" if l + n <= 1024 else "block_sort_kernel",
+            bitonic_topk.merge_kernel(l, n),
             ops.bitonic_merge_topl(*cols),
             ops.bitonic_merge_topl_plain(*cols), 0.0, 0.0,
             lambda: ops.bitonic_merge_topl(*cols),
@@ -3587,7 +3587,7 @@ def scan_time(torch, args: list, bwd: bool, flush) -> dict:
         ms, cupti = _time_ms(
             torch, lambda: op(*args, SSM_CHUNK), flush,
             ("ssd_gram", "ssd_chunk_scan") if route == "ssd"
-            else "selective_scan_kernel")
+            else "scan_lanes")
     return {"ms": ms, "cupti_ms": cupti}
 
 

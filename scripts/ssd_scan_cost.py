@@ -39,7 +39,7 @@ CASES = (("forward, zamba2 prefill (8, 2048)", False, 8, 2048),
          ("backward, zamba2 train microbatch (2, 4096)", True, 2, 4096),
          *((f"forward, short (8, {s})", False, 8, s) for s in SHORT),
          *((f"backward, short (8, {s})", True, 8, s) for s in SHORT))
-SYMBOLS = {(False, "step"): "selective_scan_kernel",
+SYMBOLS = {(False, "step"): "scan_lanes",
            (False, "ssd"): ("ssd_gram", "ssd_chunk_scan")}
 
 

@@ -11,7 +11,11 @@ keep their input order, exactly like the plain versions'
 registers, exchanging by shuffles; a longer one in one block's shared memory.
 What bounds it on the card: the latency of its log2(P)(log2(P)+1)/2
 dependent stages, not bytes; the merge cuts them by sorting only the fresh
-keys and merging them into the already sorted list in log2(P) stages.
+keys and merging them into the already sorted list in log2(P) stages, or,
+for lists of 256 or more and rows longer than a warp holds, by ranking:
+every element's slot is its index plus its rank in the other sorted run,
+by binary search, with one barrier (``merge_kernel`` names the kernel a
+shape takes).
 
 Two functions, each with its plain version:
 
@@ -31,7 +35,20 @@ import torch
 from repro_torch.kernels import loader
 
 MAX_ROW = 1 << 14        # one row's 64-bit words in shared memory
+WARP_ROW = 1024          # the longest merge row (list + fresh slots) of a warp
+RANK_FROM = 256          # the shortest list the rank merge takes
 INF = float("inf")
+
+
+def merge_kernel(l: int, n: int) -> str:
+    """The device kernel a merge of a list of ``l`` with ``n`` fresh
+    candidates launches, as ``bitonic_merge_launch`` routes it: the warp
+    merge for a list shorter than RANK_FROM whose row (the list and the
+    fresh slots, next_pow2(n) and at least 32) fits one warp's WARP_ROW
+    elements, the rank merge otherwise."""
+    fresh = 1 << max(n - 1, 31).bit_length()
+    return ("warp_merge_kernel" if l < RANK_FROM and l + fresh <= WARP_ROW
+            else "rank_merge_kernel")
 
 
 def bitonic_sort_pairs_plain(keys: torch.Tensor, vals: torch.Tensor):
@@ -79,9 +96,9 @@ def bitonic_merge_topl_plain(ids, dists, acc, evaluated, n_ids, n_dists):
 def bitonic_merge_topl_cuda(ids, dists, acc, evaluated, n_ids, n_dists):
     """Launch the CUDA merge: (Q, L) i32 / f32 / f32 / bool list columns,
     (Q, n) i32 / f32 fresh columns -> the four (Q, L) columns of the new
-    list.  Counts as a ``bitonic_sort_pairs`` launch.  A list whose
-    distances do not ascend traps in the kernel (up to L + n = 1024; longer
-    rows take the block network, which sorts the whole row)."""
+    list.  Counts as a ``bitonic_sort_pairs`` launch.  Both merge kernels
+    (``merge_kernel``) need the list's distances ascending and trap
+    otherwise."""
     loader.check(ids, "bitonic_merge_topl ids", torch.int32, 2)
     loader.check(dists, "bitonic_merge_topl dists", torch.float32, 2)
     loader.check(acc, "bitonic_merge_topl acc", torch.float32, 2)

@@ -35,9 +35,20 @@
 //   list's neighbouring pairs, and a trap if any pair is out of order.
 // * The list's payload columns are prefetched into L2 while the network
 //   runs, so the gathers that write the new list do not wait on DRAM.
-// * Longer rows (up to 16384) sort in one block over shared memory, one
-//   barrier per stage, with the pair index computed by shifts and masks; the
-//   merge then sorts the whole row and needs no sorted list.
+// * A merge whose row exceeds one warp (L + fresh slots > 1024, up to
+//   16384), or whose list is 256 or longer (where it beat the warp merge on
+//   the H100, PERF.md), ranks instead of sorting: one block a row.  Warp r
+//   sorts fresh words r*1024 ... in registers as above (ascending) and the
+//   list's L words go to shared memory; one barrier in all.  Then every
+//   element takes as its output slot its own index plus the number of words
+//   below it in each other sorted run, by binary search in shared memory: no
+//   two words are equal (positions differ), so the slots are the stable
+//   sort's.  Each list word also checks that it is below its successor and
+//   traps if not.  Elements whose slot is below L store their four columns
+//   there; the list's payload was prefetched into L2 before the barrier.
+// * Sorts longer than a warp's 1024 elements (up to 16384) run in one block
+//   over shared memory, one barrier per stage, with the pair index computed
+//   by shifts and masks.
 //
 // Entry points:
 //   bitonic_sort_launch   (Q, P) f32 keys, (Q, P) i32 payload -> both sorted;
@@ -59,6 +70,12 @@ constexpr u64 kPad = ~0ull;      // sorts after every real element
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kWarpRows = 4;     // rows (warps) per block on the warp path
 constexpr int kWarpMax = 1024;   // longest row one warp holds
+// the shortest list the rank merge takes (it also takes every row longer
+// than a warp holds); a compile-time setting, so that
+// scripts/kernel_variants.py can move the boundary (0: every merge ranks)
+#ifndef BITONIC_RANK_FROM
+#define BITONIC_RANK_FROM 256
+#endif
 
 __host__ __device__ constexpr int ilog2(int x) {
   return x <= 1 ? 0 : 1 + ilog2(x >> 1);
@@ -81,8 +98,6 @@ struct SortRows {
   float* out_keys;
   int32_t* out_vals;
   int P;
-  __device__ int width() const { return P; }
-  __device__ int kept() const { return P; }
   __device__ u64 load(int row, int i) const {
     return pack(keys[(size_t)row * P + i], i);
   }
@@ -105,16 +120,11 @@ struct MergeRows {
   float* out_acc;
   uint8_t* out_evaluated;
   int L, n;
-  __device__ int width() const { return L + n; }
-  __device__ int kept() const { return L; }
   __device__ u64 load_list(int row, int i) const {
     return pack(dists[(size_t)row * L + i], i);
   }
   __device__ u64 load_fresh(int row, int j) const {
     return pack(n_dists[(size_t)row * n + j], L + j);
-  }
-  __device__ u64 load(int row, int i) const {
-    return i < L ? load_list(row, i) : load_fresh(row, i - L);
   }
   // Selects, not branches: a warp's lanes mix list and fresh sources, and
   // without divergence the loads of all slots issue together.
@@ -253,12 +263,134 @@ warp_merge_kernel(MergeRows rows, int Q) {
   }
 }
 
-template <class Rows>
-__global__ void block_sort_kernel(Rows rows, int P) {
+// The number of words of the ascending run a[0 .. len) below x.
+__device__ __forceinline__ int below(const u64* a, int len, u64 x) {
+  int at = 0;
+  for (int step = len > 0 ? 1 << (31 - __clz(len)) : 0; step > 0;
+       step >>= 1) {
+    if (at + step <= len && a[at + step - 1] < x) at += step;
+  }
+  return at;
+}
+
+constexpr int kRankThreads = 256;  // threads a row on the rank merge
+constexpr int kRankItems = 4;      // list words a thread a sweep
+
+// The rank merge of one row a block.  Fresh words come in runs of 32 F
+// (one run unless n > 1024), each sorted ascending by one warp in registers;
+// dynamic shared memory holds the list's L words, then the runs.
+template <int F>
+__global__ void __launch_bounds__(kRankThreads)
+rank_merge_kernel(MergeRows rows) {
+  constexpr int kRun = 32 * F;
+  constexpr int kSweep = kRankThreads * kRankItems;
+  extern __shared__ u64 s_words[];
+  const int L = rows.L, n = rows.n;
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int runs = (n + kRun - 1) / kRun;
+  u64* s_list = s_words;
+  u64* s_fresh = s_words + L;
+  const size_t base = (size_t)row * L, fbase = (size_t)row * n;
+  // warp r's fresh words of run r (its first run), loaded first
+  u64 f[F];
+  auto load_run = [&](int r) {
+#pragma unroll
+    for (int e = 0; e < F; ++e) {
+      const int j = r * kRun + lane * F + e;
+      f[e] = j < n ? rows.load_fresh(row, j) : kPad;
+    }
+  };
+  if (warp < runs) load_run(warp);
+  // the list's words, coalesced, a sweep's loads issued before any is used;
+  // its payload and the fresh ids go to L2 meanwhile
+  for (int p0 = 0; p0 < L; p0 += kSweep) {
+    float d[kRankItems];
+#pragma unroll
+    for (int k = 0; k < kRankItems; ++k) {
+      const int p = p0 + tid + k * kRankThreads;
+      d[k] = p < L ? rows.dists[base + p] : 0.f;
+      if (p < L && (p & 31) == 0) {
+        prefetch_l2(rows.ids + base + p);
+        prefetch_l2(rows.acc + base + p);
+        if ((p & 127) == 0) prefetch_l2(rows.evaluated + base + p);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRankItems; ++k) {
+      const int p = p0 + tid + k * kRankThreads;
+      if (p < L) s_list[p] = pack(d[k], p);
+    }
+  }
+  for (int j = tid * 32; j < n; j += kRankThreads * 32)
+    prefetch_l2(rows.n_ids + fbase + j);
+  // warp r sorts run r (and r + 8, ...)
+  for (int r = warp; r < runs; r += kRankThreads / 32) {
+    if (r != warp) load_run(r);
+    network<F, 1, 5 + ilog2(F), false>(f, lane);
+#pragma unroll
+    for (int e = 0; e < F; ++e) s_fresh[r * kRun + lane * F + e] = f[e];
+  }
+  __syncthreads();
+  // list word p: slot p + the fresh words below it; the precondition
+  // (every word below its successor) checked on the way, a trap if not
+  for (int p0 = 0; p0 < L; p0 += kSweep) {
+    float d[kRankItems], ac[kRankItems];
+    int32_t id[kRankItems];
+    uint8_t ev[kRankItems];
+#pragma unroll
+    for (int k = 0; k < kRankItems; ++k) {
+      const int p = p0 + tid + k * kRankThreads;
+      const bool in = p < L;
+      d[k] = in ? rows.dists[base + p] : 0.f;
+      id[k] = in ? rows.ids[base + p] : 0;
+      ac[k] = in ? rows.acc[base + p] : 0.f;
+      ev[k] = in ? rows.evaluated[base + p] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kRankItems; ++k) {
+      const int p = p0 + tid + k * kRankThreads;
+      if (p >= L) continue;
+      const u64 w = s_list[p];
+      if (p + 1 < L && !(w < s_list[p + 1])) __trap();
+      int slot = p;
+      for (int r = 0; r < runs; ++r)
+        slot += below(s_fresh + r * kRun, min(kRun, n - r * kRun), w);
+      if (slot < L) {
+        const size_t o = base + slot;
+        rows.out_ids[o] = id[k];
+        rows.out_dists[o] = d[k];
+        rows.out_acc[o] = ac[k];
+        rows.out_evaluated[o] = ev[k];
+      }
+    }
+  }
+  // fresh word i of run r: slot i + the list's and the other runs' words
+  // below it
+  for (int j = tid; j < n; j += kRankThreads) {
+    const int r = j / kRun, i = j % kRun;
+    const u64 x = s_fresh[j];
+    int slot = i + below(s_list, L, x);
+    for (int r2 = 0; r2 < runs; ++r2) {
+      if (r2 != r)
+        slot += below(s_fresh + r2 * kRun, min(kRun, n - r2 * kRun), x);
+    }
+    if (slot < L) {
+      const size_t src = fbase + (position(x) - L);
+      const size_t o = base + slot;
+      rows.out_ids[o] = rows.n_ids[src];
+      rows.out_dists[o] = rows.n_dists[src];
+      rows.out_acc[o] = INFINITY;
+      rows.out_evaluated[o] = 0;
+    }
+  }
+}
+
+__global__ void block_sort_kernel(SortRows rows) {
   extern __shared__ u64 s_row[];
-  const int row = blockIdx.x, w = rows.width();
+  const int row = blockIdx.x, P = rows.P;
   for (int i = threadIdx.x; i < P; i += blockDim.x)
-    s_row[i] = i < w ? rows.load(row, i) : kPad;
+    s_row[i] = rows.load(row, i);
   __syncthreads();
   const int half = P >> 1;
   for (int k = 2; k <= P; k <<= 1) {
@@ -274,23 +406,33 @@ __global__ void block_sort_kernel(Rows rows, int P) {
       __syncthreads();
     }
   }
-  for (int i = threadIdx.x; i < rows.kept(); i += blockDim.x)
+  for (int i = threadIdx.x; i < P; i += blockDim.x)
     rows.store(row, i, position(s_row[i]));
 }
 
-// Sort Q rows padded to P (a power of two >= rows.width()) in shared
-// memory, one block per row.
-template <class Rows>
-int block_sort(const Rows& rows, int Q, int P, cudaStream_t st) {
+int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// Let ``kernel`` take ``smem`` bytes of dynamic shared memory.
+int allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+// Sort Q rows of P (a power of two) in shared memory, one block per row.
+int block_sort(const SortRows& rows, int Q, cudaStream_t st) {
+  const int P = rows.P;
   const size_t smem = sizeof(u64) * P;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&block_sort_kernel<Rows>),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (const int err = allow_smem(
+          reinterpret_cast<const void*>(&block_sort_kernel), smem))
+    return err;
   const int threads = P / 2 < 1024 ? P / 2 : 1024;
-  block_sort_kernel<Rows><<<Q, threads, smem, st>>>(rows, P);
+  block_sort_kernel<<<Q, threads, smem, st>>>(rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -301,6 +443,32 @@ int warp_blocks(int Q) { return (Q + kWarpRows - 1) / kWarpRows; }
 template <int E>
 void launch_sort(const SortRows& rows, int Q, cudaStream_t st) {
   warp_sort_kernel<E><<<warp_blocks(Q), kWarpThreads, 0, st>>>(rows, Q);
+}
+
+template <int F>
+int launch_rank(const MergeRows& rows, int Q, int runs, cudaStream_t st) {
+  const size_t smem = sizeof(u64) * (rows.L + runs * 32 * F);
+  if (const int err = allow_smem(
+          reinterpret_cast<const void*>(&rank_merge_kernel<F>), smem))
+    return err;
+  rank_merge_kernel<F><<<Q, kRankThreads, smem, st>>>(rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rank merge: fresh words in runs of next_pow2(n) >= 32 slots, or of
+// 1024 above that.
+int rank_merge(const MergeRows& rows, int Q, cudaStream_t st) {
+  const int n = rows.n;
+  const int run = n > kWarpMax ? kWarpMax : pow2_at_least(n < 32 ? 32 : n);
+  const int runs = (n + run - 1) / run;
+  switch (run / 32) {
+    case 1: return launch_rank<1>(rows, Q, runs, st);
+    case 2: return launch_rank<2>(rows, Q, runs, st);
+    case 4: return launch_rank<4>(rows, Q, runs, st);
+    case 8: return launch_rank<8>(rows, Q, runs, st);
+    case 16: return launch_rank<16>(rows, Q, runs, st);
+    default: return launch_rank<32>(rows, Q, runs, st);
+  }
 }
 
 template <int E, int F>
@@ -321,12 +489,6 @@ void launch_merge_slots(const MergeRows& rows, int Q, int F, cudaStream_t st) {
   }
 }
 
-int pow2_at_least(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
 }  // namespace
 
 extern "C" int bitonic_sort_launch(const void* keys, const void* vals,
@@ -338,7 +500,7 @@ extern "C" int bitonic_sort_launch(const void* keys, const void* vals,
                       static_cast<const int32_t*>(vals),
                       static_cast<float*>(out_keys),
                       static_cast<int32_t*>(out_vals), P};
-  if (P > kWarpMax) return block_sort(rows, Q, P, st);
+  if (P > kWarpMax) return block_sort(rows, Q, st);
   switch (P <= 32 ? 1 : P / 32) {
     case 1: launch_sort<1>(rows, Q, st); break;
     case 2: launch_sort<2>(rows, Q, st); break;
@@ -372,7 +534,7 @@ extern "C" int bitonic_merge_launch(const void* ids, const void* dists,
   // fresh slots: next_pow2(n), at least one slot; the list fits before them
   const int fresh = pow2_at_least(n < 32 ? 32 : n);
   const int P = pow2_at_least(L + fresh);
-  if (P > kWarpMax) return block_sort(rows, Q, pow2_at_least(L + n), st);
+  if (P > kWarpMax || L >= BITONIC_RANK_FROM) return rank_merge(rows, Q, st);
   switch (P / 32) {
     case 2: launch_merge_slots<2>(rows, Q, fresh / 32, st); break;
     case 4: launch_merge_slots<4>(rows, Q, fresh / 32, st); break;

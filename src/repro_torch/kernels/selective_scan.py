@@ -5,8 +5,8 @@ Replaces no Pallas kernel: it ports ``src/repro/models/ssm.py::
 selective_scan``, which the reference runs outside Pallas as a chunked
 ``jax.lax.associative_scan`` (its TPU form of the CUDA implementations'
 fused scan), and its JAX gradient, with the CUDA kernels of
-``csrc/selective_scan.cu`` (forward: a thread a (batch row, channel) with
-its state in registers, stepping through time) and
+``csrc/selective_scan.cu`` (forward: a (batch row, channel)'s states split
+4 a lane over a group of lanes, in registers, stepping through time) and
 ``csrc/selective_scan_bwd.cu`` (backward: a reverse scan over states
 recomputed from stored chunk boundaries; its header has the design) — the
 step kernels — and, for Mamba-2, ``csrc/selective_scan_ssd.cu``: the same

@@ -11,8 +11,11 @@ kernel fuses multiply and add), rerank 1e-4/1e-3 (a warp's tree sum over D
 against torch's order) with the masked entry's pass-through of acc exact,
 the sort and the merge exact, with ties, +inf and -0.0/+0.0, the selective
 scan within 1e-5 of max |y| and of max |h_last| (its sum over the states
-fused into multiply-adds, ``expf`` within ulps of torch's; measured
-~3e-7), its backward each gradient within 1e-5 of its own max |g| (the
+fused into multiply-adds 4 states a lane, then a tree over the lanes;
+Mamba-1's decay ``ex2.approx`` of the rate prescaled by log2 e; measured
+<= 4.6e-7 from a zero state, <= 7.7e-6 of max |h_last| with a carried
+one, where the approximate decays' error compounds), its backward each
+gradient within 1e-5 of its own max |g| (the
 same, and the sums over lanes, channels and rows in another order;
 measured <= 2.2e-6 at full width); the Mamba-2 SSD kernels to the same
 bars (products in three TF32 passes, float32 accumulation; measured
@@ -282,9 +285,10 @@ def _merge_inputs(q, l, n):
                                    (256, 1024, 64)])
 def test_bitonic_merge_kernel_exact(cuda, q, l, n):
     """The merge entry against its plain version, all four columns bit for
-    bit.  Up to 1024 the warp merges fresh keys into the sorted list;
-    (600, 300), (512, 1000) and the masked search's (1024, 64) exceed it and
-    take the block path; (512, 64) is the masked search at ~25%."""
+    bit.  Lists shorter than 256 whose row fits a warp's 1024 elements take
+    the warp merge, which merges fresh keys into the sorted list; the
+    others (600, 512 and the masked search's 1024; (512, 64) is the masked
+    search at ~25%) take the rank merge."""
     cols = [_t(a, cuda) for a in _merge_inputs(q, l, n)]
     got = ops.bitonic_merge_topl(*cols)
     torch.cuda.synchronize()
@@ -295,10 +299,39 @@ def test_bitonic_merge_kernel_exact(cuda, q, l, n):
             assert torch.equal(torch.signbit(g), torch.signbit(w))
 
 
+@pytest.mark.parametrize("q,l,n", [(256, 1024, 64), (256, 1024, 256),
+                                   (256, 2048, 64), (256, 961, 64),
+                                   (3, 2000, 3000), (4, 16, 2100),
+                                   (2, 14000, 2384)])
+def test_rank_merge_kernel_exact(cuda, q, l, n):
+    """Rows longer than a warp (L + fresh slots > 1024) take the rank
+    merge (``merge_kernel`` names it; the profiler sees it): all four
+    columns bit for bit against the plain version, at the masked search's
+    (1024, 64), beam 4's n = 256, L = 2048, the boundary's (961, 64), and
+    fresh words in several runs of 1024 up to L + n = MAX_ROW."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.bitonic_topk import merge_kernel
+
+    assert merge_kernel(l, n) == "rank_merge_kernel"
+    cols = [_t(a, cuda) for a in _merge_inputs(q, l, n)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = ops.bitonic_merge_topl(*cols)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("rank_merge_kernel" in x for x in names), names
+    want = ops.bitonic_merge_topl_plain(*cols)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        if g.is_floating_point():
+            assert torch.equal(torch.signbit(g), torch.signbit(w))
+
+
 _TRAP_CHILD = """
 import sys, torch
 from repro_torch.kernels import bitonic_topk
-q, l, n = 4, 64, 24
+q, l, n = 4, int(sys.argv[2]), int(sys.argv[3])
 d = torch.arange(l, dtype=torch.float32, device="cuda").repeat(q, 1)
 if sys.argv[1] == "unsorted":
     d[2, 10], d[2, 11] = 50.0, 3.0
@@ -313,15 +346,20 @@ print("merged")
 """
 
 
+@pytest.mark.parametrize("l,n", [(64, 24), (1024, 64)],
+                         ids=["warp", "rank"])
 @pytest.mark.parametrize("case", ["sorted", "unsorted"])
-def test_bitonic_merge_kernel_traps_on_unsorted_list(cuda, case):
+def test_bitonic_merge_kernel_traps_on_unsorted_list(cuda, case, l, n):
     """The warp merge sorts only the fresh keys and merges them into the
-    list, so it checks that the list is sorted (a warp vote) and traps if
-    not.  A trap ends the process's CUDA context: the call runs in a child
-    process, once on a sorted list and once on an unsorted one."""
+    list, and the rank merge ranks each run in the other, so both check
+    that the list is sorted (a warp vote; each word against its successor)
+    and trap if not.  A trap ends the process's CUDA context: the call runs
+    in a child process, once on a sorted list and once on an unsorted
+    one."""
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
     env = dict(os.environ, PYTHONPATH=str(src))
-    r = subprocess.run([sys.executable, "-c", _TRAP_CHILD, case],
+    r = subprocess.run([sys.executable, "-c", _TRAP_CHILD, case, str(l),
+                        str(n)],
                        capture_output=True, text=True, env=env, timeout=300)
     merged = r.returncode == 0 and "merged" in r.stdout
     assert merged == (case == "sorted"), r.stderr[-2000:]
@@ -1245,6 +1283,35 @@ def test_selective_scan_kernel(cuda, bsz, s, di, ds, nh, carried):
     counter, entry = _scan_route(heads, s, di, ds, nh)
     assert _scan_launches() == {counter: 1}
     assert loader.ENTRY_LAUNCHES == {entry: 1}
+    want = (selective_scan_heads_plain if heads else selective_scan_plain)(
+        *args, 256)
+    _scan_close(got, want)
+
+
+@pytest.mark.parametrize("bsz,s,di,ds,nh", [
+    (8, 1, 4096, 64, 64), (2, 1, 8192, 16, None), (2, 2048, 8192, 16, None),
+    (8, 300, 8192, 16, None), (3, 70, 256, 128, None), (2, 40, 512, 128, 4),
+    (2, 1, 96, 128, None)],
+    ids=["zamba2_decode", "falcon_decode", "falcon_prefill", "falcon_8x300",
+         "mamba1_ds128", "mamba2_ds128", "decode_ds128"])
+def test_selective_scan_step_route_at_model_shapes(cuda, bsz, s, di, ds, nh):
+    """The step forward at the shapes its route serves: zamba2-1.2B's and
+    falcon-mamba-7b's decode steps, falcon-mamba's prefill (2, 2,048) and
+    (8, 300), and the widest state (128, both entries): within the bar of
+    the plain version, carried state, and two runs bit-equal."""
+    from repro_torch.kernels.selective_scan import (
+        selective_scan_heads_plain, selective_scan_plain)
+
+    args = _scan_inputs(cuda, bsz, s, di, ds, nh, carried=True)
+    heads = nh is not None
+    op = ops.selective_scan_heads if heads else ops.selective_scan
+    loader.reset_launch_counts()
+    got = op(*args, 256)
+    again = op(*args, 256)
+    torch.cuda.synchronize()
+    assert _scan_launches() == {"selective_scan": 2}
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
     want = (selective_scan_heads_plain if heads else selective_scan_plain)(
         *args, 256)
     _scan_close(got, want)
