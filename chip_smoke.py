@@ -452,6 +452,19 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
+def _mask_rows(mask, window: int = 32) -> dict:
+    """Where a (Q, K) rerank mask's rows fall: how many in all, how many
+    queries ask, and the most of one query and of one window of
+    ``window`` candidates (scripts/retriever_round.py profiles a search's
+    every call)."""
+    per_q = mask.sum(1)
+    k = mask.shape[1]
+    per_w = mask[:, : k // window * window].reshape(
+        mask.shape[0], -1, window).sum(2) if k >= window else per_q[:, None]
+    return {"rows": int(per_q.sum()), "queries": int((per_q > 0).sum()),
+            "max_query": int(per_q.max()), "max_window": int(per_w.max())}
+
+
 def _bound(nbytes: float, flops: float) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -888,7 +901,7 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
         rows = int(torch.unique(cand[mask]).numel())
         nq, k = cand.shape
         return entry(
-            label, "l2_rerank_kernel",
+            label, "l2_rerank",          # either kernel
             ops.l2_rerank_masked(queries, cand, base, acc, mask, "l2"),
             ops.l2_rerank_masked_plain(queries, cand, base, acc, mask, "l2"),
             1e-4, 1e-3,
@@ -911,7 +924,7 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
                if metric == "l2" else
                {"bmm": lambda: torch.bmm(pre, qq[:, :, None])})
         return entry(
-            label, "l2_rerank_kernel",
+            label, "l2_rerank",          # either kernel
             ops.l2_rerank_masked(qq, ids, table, acc_, mask, metric),
             ops.l2_rerank_masked_plain(qq, ids, table, acc_, mask, metric),
             1e-4, 1e-3,
@@ -951,9 +964,11 @@ def kernel_phase(torch, dev, n_base: int, rerank_density: dict,
            # replica's ("needed and hot")
            *(rerank_entry(f"masked_distributed_{site}", *dist_inputs[site])
              for site in ("rerank_shard", "rerank_hot")),
-           # the image retriever's round: 2048-d angular rows of its corpus
-           rerank_entry(f"masked_retriever_D{retr_rerank[2].shape[1]}"
-                        f"_N{retr_rerank[2].shape[0]}", *retr_rerank),
+           # the image retriever's round: 2048-d angular rows of its corpus,
+           # and where its mask's rows fall
+           dict(rerank_entry(f"masked_retriever_D{retr_rerank[2].shape[1]}"
+                             f"_N{retr_rerank[2].shape[0]}", *retr_rerank),
+                mask_rows=_mask_rows(retr_rerank[4])),
            # search_reference's exact distances: one query, the T=16 entries
            # of a round's top-T, every one asked for
            masked_entry("masked_Q1_K16_trace",
@@ -3563,9 +3578,11 @@ def _scan_case(torch, dev, seed: int, k: int, case: tuple,
     return args
 
 
-# the backward's kernels, by route (the SSD call's three launches)
+# the backward's kernels, by route (the SSD call's three launches; the step
+# route's Mamba-1 calls take the tiled kernel, "tiles")
 SCAN_BWD_SYMBOLS = {
     "step": ("selective_scan_bwd_kernel", "selective_scan_bwd_reduce"),
+    "tiles": ("scan_bwd_tiles", "selective_scan_bwd_reduce"),
     "ssd": ("ssd_state_walks", "ssd_chunk_grads", "ssd_grads_reduce")}
 
 
@@ -3581,7 +3598,8 @@ def scan_time(torch, args: list, bwd: bool, flush) -> dict:
     if bwd:
         op = ss.scan_heads_bwd_op if heads else ss.scan_bwd_op
         ms, cupti = _time_ms(torch, lambda: op(*args, SSM_CHUNK), flush,
-                             SCAN_BWD_SYMBOLS[route])
+                             SCAN_BWD_SYMBOLS["tiles" if not heads
+                                              else route])
     else:
         op = ops.selective_scan_heads if heads else ops.selective_scan
         ms, cupti = _time_ms(
@@ -3625,6 +3643,35 @@ def _scan_bounds(args: list, route: str, bwd: bool) -> dict:
             "ops_ms": t_ops, "mma_ms": mma / TF32_FLOP_PER_S * 1e3,
             "bound_ms": bound,
             "bound_by": "bytes" if bound == t_bytes else "operations"}
+
+
+def _tiles_floor(args: list) -> dict:
+    """The floor of Mamba-1's tiled backward (``csrc/selective_scan_bwd.cu``
+    ``scan_bwd_tiles_kernel``) on ``args``, its own work rather than the
+    function's: the bytes it moves (pass 1 reads dt, x and B, the reverse
+    dt, x, gy, B and C, each chunk's stored state written and read, dx and
+    ddt written, the dB / dC partials and da's written and summed) at
+    HBM_BYTES_PER_S, and its exps (passes 1 and 2 and the rerun of pass 3
+    over the padded states) at SFU_PER_S: the larger of the two."""
+    x, b = args[2], args[3]
+    bsz, s, di = x.shape
+    ds = b.shape[-1]
+    kds = max(4, 1 << (ds - 1).bit_length())
+    chunk = min(32, 2 * kds)
+    sub, nc = chunk // 8, -(-s // chunk)
+    nblk = -(-di // (1024 // kds))
+    seq, rows = bsz * s * di, bsz * s * ds
+    nbytes = 4 * (2 * seq + rows + 3 * seq + 2 * rows       # the reads
+                  + 2 * bsz * nc * nblk * 256 * 4         # stored states
+                  + 2 * seq                               # dx, ddt
+                  + 2 * 2 * bsz * nblk * s * ds           # dB / dC partials
+                  + 2 * bsz * di * ds)                    # da's
+    exps = bsz * s * di * kds * ((nc - 1) / nc + (sub - 1) / sub + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exps = exps / SFU_PER_S * 1e3
+    return {"design_bytes": nbytes, "design_exps": exps,
+            "design_ms": max(t_bytes, t_exps),
+            "design_by": "bytes" if t_bytes >= t_exps else "exps"}
 
 
 def scan_entry(torch, label: str, args: list, flush, timing: dict,
@@ -3724,6 +3771,8 @@ def scan_bwd_entry(torch, label: str, args: list, flush, want_route: str,
         reps=1, warmup=1)
     rec.update(**timing, plain_ms=plain_ms, loop_ms=loop_ms,
                **_scan_bounds(args, route, True), library_ms=None)
+    if not heads:
+        rec.update(_tiles_floor(args))
     return rec
 
 
@@ -3839,7 +3888,11 @@ def scan_phase(torch, dev, seed: int, serve: dict, log) -> dict:
                 f"bound_ms={e['bound_ms']:.5f} ({e['bound_by']}: bytes "
                 f"{e['bytes_ms']:.5f}, exps {e['exps_ms']:.5f}, tf32 "
                 f"{e['ops_ms']:.5f}; three-pass mma {e['mma_ms']:.5f}) "
-                f"library_ms=None" if "ms" in e else ""))
+                f"library_ms=None" if "ms" in e else "") + (
+                f"; the tiled design's floor {e['design_ms']:.5f} "
+                f"({e['design_by']}: {e['design_bytes'] / 1e6:.1f} MB, "
+                f"{e['design_exps'] / 1e6:.1f} M exps)"
+                if "design_ms" in e else ""))
 
     def record(name, source, what, main, group):
         return {"name": name, "route": "cuda", "source": source,

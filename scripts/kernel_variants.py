@@ -8,12 +8,17 @@ x nprobe 16 over 64 lists of up to 16,864 rows, M=32, C=256), of the
 search's merge at a round's Q=256 lanes and n=64 fresh candidates for L =
 128, 256, 512, 1,024 and 2,048 (and n=256 at L=128 and 1,024; the
 retriever's (256; 64, 32), the tiled fan-out's (1,024; 128, 64), the
-trace's (1; 128, 64)) on the warp merge and the rank merge, and of the
-step scan's forward at falcon-mamba-7b's and zamba2-1.2B's layer shapes:
+trace's (1; 128, 64)) on the warp merge and the rank merge, of the
+step scan's forward at falcon-mamba-7b's and zamba2-1.2B's layer shapes,
+of the masked rerank's wide path at the image retriever's round shape
+(Q=256, K=64, D=2,048, N=8,192, angular) and at D=1,024, evenly spread
+masks, and on the retriever's own calls (``--round``), and of Mamba-1's
+backward at falcon-mamba-7b's (B, S) = (2, 2,048) (zero and carried
+state) and (8, 2,048):
 
     python3 scripts/kernel_variants.py [--out-dir results/kernel_variants]
                                        [--groups pq_adt l2_rerank ...]
-                                       [--baseline DIR]
+                                       [--baseline DIR] [--round FILE]
 
 Each variant is the kernel source compiled with other values of its tile
 macros (``PQ_ADT_QB``: queries per tile; ``PQ_ADT_WIDE_TQ`` and
@@ -23,13 +28,28 @@ one staged ADT; ``L2_RERANK_WINDOW`` and ``L2_RERANK_ROWS``: candidates
 per warp and rows in flight; ``BITONIC_RANK_FROM``: the shortest list the
 rank merge takes, 0 sending every merge to it and 4096 none a warp holds;
 ``SCAN_THREADS``, ``SCAN_UNROLL`` and ``SCAN_TILE``: the step scan's
-threads a block, steps unrolled and steps staged at a time), checked
-against the plain version, then timed the way ``chip_smoke.py`` times a
+threads a block, steps unrolled and steps staged at a time;
+``L2_RERANK_WIDE_THREADS``, ``L2_RERANK_WIDE_WINDOW`` and
+``L2_RERANK_WIDE_ROWS``: the wide rerank's threads a block, candidates a
+block and rows in flight; ``SCAN_BWD_TILE`` and ``SCAN_BWD_CHUNK``: the
+backward's steps a register tile and steps staged a chunk), or with a
+text of it replaced (``SUBS``: the backward's decay as ``expf`` or as plain
+``ex2.approx`` of dt a log2 e, in place of ex2.approx of the argument moved
+up by one), checked against the plain version, then timed the way ``chip_smoke.py`` times a
 kernel (median of 30 launches, L2 flushed before each, CUDA events and the
 kernel's own CUPTI duration).  The rerank runs at mask densities from none
-to every row.  With ``--read-flush`` each timing is repeated after a flush
-that reads 64 MiB instead of writing it, which leaves the L2 clean rather
-than full of dirty lines.  ``--baseline DIR`` adds, to every group, the
+to every row, and with ``--round FILE`` (``scripts/retriever_round.py
+--save FILE``) the wide rerank also runs the image retriever's own calls:
+the one ``chip_smoke.py``'s ``masked_retriever_*`` entry times, and every
+call of that search batch in order (``retriever_batch``: the L2 flushed
+before the batch, not before each call; its CUPTI time is the sum of the
+batch's kernels).  The backward's errors are each gradient's largest over its
+largest magnitude, against the plain backward (run once a case).  With
+``--read-flush`` each timing is repeated after a flush that reads 64 MiB
+instead of writing it, which leaves the L2 clean rather than full of dirty
+lines.  The merge group also times the library yardstick beside each
+shape: ``torch.sort(stable=True)`` of the keys and four gathers (CUDA
+events).  ``--baseline DIR`` adds, to every group, the
 kernel source of the same name in DIR (another commit's
 ``src/repro_torch/kernels/csrc``, unpacked with ``git archive``) as the
 variant "baseline", so an earlier kernel and this one are timed in turns on
@@ -61,7 +81,22 @@ GROUPS = {
                                {"BITONIC_RANK_FROM": 4096}]),
     "scan": ("selective_scan", [{}, {"SCAN_THREADS": 128},
                                 {"SCAN_UNROLL": 4}, {"SCAN_TILE": 32}]),
+    "rerank_wide": ("l2_rerank", [
+        {}, {"L2_RERANK_WIDE_ROWS": 4}, {"L2_RERANK_WIDE_ROWS": 2},
+        {"L2_RERANK_WIDE_WINDOW": 16},
+        {"L2_RERANK_WIDE_THREADS": 256, "L2_RERANK_WIDE_ROWS": 2},
+        {"L2_RERANK_WIDE_THREADS": 1024},
+        {"L2_RERANK_WIDE_THREADS": 1024, "L2_RERANK_WIDE_ROWS": 4},
+        {"L2_RERANK_WIDE_THREADS": 1024, "L2_RERANK_WIDE_ROWS": 16}]),
+    "scan_bwd": ("selective_scan_bwd", [
+        {}, {"_sub": "expf"}, {"_sub": "ex2_plain"}, {"SCAN_BWD_TILE": 4},
+        {"SCAN_BWD_CHUNK": 64}]),
 }
+# source substitutions a variant names with "_sub": (old text, new text),
+# every occurrence replaced
+SUBS = {"expf": [("decay(dtv, rate2[j])", "expf(dtv * rate[j])")],
+        "ex2_plain": [("  return 0.5f * ex2(fmaf(dtv, r2, 1.f));",
+                       "  return ex2(dtv * r2);")]}
 # the merge's (Q, L, n) and the step scan's (B, S, di, ds, heads or None)
 MERGES = ((256, 128, 64), (256, 128, 256), (256, 256, 64), (256, 512, 64),
           (256, 1024, 64), (256, 1024, 256), (256, 2048, 64),
@@ -75,6 +110,16 @@ SCANS = {"falcon_prefill_2x2048": (2, 2048, 8192, 16, None, False),
          "falcon_decode_2": (2, 1, 8192, 16, None, True),
          "zamba2_decode_8": (8, 1, 4096, 64, 64, True)}
 DENSITIES = (0.0, 0.005, 0.09, 0.34, 1.0)
+# the wide rerank's (Q, K, D, N) and densities, spread evenly (the
+# retriever's own calls: --round)
+WIDE = ((256, 64, 2048, 8192), (256, 64, 1024, 8192))
+WIDE_DENSITIES = (0.0, 0.0007, 0.005, 0.09, 1.0)
+# Mamba-1's backward: (B, S, carried state, checked) at falcon-mamba-7b's
+# widths; (8, 2,048) is timed only (its plain backward's autograd graph
+# would hold tens of GB)
+SCAN_BWDS = {"falcon_bwd_2x2048": (2, 2048, False, True),
+             "falcon_bwd_2x2048_carried": (2, 2048, True, True),
+             "falcon_bwd_8x2048": (8, 2048, False, False)}
 
 
 def build(loader, out: Path, groups, baseline=None) -> dict:
@@ -84,15 +129,24 @@ def build(loader, out: Path, groups, baseline=None) -> dict:
     procs = {}
     for group in groups:
         name, variants = GROUPS[group]
-        todo = [("_".join(f"{k}{v}" for k, v in m.items()) or "default", m,
-                 loader._CSRC / f"{name}.cu") for m in variants]
+        todo = [("_".join(f"{k.strip('_')}{v}" for k, v in m.items())
+                 or "default", m, loader._CSRC / f"{name}.cu")
+                for m in variants]
         if baseline is not None:
             todo.append(("baseline", {}, Path(baseline) / f"{name}.cu"))
         for tag, macros, src in todo:
             so = out / f"lib{name}_{group}_{tag}.so"
+            if "_sub" in macros:
+                text = src.read_text()
+                for old, new in SUBS[macros["_sub"]]:
+                    if old not in text:
+                        raise SystemExit(f"{name}.cu no longer holds {old!r}")
+                    text = text.replace(old, new)
+                src = out / f"{name}_{group}_{tag}.cu"
+                src.write_text(text)
             cmd = [loader._nvcc(), *loader.NVCC_FLAGS,
-                   *(f"-D{k}={v}" for k, v in macros.items()), "-o", str(so),
-                   str(src)]
+                   *(f"-D{k}={v}" for k, v in macros.items()
+                     if not k.startswith("_")), "-o", str(so), str(src)]
             procs[(group, tag)] = (so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -119,6 +173,35 @@ class _ReadFlush:
         self.buf.sum()
 
 
+def _batch_ms(torch, cs, fn, flush, symbol, launches, reps=10):
+    """(events ms, summed CUPTI ms) of ``fn``, a call that launches
+    ``launches`` kernels named with ``symbol``: the median over ``reps``
+    calls, each after a flush and a ~1 ms spin; the CUPTI time is each
+    call's kernels summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    times = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            torch.cuda._sleep(cs.SPIN_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == cuda and symbol in e.name]
+    if len(kern) != reps * launches:
+        print(f"profiler kept {len(kern)} of {reps * launches} launches of "
+              f"{symbol!r}", file=sys.stderr)
+    return cs._median(times), sum(kern) / reps
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="results/kernel_variants")
@@ -128,6 +211,9 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", default=None,
                     help="a directory of kernel sources to time as the "
                          "variant 'baseline'")
+    ap.add_argument("--round", default=None,
+                    help="the image retriever's rerank calls "
+                         "(scripts/retriever_round.py --save)")
     args = ap.parse_args(argv)
 
     import torch
@@ -213,6 +299,35 @@ def main(argv=None) -> int:
     scan_args = {case: cs._scan_inputs(torch, dev, g, bsz, s, di, ds, nh,
                                        carried)
                  for case, (bsz, s, di, ds, nh, carried) in SCANS.items()}
+    bwd_args = {}
+    if "scan_bwd" in args.groups:
+        for case, (bsz, s, carried, _) in SCAN_BWDS.items():
+            a = cs._scan_inputs(torch, dev, g, bsz, s, 8192, 16, None,
+                                carried)
+            bwd_args[case] = a + [torch.randn(a[2].shape, generator=g,
+                                              device=dev),
+                                  torch.randn(a[5].shape, generator=g,
+                                              device=dev)]
+    wide_args = {}
+    if "rerank_wide" in args.groups:
+        for q_, k_, d_, n_ in WIDE:
+            table = torch.nn.functional.normalize(
+                torch.randn(n_, d_, generator=g, device=dev), dim=1)
+            qw = torch.nn.functional.normalize(
+                torch.randn(q_, d_, generator=g, device=dev), dim=1)
+            idw = torch.randint(0, n_, (q_, k_), generator=g, device=dev,
+                                dtype=torch.int32)
+            accw = torch.rand(q_, k_, generator=g, device=dev)
+            for x in WIDE_DENSITIES:
+                mk = torch.rand(q_, k_, generator=g, device=dev) < x
+                wide_args[f"D{d_}_masked_{x}"] = (
+                    qw, torch.where(mk, idw, -1), table, accw, mk, "ip")
+    round_calls = []
+    if args.round and "rerank_wide" in args.groups:
+        rd = torch.load(args.round, map_location=dev)
+        round_calls = [(rd["queries"][qi], ids_, rd["base"], acc_, mk,
+                        rd["metric"]) for qi, ids_, acc_, mk in rd["calls"]]
+        wide_args["retriever_round"] = round_calls[rd["captured"]]
 
     def merge_symbol(tag, l, n):
         from repro_torch.kernels.bitonic_topk import WARP_ROW, merge_kernel
@@ -235,6 +350,29 @@ def main(argv=None) -> int:
                        lambda a=a: ops.bitonic_merge_topl(*a),
                        lambda a=a: ops.bitonic_merge_topl_plain(*a), 0.0,
                        0.0, merge_symbol(tag, l, n))
+            return
+        if group == "rerank_wide":
+            # "l2_rerank" names the warp kernel and the wide one alike
+            for case, a in wide_args.items():
+                yield (case, lambda a=a: ops.l2_rerank_masked(*a),
+                       lambda a=a: ops.l2_rerank_masked_plain(*a), 1e-4,
+                       1e-3, "l2_rerank")
+            if round_calls:
+                yield ("retriever_batch",
+                       lambda: [ops.l2_rerank_masked(*a)
+                                for a in round_calls],
+                       lambda: [ops.l2_rerank_masked_plain(*a)
+                                for a in round_calls], 1e-4, 1e-3,
+                       ("l2_rerank", len(round_calls)))
+            return
+        if group == "scan_bwd":
+            for case, a in bwd_args.items():
+                yield (case, lambda a=a: ss.selective_scan_bwd_cuda(*a),
+                       (lambda a=a: ss.selective_scan_bwd_plain(*a, 256))
+                       if SCAN_BWDS[case][3] else None,
+                       None, None,
+                       ("selective_scan_bwd_kernel" if tag == "baseline"
+                        else "scan_bwd_tiles", "selective_scan_bwd_reduce"))
             return
         if group == "scan":
             for case, a in scan_args.items():
@@ -294,27 +432,56 @@ def main(argv=None) -> int:
                 got = kernel()
                 torch.cuda.synchronize()
                 errs = None
-                if group == "scan":     # the bar: 1e-5 of each max
-                    errs = []
-                    for gt, w in zip(got, plain_of(group, case, plain)):
-                        errs.append(float((gt - w).abs().max())
-                                    / float(w.abs().max()))
+                if group not in ("scan", "scan_bwd"):
+                    torch.testing.assert_close(got, plain(), rtol=rtol,
+                                               atol=atol)
+                    if group == "rerank_wide":      # two runs, the same bits
+                        again = kernel()
+                        if not all(map(torch.equal, got if isinstance(
+                                got, list) else [got], again if isinstance(
+                                again, list) else [again])):
+                            raise AssertionError(f"{tag} {case}: reruns "
+                                                 "differ")
+                elif plain is not None:     # the bar: 1e-5 of each max
+                    errs = [float((gt - w).abs().max()) / float(w.abs().max())
+                            for gt, w in zip(got,
+                                             plain_of(group, case, plain))]
                     if max(errs) > 1e-5:
                         print(f"{group} {tag} {case}: error over the bar "
                               f"{errs}", flush=True)
-                else:
-                    torch.testing.assert_close(got, plain(), rtol=rtol,
-                                               atol=atol)
                 for fname, flush in flushes.items():
-                    ms, cupti = cs._time_ms(torch, kernel, flush, symbol)
+                    ms, cupti = (_batch_ms(torch, cs, kernel, flush, *symbol)
+                                 if isinstance(symbol, tuple)
+                                 and isinstance(symbol[1], int) else
+                                 cs._time_ms(torch, kernel, flush, symbol))
                     rows.append({"rep": rep, "kernel": group, "variant": tag,
                                  "case": case, "flush": fname, "ms": ms,
                                  "cupti_ms": cupti, "rel_errs": errs})
                     print(f"{group} {tag} {case} flush={fname}: ms={ms:.4f} "
                           f"cupti_ms={cupti:.4f}"
-                          + (f" y_h_err/max={errs[0]:.2e},{errs[1]:.2e}"
+                          + (" err/max=" + ",".join(f"{e:.2e}" for e in errs)
                              if errs else ""), flush=True)
             loader._libs.pop(name)
+    if "merge" in args.groups:
+        # the library yardstick beside the merges: one stable sort of the
+        # list and the fresh candidates' keys, and the four gathers of the
+        # kept columns (chip_smoke.py's), CUDA events only
+        for (q_, l, n), (ids_, dl, acc_, ev, n_ids, nd) in merge_args.items():
+            cat = [torch.cat([ids_, n_ids], 1), torch.cat([dl, nd], 1),
+                   torch.cat([acc_, torch.full_like(nd, float("inf"))], 1),
+                   torch.cat([ev, torch.zeros_like(ev[:, :1]).expand(q_, n)],
+                             1)]
+
+            def sort_and_gathers(cat=cat, l=l):
+                order = torch.sort(cat[1], dim=1, stable=True).indices[:, :l]
+                return [t.gather(1, order) for t in cat]
+
+            ms = cs._time_ms(torch, sort_and_gathers, flushes["write"])
+            rows.append({"kernel": "merge", "variant": "library",
+                         "case": f"Q{q_}_L{l}_n{n}", "flush": "write",
+                         "ms": ms})
+            print(f"merge library Q{q_}_L{l}_n{n} flush=write: ms={ms:.4f} "
+                  "(torch.sort(stable=True) + 4 gathers)", flush=True)
     floor = {f: cs._time_ms(torch, lambda: torch.cuda._sleep(1), fl,
                             cs.SPIN_SYMBOL) for f, fl in flushes.items()}
     print(f"timing floor: {json.dumps(floor)}")

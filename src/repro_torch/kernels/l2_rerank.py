@@ -1,9 +1,14 @@
 """Accurate-distance reranking (paper §III-C / Alg.1 l.12+19).
 
 Replaces the TPU kernel ``src/repro/kernels/l2_rerank.py::l2_rerank``
-(``pl.pallas_call`` at ``l2_rerank.py:51``) with the CUDA kernel of
+(``pl.pallas_call`` at ``l2_rerank.py:51``) with the CUDA kernels of
 ``csrc/l2_rerank.cu``: one warp per 8 candidates of a query, the query row
-in registers, the rows the caller asks for loaded several at a time.
+in registers, the rows the caller asks for loaded several at a time; the
+masked entry's rows wider than 128 (the image retriever's 2,048) take the
+wide kernel, ``l2_rerank_wide_kernel``: a block per window of candidates
+whose threads each own a slice of every asked-for row, so all of a row is
+in flight after one ids -> rows latency.  The C launcher alone picks the
+kernel; both names hold ``l2_rerank``, which is how a profile finds them.
 
 * ``l2_rerank``: (Q, D) queries, (Q, K, D) gathered rows -> (Q, K) in the
   TPU kernel's expanded form, l2 ||q||^2 - 2 q.x + ||x||^2, ip -q.x — the
@@ -24,7 +29,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import loader
-
 
 def exact_dist(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
     """q (Q, D), x (Q, K, D) -> (Q, K), direct form (the reference search's

@@ -8,8 +8,9 @@ fused scan), and its JAX gradient, with the CUDA kernels of
 ``csrc/selective_scan.cu`` (forward: a (batch row, channel)'s states split
 4 a lane over a group of lanes, in registers, stepping through time) and
 ``csrc/selective_scan_bwd.cu`` (backward: a reverse scan over states
-recomputed from stored chunk boundaries; its header has the design) — the
-step kernels — and, for Mamba-2, ``csrc/selective_scan_ssd.cu``: the same
+recomputed from stored chunk boundaries, Mamba-1's in chunks staged in
+shared memory ahead of use and 8-step register tiles; its header has the
+designs) — the step kernels — and, for Mamba-2, ``csrc/selective_scan_ssd.cu``: the same
 function in its chunked matrix (state-space duality, SSD) form, forward and
 backward, on the tensor cores.  ``ssd_route`` picks the route by shape
 (Mamba-2, head and state widths multiples of 8 up to 64, S > 1 forward and
@@ -46,9 +47,10 @@ raises).
 
 What bounds the kernels on the card: the forward, the bytes of dt, x and y
 at zamba2's shapes, the B * S * di * ds exps at falcon-mamba's; the
-backward, the same bytes with gy, dx and ddt added, or the same exps (the
-step kernel takes each four times: three forward reruns and the reverse
-step).  The SSD kernels' three-pass TF32 products take about as long at
+backward, the same bytes with gy, dx and ddt added, or the same exps
+(Mamba-1's tiled kernel takes each at most three times, in three forward
+passes whose decays the reverse step reuses; Mamba-2's step kernel four
+times).  The SSD kernels' three-pass TF32 products take about as long at
 the tensor cores' rate as zamba2's bytes (``csrc/selective_scan_ssd.cu``).
 The launches count under ``selective_scan`` / ``selective_scan_bwd`` (the
 step kernels) and ``selective_scan_ssd`` / ``selective_scan_ssd_bwd``

@@ -201,17 +201,21 @@ def test_l2_rerank_kernels(cuda, q, k, d, metric):
 
 @pytest.mark.parametrize("q,k,d", [(256, 128, 128), (7, 128, 96),
                                    (5, 45, 36), (3, 100, 21), (4, 70, 130),
-                                   (2, 33, 300)])
+                                   (2, 33, 300), (6, 64, 1024), (5, 64, 2048),
+                                   (3, 40, 2049), (2, 70, 4100)])
 @pytest.mark.parametrize("density", [0.0, 0.05, 1.0],
                          ids=["none", "sparse", "all"])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_l2_rerank_masked_kernel(cuda, q, k, d, density, metric):
     """The masked entry against its plain version: the direct form where
     the mask holds (rtol 1e-4 / atol 1e-3, the warp sums in a tree), acc
-    bit for bit elsewhere, -1 padding outside the mask never read.  D=128,
-    96 and 36 hold the query in registers as float4; 21 and 130 take scalar
-    loads; 300 loops over 128-wide chunks."""
-    big_n = 20000
+    bit for bit elsewhere, -1 padding outside the mask never read, two
+    runs bit-equal.  D=128, 96 and 36 hold the query in registers as
+    float4; 21 and 130 take scalar loads; D > 128 takes the wide kernel (a
+    block a window, 4 elements a thread and 2,048-wide pass): 300, 1,024
+    and 2,048 in one pass of float4 loads, 2,049 of scalar ones in two,
+    4,100 in three."""
+    big_n = 20000 if d <= 300 else 4000
     qs = _t(RNG.standard_normal((q, d)).astype(np.float32), cuda)
     base_np = RNG.standard_normal((big_n, d)).astype(np.float32)
     mask_np = RNG.random((q, k)) < density
@@ -226,17 +230,19 @@ def test_l2_rerank_masked_kernel(cuda, q, k, d, density, metric):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
     keep = ~args[3]
     assert torch.equal(got[keep], args[2][keep])
+    assert torch.equal(got, ops.l2_rerank_masked(qs, *args, metric))
 
 
 _RERANK_TRAP_CHILD = """
 import sys, torch
 from repro_torch.kernels import l2_rerank
-q, k, d, n = 4, 64, 128, 1000
+q, k, n = 4, 64, 1000
+d = 2048 if sys.argv[1].endswith("wide") else 128
 ids = torch.randint(0, n, (q, k), dtype=torch.int32, device="cuda")
 mask = torch.zeros((q, k), dtype=torch.bool, device="cuda")
 mask[1, 5] = True
 ids[2, 7] = n + 3                       # out of range, but not asked for
-if sys.argv[1] == "masked_bad_id":
+if sys.argv[1].startswith("masked_bad_id"):
     ids[1, 5] = n
 l2_rerank.l2_rerank_masked_cuda(
     torch.zeros((q, d), device="cuda"), ids, torch.zeros((n, d), device="cuda"),
@@ -246,17 +252,19 @@ print("reranked")
 """
 
 
-@pytest.mark.parametrize("case", ["unmasked_bad_id", "masked_bad_id"])
+@pytest.mark.parametrize("case", ["unmasked_bad_id", "masked_bad_id",
+                                  "unmasked_bad_id_wide",
+                                  "masked_bad_id_wide"])
 def test_l2_rerank_masked_kernel_traps_on_masked_bad_id(cuda, case):
     """An id outside [0, N) that the mask asks for traps; one the mask does
-    not ask for is never read.  A trap ends the CUDA context, so the call
-    runs in a child process."""
+    not ask for is never read (D=128 and the wide kernel's 2,048).  A trap
+    ends the CUDA context, so the call runs in a child process."""
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
     env = dict(os.environ, PYTHONPATH=str(src))
     r = subprocess.run([sys.executable, "-c", _RERANK_TRAP_CHILD, case],
                        capture_output=True, text=True, env=env, timeout=300)
     ran = r.returncode == 0 and "reranked" in r.stdout
-    assert ran == (case == "unmasked_bad_id"), r.stderr[-2000:]
+    assert ran == case.startswith("unmasked"), r.stderr[-2000:]
 
 
 def _merge_inputs(q, l, n):
@@ -1399,18 +1407,20 @@ def _cotangents(dev, bsz, s, di, ds, seed=1):
             for sh in ((bsz, s, di), (bsz, di, ds))]
 
 
-@pytest.mark.parametrize("s", [1, 7, 128, 3 * 128 + 5])
+@pytest.mark.parametrize("s", [1, 7, 15, 16, 17, 33, 128, 3 * 128 + 5])
 @pytest.mark.parametrize("ds", [4, 16, 48, 64, 128])
 @pytest.mark.parametrize("heads", [False, True], ids=["mamba1", "mamba2"])
 @pytest.mark.parametrize("carried", [False, True], ids=["zero", "carried"])
 def test_selective_scan_bwd_kernel(cuda, heads, ds, s, carried):
-    """Both entries' backward kernel against the plain backward: S = 1, 7,
-    the kernel's 128-step chunk and three chunks and a ragged tile; ds
-    padded (48) and at the kernel's 128; di 80 (Mamba-1, no multiple of a
-    block's channels) and 4 heads of 48 (Mamba-2, heads split across
-    blocks); each gradient within SCAN_TOL of its largest magnitude; one
-    launch a call, of the kernel the shapes pick (Mamba-2 at ds 16, 48 and
-    64 and S >= SSD_BWD_MIN_STEPS: the SSD kernels)."""
+    """Both entries' backward kernel against the plain backward: S = 1, 7;
+    15, 16, 17 and 33 at the edges of Mamba-1's 8-step register tile and
+    its chunk of 8 (ds 4), 16 (ds 8) or 32 steps; Mamba-2's 128-step chunk
+    and three chunks and a ragged tile; ds padded (48) and at the kernels'
+    128; di 80 (Mamba-1, no multiple of a block's channels) and 4 heads of
+    48 (Mamba-2, heads split across blocks); each gradient within SCAN_TOL
+    of its largest magnitude; one launch a call, of the kernel the shapes
+    pick (Mamba-2 at ds 16, 48 and 64 and S >= SSD_BWD_MIN_STEPS: the SSD
+    kernels; Mamba-1: the tiled kernel)."""
     di, nh = (192, 4) if heads else (80, None)
     args = _scan_inputs(cuda, 2, s, di, ds, nh, carried)
     gy, gh = _cotangents(cuda, 2, s, di, ds)
